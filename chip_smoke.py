@@ -2,16 +2,21 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels of `qhbmlib_tpu_torch/csrc/` with nvcc, holds each
-kernel against its plain PyTorch version at the shapes of the 20-qubit
-workload, holds the batched forward (K4 port) and reverse sweep (K5 port)
-against their plain versions, then runs the 20-qubit / 4-layer VQT train
-step (500 samples, 64 unique states, TFIM target, beta = 1.2, Adam 1e-2) for
-a warm-up and three timed steps on cuda:0.  Before the last line it prints a
-JSON line {"kernels": [...]} with each kernel's launches during the train
-steps, its error against the plain version, and both times; the last line
-is {"ok": true, "device": {...}}.  It exits non-zero without a CUDA device,
-and on any failed check.  Imports no jax.
+Builds the CUDA kernels of `qhbmlib_tpu_torch/csrc/` with nvcc and holds
+each of the seven against its plain PyTorch version: `axis_apply`,
+`diag_rotate`, `axis_gram`, `parity_bilinear` at the 20-qubit shapes;
+`axis2_apply` (K1) at the 24- and 20-qubit pass shapes; `circuit_forward`
+(K3) and `adjoint_sweep` (K2) at 20q/4L for one random state.  Then it
+holds the batched forward and sweep against their plain versions and the
+9-qubit VQT loss and single-state `adjoint.expectation` against the CPU,
+and drives the main paths, each with every launch count reset just
+before it: the VQT train step (TFIM target, beta = 1.2, Adam 1e-2) at
+20q/4L/500 samples/64 unique and 24q/2L/100/8 for a warm-up and three
+timed steps, and three single-state value-and-gradient calls at 20q/4L.
+Before the last line it prints a JSON line {"kernels": [...]} with each
+kernel's launches on the main paths, its error against the plain version,
+and both times; the last line is {"ok": true, "device": {...}}.  It exits
+non-zero without a CUDA device, and on any failed check.  Imports no jax.
 """
 
 from __future__ import annotations
@@ -35,6 +40,13 @@ BETA = 1.2
 BATCH = 8  # states in the kernel and K4/K5 comparisons
 STEPS = 3
 SEED = 0
+# The JAX bench's 24-qubit workload (bench.py:50): 2 layers, 100 samples,
+# 8 unique states.
+N24 = 24
+LAYERS24 = 2
+SAMPLES24 = 100
+MAX_UNIQUE24 = 8
+SINGLE_CALLS = 3  # single-state value-and-gradient calls at 20q/4L
 # ||kernel - plain||_2 / ||plain||_2 limits.  States: both versions are fp32
 # with the same products in another summation order.  Grams and bilinears
 # sum ~10^5-10^6 products per entry, so their order differs more.
@@ -90,11 +102,15 @@ def main_path_operands(device):
   gen = torch.Generator().manual_seed(SEED)
   values = torch.rand(pqc.num_symbols, generator=gen) * 2.0
   stages = hopper_sv.prepare_segments(pqc, values, device)
+  ops = hopper_sv.forward_plan(pqc, values)[0][1]  # the first 1q segment
+  moved = iter(hopper_sv.to_device(
+      [t for _, op in ops for t in hopper_sv.split(op)], device))
+  ops = [(bits, (next(moved), next(moved))) for bits, _ in ops]
   r, c = sv.state_shape(N_QUBITS)
   dgen = torch.Generator(device=device).manual_seed(SEED)
   planes = [torch.randn((BATCH, r, c), generator=dgen, device=device)
             for _ in range(4)]
-  return pqc, values, stages, planes
+  return pqc, values, stages, ops, planes
 
 
 def phase_kernels(device):
@@ -102,18 +118,13 @@ def phase_kernels(device):
   from qhbmlib_tpu_torch.ops import hopper_adjoint as ha
   from qhbmlib_tpu_torch.ops import hopper_sv as hs
   from qhbmlib_tpu_torch.ops import statevector as sv
-  pqc, _, stages, (x_re, x_im, l_re, l_im) = main_path_operands(device)
-  b, r, c = x_re.shape
-  # First layer: rowblock (0,7), rowblock (7,6), minor, diag.
-  ops1q = [s for s in stages[:4] if s[0] != "diag"]
-  cos_t, sin_t = next(s for s in stages if s[0] == "diag")[2]
-  shapes = []
-  for kind, meta, ops in ops1q:
-    if kind == "rowblock":
-      start, k = meta
-      shapes.append(((b << start, 2**k, (r * c) >> (start + k)), ops))
-    else:
-      shapes.append(((b * r, c, 1), ops))
+  pqc, _, stages, ops1q, (x_re, x_im, l_re, l_im) = main_path_operands(
+      device)
+  b = x_re.shape[0]
+  # First layer: rowblock (0,7), rowblock (7,6), minor, then diag.
+  cos_t, sin_t = next(body for kind, body in stages if kind == "diag")
+  shapes = [((b << s, 2**k, 2**(N_QUBITS - s - k)), ops)
+            for (s, k), ops in ops1q]
   report = {}
 
   def apply_all(fn):
@@ -254,17 +265,34 @@ def kernel_wrappers():
   from qhbmlib_tpu_torch.ops import hopper_adjoint as ha
   from qhbmlib_tpu_torch.ops import hopper_sv as hs
   return {"axis_apply": hs.axis_apply, "diag_rotate": hs.diag_rotate,
-          "axis_gram": ha.axis_gram, "parity_bilinear": ha.parity_bilinear}
+          "axis_gram": ha.axis_gram, "parity_bilinear": ha.parity_bilinear,
+          "axis2_apply": hs.axis2_apply,
+          "circuit_forward": hs.circuit_forward,
+          "adjoint_sweep": ha.adjoint_sweep}
 
 
-def phase_train(device):
-  """Warm-up plus STEPS timed 20q/4L VQT train steps; returns (launches,
-  step times in ms)."""
-  h, loss_fn = build_vqt(device, N_QUBITS, LAYERS, SAMPLES, MAX_UNIQUE)
-  opt = torch.optim.Adam(h.parameters(), lr=1e-2)
-  wrappers = kernel_wrappers()
-  for fn in wrappers.values():
+def reset_launches() -> None:
+  for fn in kernel_wrappers().values():
     fn.launches = 0
+
+
+def read_launches(path: str, required) -> dict:
+  """The counts since reset_launches(); fails if a kernel of `path` never
+  launched."""
+  launches = {name: fn.launches for name, fn in kernel_wrappers().items()}
+  log(f"[{path}] kernel launches: {launches}")
+  for name in required:
+    if launches[name] <= 0:
+      raise AssertionError(f"{path}: kernel {name} never launched")
+  return launches
+
+
+def phase_train(device, n, layers, samples, max_unique, required):
+  """Warm-up plus STEPS timed VQT train steps; returns the launches."""
+  h, loss_fn = build_vqt(device, n, layers, samples, max_unique)
+  opt = torch.optim.Adam(h.parameters(), lr=1e-2)
+  tag = f"train {n}q/{layers}L"
+  reset_launches()
   times = []
   for step in range(STEPS + 1):
     start = torch.cuda.Event(enable_timing=True)
@@ -280,19 +308,222 @@ def phase_train(device):
     finite = bool(torch.isfinite(loss)) and all(
         bool(torch.isfinite(g).all()) for g in grads)
     grad_norm = float(torch.cat(grads).norm())
-    log(f"[train] step {step}{' (warm-up)' if step == 0 else ''}: loss "
+    log(f"[{tag}] step {step}{' (warm-up)' if step == 0 else ''}: loss "
         f"{float(loss.detach()):.6f}, |grad| {grad_norm:.4e}, "
         f"{start.elapsed_time(end):.2f} ms")
     if not finite:
-      raise AssertionError(f"step {step}: non-finite loss or gradient")
+      raise AssertionError(f"{tag} step {step}: non-finite loss or gradient")
     if step > 0:
       times.append(start.elapsed_time(end))
-  launches = {name: fn.launches for name, fn in wrappers.items()}
-  log(f"[train] kernel launches over {STEPS + 1} steps: {launches}")
-  for name, count in launches.items():
-    if count <= 0:
-      raise AssertionError(f"kernel {name} never launched on the main path")
-  return launches, times
+  launches = read_launches(tag, required)
+  log(f"[{tag}] {samples} samples/{max_unique} unique: mean step "
+      f"{sum(times) / len(times):.2f} ms over {STEPS} steps "
+      f"({', '.join(f'{t:.2f}' for t in times)})")
+  return launches
+
+
+def first_segment_passes(n, device):
+  """The K1 passes of the first 1q segment of the n-qubit ansatz, with
+  seeded angles, on `device`."""
+  from qhbmlib_tpu_torch.models import circuit_utils
+  from qhbmlib_tpu_torch.ops import hopper_sv
+  from qhbmlib_tpu_torch.ops import statevector as sv
+  pqc = circuit_utils.hardware_efficient_ansatz(n, 2)
+  values = torch.rand(pqc.num_symbols,
+                      generator=torch.Generator().manual_seed(SEED)) * 2.0
+  ops = hopper_sv.forward_plan(pqc, values)[0][1]
+  return hopper_sv.device_passes(ops, n - sv.minor_bits(n), device)
+
+
+def phase_k1(device):
+  """axis2_apply (K1) against its plain version on the passes of a 1q
+  segment at 24q and 20q, B = BATCH; returns the 24q record."""
+  from qhbmlib_tpu_torch.ops import hopper_sv as hs
+  from qhbmlib_tpu_torch.ops import statevector as sv
+  report = None
+  for n in (N24, N_QUBITS):
+    passes = first_segment_passes(n, device)
+    pairs = [p for p in passes if len(p) == 4]
+    r, c = sv.state_shape(n)
+    dgen = torch.Generator(device=device).manual_seed(SEED + n)
+    x = [tuple(torch.randn((BATCH, r, c), generator=dgen, device=device)
+               for _ in range(2))]
+
+    def run(plain):
+      return [hs.apply_pass(p, x, n, plain)[0] for p in pairs]
+
+    got, ref = run(False), run(True)
+    err = max(rel_err(torch.cat(g), torch.cat(f)) for g, f in zip(got, ref))
+    views = [f"({s1},{k1})x({s2},{k2})" for (s1, k1), _, (s2, k2), _ in pairs]
+    check(f"axis2_apply {n}q B={BATCH} passes {' '.join(views)}", err,
+          STATE_TOL)
+    rec = dict(err=err, max_abs_err=max(max_abs(torch.cat(g), torch.cat(f))
+                                        for g, f in zip(got, ref)),
+               ms=cuda_ms(lambda: run(False), reps=5),
+               plain_ms=cuda_ms(lambda: run(True), reps=5))
+    # The same operators one axis_apply pass each, as before K1.
+    singles = [(p[0], p[1]) for p in pairs] + [(p[2], p[3]) for p in pairs]
+    unfused_ms = cuda_ms(lambda: [hs.apply_pass(p, x, n) for p in singles],
+                         reps=5)
+    log(f"[kernels] axis2_apply {n}q ({len(pairs)} passes, B={BATCH}): "
+        f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, the "
+        f"same operators as {len(singles)} axis_apply passes {unfused_ms:.4f}"
+        f" ms, max abs err {rec['max_abs_err']:.3e}")
+    del got, ref, x
+    torch.cuda.empty_cache()
+    report = report or rec
+  return report
+
+
+def random_state(n, device, seed):
+  """A seeded random normalized [R, C] complex64 state on `device`."""
+  from qhbmlib_tpu_torch.ops import statevector as sv
+  gen = torch.Generator(device=device).manual_seed(seed)
+  st = torch.complex(*(torch.randn(sv.state_shape(n), generator=gen,
+                                   device=device) for _ in range(2)))
+  return st / torch.linalg.vector_norm(st)
+
+
+def phase_single_kernels(device):
+  """K3 (circuit_forward) and K2 (adjoint_sweep) against their plain
+  versions at 20q/4L for one random normalized state; returns both
+  records.  A record's `ms` times the cooperative launch alone, on a stage
+  table and state buffers built beforehand; `wrapper_ms` times the whole
+  wrapper (host stage table, copies, and for K2 the device->host copy and
+  the gradient assembly)."""
+  from qhbmlib_tpu_torch.models import circuit_utils
+  from qhbmlib_tpu_torch.ops import hopper_adjoint as ha
+  from qhbmlib_tpu_torch.ops import hopper_sv as hs
+  from qhbmlib_tpu_torch.ops import paulis
+  from qhbmlib_tpu_torch.ops import statevector as sv
+  n = N_QUBITS
+  pqc = circuit_utils.hardware_efficient_ansatz(n, LAYERS)
+  gen = torch.Generator().manual_seed(SEED + 4)
+  values = torch.rand(pqc.num_symbols, generator=gen) * 2.0
+  x = random_state(n, device, SEED + 5)
+  planes = (x.real.contiguous(), x.imag.contiguous())
+  got = hs.circuit_forward(pqc, values, planes)
+  ref = hs.circuit_forward(pqc, values, planes, plain=True)
+  err = rel_err(torch.cat(got), torch.cat(ref))
+  check(f"circuit_forward (K3) {n}q/{LAYERS}L", err, STATE_TOL)
+  table, buf = hs.forward_table(pqc, values, device), hs.state_buffer(planes)
+  blocks = hs.sweep_blocks(device, 1)
+  k3 = dict(err=err, max_abs_err=max_abs(torch.cat(got), torch.cat(ref)),
+            ms=cuda_ms(lambda: hs.launch_circuit_forward(table, buf, blocks)),
+            wrapper_ms=cuda_ms(lambda: hs.circuit_forward(pqc, values,
+                                                          planes)),
+            plain_ms=cuda_ms(lambda: hs.circuit_forward(pqc, values, planes,
+                                                        plain=True)))
+  op = paulis.tfim_1d(n, device=device)
+  g = torch.rand(op.num_terms, generator=gen).to(device) - 0.5
+  ones = paulis.PauliSum(op.codes, torch.ones_like(op.coeffs), n)
+  lam = sv.apply_pauli_sum(torch.complex(*ref), ones, term_weights=g)
+  lam = (lam.real.contiguous(), lam.imag.contiguous())
+  grad = ha.adjoint_sweep(pqc, values, ref, lam)
+  grad_ref = ha.adjoint_sweep(pqc, values, ref, lam, plain=True)
+  if not bool(torch.isfinite(grad).all()):
+    raise AssertionError("K2 gradient is not finite")
+  err = rel_err(grad.cpu(), grad_ref.cpu())
+  check(f"adjoint_sweep (K2) {n}q/{LAYERS}L gradient, TFIM", err, GRAD_TOL)
+  table, _, _ = ha.sweep_table(pqc, values, device)
+  bufs = hs.state_buffer(ref), hs.state_buffer(lam)
+  blocks = hs.sweep_blocks(device, 2)
+  k2 = dict(err=err, max_abs_err=max_abs(grad.cpu(), grad_ref.cpu()),
+            ms=cuda_ms(lambda: ha.launch_adjoint_sweep(table, *bufs, blocks)),
+            wrapper_ms=cuda_ms(lambda: ha.adjoint_sweep(pqc, values, ref,
+                                                        lam), reps=5),
+            plain_ms=cuda_ms(lambda: ha.adjoint_sweep(pqc, values, ref, lam,
+                                                      plain=True), reps=5))
+  for name, rec in (("circuit_forward", k3), ("adjoint_sweep", k2)):
+    log(f"[kernels] {name} {n}q/{LAYERS}L: kernel {rec['ms']:.4f} ms (the "
+        f"launch alone; the whole wrapper {rec['wrapper_ms']:.4f} ms), plain "
+        f"{rec['plain_ms']:.4f} ms, max abs err {rec['max_abs_err']:.3e}")
+  return k3, k2
+
+
+def phase_long_diag(device, n=9, reps=10):
+  """K3 and K2 against their plain versions on a diagonal segment of more
+  parity factors than one stage record holds (reps all-to-all symbolic CZ
+  layers: 4 factors a gate), which the stage table splits."""
+  from qhbmlib_tpu_torch.ops import circuit_ir
+  from qhbmlib_tpu_torch.ops import hopper_adjoint as ha
+  from qhbmlib_tpu_torch.ops import hopper_sv as hs
+  from qhbmlib_tpu_torch.ops import paulis
+  from qhbmlib_tpu_torch.ops import statevector as sv
+  b = circuit_ir.CircuitBuilder(n)
+  for q in range(n):
+    b.rx(q, f"x{q}")
+  for r in range(reps):
+    for i in range(n):
+      for j in range(i + 1, n):
+        b.cz(i, j, f"c{r}")
+  for q in range(n):
+    b.ry(q, f"y{q}")
+  pqc = b.build()
+  gen = torch.Generator().manual_seed(SEED + 7)
+  values = torch.rand(pqc.num_symbols, generator=gen) * 2.0 - 1.0
+  x = random_state(n, device, SEED + 8)
+  planes = (x.real.contiguous(), x.imag.contiguous())
+  got = hs.circuit_forward(pqc, values, planes)
+  ref = hs.circuit_forward(pqc, values, planes, plain=True)
+  k = 4 * reps * n * (n - 1) // 2
+  check(f"circuit_forward (K3) {n}q, one diag segment of K={k} > "
+        f"{hs.MAX_FACTORS}", rel_err(torch.cat(got), torch.cat(ref)),
+        STATE_TOL)
+  op = paulis.tfim_1d(n, device=device)
+  g = torch.rand(op.num_terms, generator=gen).to(device) - 0.5
+  ones = paulis.PauliSum(op.codes, torch.ones_like(op.coeffs), n)
+  lam = sv.apply_pauli_sum(torch.complex(*ref), ones, term_weights=g)
+  lam = (lam.real.contiguous(), lam.imag.contiguous())
+  grad = ha.adjoint_sweep(pqc, values, ref, lam)
+  grad_ref = ha.adjoint_sweep(pqc, values, ref, lam, plain=True)
+  check(f"adjoint_sweep (K2) {n}q, K={k} gradient",
+        rel_err(grad.cpu(), grad_ref.cpu()), GRAD_TOL)
+
+
+def single_value_and_grad(device, n, layers, seed):
+  """adjoint.expectation of the TFIM and its gradient for one random
+  normalized state."""
+  from qhbmlib_tpu_torch.models import circuit_utils
+  from qhbmlib_tpu_torch.ops import adjoint
+  from qhbmlib_tpu_torch.ops import paulis
+  pqc = circuit_utils.hardware_efficient_ansatz(n, layers)
+  gen = torch.Generator().manual_seed(seed)
+  values = (torch.rand(pqc.num_symbols, generator=gen) * 2.0).to(device)
+  values.requires_grad_(True)
+  state = random_state(n, "cpu", seed).to(device)
+  value = adjoint.expectation(pqc, values, state,
+                              paulis.tfim_1d(n, device=device))
+  value.backward()
+  return value.detach(), values.grad.detach()
+
+
+def phase_single_small(device):
+  """adjoint.expectation value and gradient at 9q/2L, card vs CPU."""
+  v_dev, g_dev = single_value_and_grad(device, 9, 2, SEED + 6)
+  v_cpu, g_cpu = single_value_and_grad("cpu", 9, 2, SEED + 6)
+  check("9q/2L adjoint.expectation value, card vs CPU",
+        rel_err(v_dev.cpu(), v_cpu), STATE_TOL)
+  check("9q/2L adjoint.expectation gradient, card vs CPU",
+        rel_err(g_dev.cpu(), g_cpu), GRAD_TOL)
+
+
+def phase_single_main(device):
+  """SINGLE_CALLS single-state value-and-gradient calls at 20q/4L (the
+  single-state engine's main path: K3 forward, K2 sweep)."""
+  reset_launches()
+  for call in range(SINGLE_CALLS):
+    t0 = time.time()
+    value, grad = single_value_and_grad(device, N_QUBITS, LAYERS,
+                                        SEED + 10 + call)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3
+    if not (bool(torch.isfinite(value)) and bool(torch.isfinite(grad).all())):
+      raise AssertionError(f"single-state call {call}: non-finite result")
+    log(f"[single {N_QUBITS}q/{LAYERS}L] call {call}: <H> {float(value):.6f}"
+        f", |grad| {float(grad.norm()):.4e}, {ms:.2f} ms (host clock)")
+  return read_launches(f"single {N_QUBITS}q/{LAYERS}L",
+                       ["circuit_forward", "adjoint_sweep"])
 
 
 SOURCE = "qhbmlib_tpu_torch/csrc/statevector_kernels.cu"
@@ -301,7 +532,25 @@ REPLACES = {
     "diag_rotate": "qhbmlib_tpu/ops/pallas_sv.py:459",
     "axis_gram": "qhbmlib_tpu/ops/pallas_adjoint.py:540",
     "parity_bilinear": "qhbmlib_tpu/ops/pallas_adjoint.py:540",
+    "axis2_apply": "qhbmlib_tpu/ops/pallas_sv.py:615",
+    "circuit_forward": "qhbmlib_tpu/ops/pallas_sv.py:667",
+    "adjoint_sweep": "qhbmlib_tpu/ops/pallas_adjoint.py:480",
 }
+BATCHED = ["axis_apply", "diag_rotate", "axis_gram", "parity_bilinear",
+           "axis2_apply"]
+
+
+def kernel_name(entry: str, source: str) -> str:
+  """`name<N>` of the kernel whose mangled symbol opens a ptxas entry: the
+  source's *_kernel name that the symbol holds as <length><name>."""
+  mangled = re.match(r"'(\w+)'", entry).group(1)
+  for name in sorted(set(re.findall(r"\b([a-z]\w*_kernel)\b", source))):
+    at = mangled.find(f"{len(name)}{name}")
+    if at >= 0:
+      tmpl = re.match(r"ILi(\d+)", mangled[at + len(str(len(name))) +
+                                           len(name):])
+      return name + (f"<{tmpl.group(1)}>" if tmpl else "")
+  return mangled
 
 
 def main() -> int:
@@ -334,18 +583,34 @@ def main() -> int:
                                           _cuda.last_build_log))
   log(f"[build] ptxas: {len(regs)} kernels, at most {max(regs, default=0)} "
       f"registers per thread, {spills} bytes of spill stores")
+  source = "".join(src.read_text() for src in _cuda.sources())
+  for entry in re.split(r"Compiling entry function ", _cuda.last_build_log)[1:]:
+    log(f"[build] ptxas {kernel_name(entry, source)}: "
+        f"{re.search(r'Used (\d+) registers', entry).group(1)} registers, "
+        f"{re.search(r'(\d+) bytes spill stores', entry).group(1)} bytes "
+        "spill stores")
 
   report = phase_kernels(device)
+  report["axis2_apply"] = phase_k1(device)
+  report["circuit_forward"], report["adjoint_sweep"] = (
+      phase_single_kernels(device))
   phase_end_to_end(device)
   phase_small_reference(device)
-  launches, times = phase_train(device)
-  mean_ms = sum(times) / len(times)
-  log(f"[train] {N_QUBITS}q/{LAYERS}L/{SAMPLES} samples/{MAX_UNIQUE} unique: "
-      f"mean step {mean_ms:.2f} ms over {STEPS} steps "
-      f"({', '.join(f'{t:.2f}' for t in times)}) on {card}")
+  phase_single_small(device)
+  phase_long_diag(device)
+  # The main paths, each driven with every count at 0 just before it.
+  paths = [
+      phase_train(device, N_QUBITS, LAYERS, SAMPLES, MAX_UNIQUE, BATCHED),
+      # Every 24q operator pairs into an axis2_apply pass: no axis_apply.
+      phase_train(device, N24, LAYERS24, SAMPLES24, MAX_UNIQUE24,
+                  [k for k in BATCHED if k != "axis_apply"]),
+      phase_single_main(device),
+  ]
+  log(f"[done] on {card}, {time.time() - t0:.1f} s since the build started")
   kernels = [{
       "name": name, "route": "cuda", "source": SOURCE,
-      "replaces": REPLACES[name], "launches": launches[name],
+      "replaces": REPLACES[name],
+      "launches": sum(path[name] for path in paths),
       "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
       "plain_ms": rec["plain_ms"]} for name, rec in report.items()]
   print(json.dumps({"kernels": kernels}))

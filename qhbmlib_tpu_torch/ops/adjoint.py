@@ -1,17 +1,24 @@
-"""Adjoint-differentiated batched expectations.
+"""Adjoint-differentiated expectations.
 
-Port of `qhbmlib_tpu/ops/adjoint.py::batched_expectations` along the branch
-the grid-over-batch Pallas kernels take (`_bt_fwd` / `_bt_bwd` under
+Port of `qhbmlib_tpu/ops/adjoint.py`: `batched_expectations` along the
+branch the grid-over-batch Pallas kernels take (`_bt_fwd` / `_bt_bwd` under
 `_use_pallas_batched`, :380-454):
 
-  forward:  psi_b = U |b> for every bitstring b (`hopper_sv`, K4), then
-            the per-term expectations <psi_b|P_t|psi_b>; psi is the residual.
+  forward:  psi_b = U |b> for every bitstring b (`hopper_sv`, K4 / K1),
+            then the per-term expectations <psi_b|P_t|psi_b>; psi is the
+            residual.
   backward: lambda_b = sum_t g_bt P_t psi_b (`apply_pauli_sum`), then one
             batched reverse sweep (`hopper_adjoint`, K5) gives the
             batch-summed symbol gradient.
 
 The whole batch runs at once (no `batch_chunk`): at 20 qubits and 64 states
 the residual planes take 512 MB of device memory.
+
+`adjoint_term_expectations` / `expectation` are the per-state API
+(:29-48, :308) for one state of any content: the forward is
+`statevector.apply_circuit` (K3 on the card for 8 <= n <= 20), the backward
+one reverse sweep (K2 there; `reverse_sweep`, the port of
+`_xla_reverse_sweep`, is its plain version).
 """
 
 from __future__ import annotations
@@ -93,6 +100,150 @@ def batched_expectations(circuit: ir.Circuit, symbol_values: torch.Tensor,
                               big.to(device))  # [B, T]
   weighted = terms * big.coeffs.to(device)[None, :]
   return torch.stack([weighted[:, a:b].sum(dim=1) for a, b in slices], dim=1)
+
+
+# -- one state: adjoint_term_expectations / expectation ------------------------
+
+def _bwd_diag_segment(seg_gates, seg_angles, a, lam):
+  """Reverse step through a run of diagonal gates: ([(slot, dE)], a, lam).
+
+  For U_g = exp(i angle_g m_g(x)), dE/dangle_g = -2 sum_x m_g(x)
+  Im(conj(lam) a) with `a` after the whole segment; both states then take
+  one shared phase multiply by exp(-i theta)."""
+  n = sv.num_qubits_of(a)
+  m = int(a.shape[1]).bit_length() - 1
+  coeffs, rms, cms, owner = sv.diag_segment_triples(seg_gates, n - m, m)
+  grads = []
+  if any(gate.slot >= 0 for gate in seg_gates):
+    w = (lam.conj() * a).imag
+    keep = [k for k in range(len(owner)) if seg_gates[owner[k]].slot >= 0]
+    per_factor = sv.parity_bilinear([rms[k] for k in keep],
+                                    [cms[k] for k in keep], w).tolist()
+    for g_idx, gate in enumerate(seg_gates):
+      if gate.slot >= 0:
+        dangle = -2.0 * sum(coeffs[keep[j]] * per_factor[j]
+                            for j in range(len(keep))
+                            if owner[keep[j]] == g_idx)
+        grads.append((gate.slot, gate.coeff * dangle))
+  total = sv.diag_segment_phase(seg_gates, seg_angles, a.shape, a.device)
+  phase = torch.exp(-1j * total.to(sv.COMPLEX_DTYPE))
+  return grads, a * phase, lam * phase
+
+
+def _bwd_1q_segment(seg_gates, seg_angles, a, lam):
+  """Reverse step through a run of 1-qubit dense gates: ([(slot, dE)], a,
+  lam).  dE/dangle_g = 2 Re sum(mg_g * G_q), with G_q the 2x2 reduced
+  transition of the gate's qubit from one block_transition per row block
+  (or the minor cross_gram); then the per-qubit inverses un-apply both."""
+  n = sv.num_qubits_of(a)
+  m = int(a.shape[1]).bit_length() - 1
+  nr = n - m
+  inverses, mg_entries, grad_qubits = hopper_adjoint.one_qubit_algebra(
+      seg_gates, seg_angles)
+  g_mats = {}
+  minor_grads = sorted(q for q in grad_qubits if q >= nr)
+  if minor_grads:
+    kmat = sv.cross_gram(lam, a).cpu()
+    for q in minor_grads:
+      g_mats[q] = sv.partial_trace_1q(kmat, m, q - nr)
+  for start, k in sv._row_blocks(nr):
+    block_grads = [q for q in grad_qubits if start <= q < start + k]
+    if block_grads:
+      g_block = sv.block_transition(lam, a, start, k).cpu()
+      for q in block_grads:
+        g_mats[q] = sv.partial_trace_1q(g_block, k, q - start)
+  grads = [(slot, coeff * 2.0 * float(torch.sum(mg * g_mats[q]).real))
+           for q, slot, coeff, mg in mg_entries]
+  majors = {q: v for q, v in inverses.items() if q < nr}
+  minor_inv = sv._fold_block({q - nr: v for q, v in inverses.items()
+                              if q >= nr}, 0, m)
+  return (grads, sv.apply_majors_and_minor(a, majors, minor_inv, plain=True),
+          sv.apply_majors_and_minor(lam, majors, minor_inv, plain=True))
+
+
+def reverse_sweep(circuit: ir.Circuit, symbol_values, psi: torch.Tensor,
+                  lam: torch.Tensor) -> torch.Tensor:
+  """The segment-fused reverse sweep of one [R, C] state (the reference's
+  `_xla_reverse_sweep`): the symbol gradient [num_symbols] of
+  <psi| sum_t g_t P_t |psi> given lam = sum_t g_t P_t psi.  It is the
+  plain version of K2 (`hopper_adjoint.adjoint_sweep`), torch ops only on
+  any device."""
+  angles = sv.resolve_angles(circuit, hopper_sv.host_values(symbol_values))
+  slots, contribs = [], []
+  a = psi
+  for cls, idxs in reversed(sv.segment_circuit(circuit.gates)):
+    seg_gates = [circuit.gates[i] for i in idxs]
+    seg_angles = angles[list(idxs)]
+    if cls == "1q":
+      grads, a, lam = _bwd_1q_segment(seg_gates, seg_angles, a, lam)
+    elif cls == "diag":
+      grads, a, lam = _bwd_diag_segment(seg_gates, seg_angles, a, lam)
+    else:
+      raise NotImplementedError(
+          f"gate {seg_gates[0].kind!r} is neither a 1q dense nor a diagonal "
+          "gate; the reverse sweep does not take it yet")
+    slots.extend(s for s, _ in grads)
+    contribs.extend(d for _, d in grads)
+  grad = torch.zeros(circuit.num_symbols, dtype=torch.float64)
+  if slots:
+    grad.index_add_(0, torch.tensor(slots),
+                    torch.tensor(contribs, dtype=torch.float64))
+  return grad.to(torch.float32).to(psi.device)
+
+
+class _TermExpectations(torch.autograd.Function):
+  """[T] coefficient-free per-term expectations of U(values)|init_state>,
+  differentiable w.r.t. the symbol values by the adjoint method."""
+
+  @staticmethod
+  def forward(ctx, symbol_values, init_state, circuit, op):
+    values = hopper_sv.host_values(symbol_values)
+    psi = sv.apply_circuit(circuit, values, init_state)
+    ctx.circuit = circuit
+    ctx.op = op
+    ctx.values = values
+    ctx.save_for_backward(psi)
+    return sv.expectation_terms(psi, op)
+
+  @staticmethod
+  def backward(ctx, g):
+    (psi,) = ctx.saved_tensors
+    circuit = ctx.circuit
+    ones = paulis.PauliSum(ctx.op.codes,
+                           torch.ones_like(ctx.op.coeffs, dtype=torch.float32),
+                           ctx.op.num_qubits)
+    lam = sv.apply_pauli_sum(psi, ones, term_weights=g)
+    planes = [(t.real.contiguous(), t.imag.contiguous()) for t in (psi, lam)]
+    if (psi.device.type == "cuda" and
+        not hopper_sv.single_admits(circuit.num_qubits)):
+      # Outside K2's range: the batched sweep's kernels at B = 1.
+      grad = hopper_adjoint.adjoint_sweep_batched(
+          circuit, ctx.values, *[tuple(t[None] for t in p) for p in planes])
+    else:
+      grad = hopper_adjoint.adjoint_sweep(circuit, ctx.values, *planes)
+    return grad, None, None, None
+
+
+def adjoint_term_expectations(circuit: ir.Circuit,
+                              symbol_values: torch.Tensor,
+                              init_state: torch.Tensor,
+                              op: paulis.PauliSum) -> torch.Tensor:
+  """Per-term expectations <psi(values)|P_t|psi(values)>, shape [T], with
+  psi = U(values)|init_state> for one [R, C] state of any content.
+
+  Differentiable w.r.t. `symbol_values` by the adjoint method: the forward
+  is K3 and the backward K2 on the card for 8 <= n <= 20 qubits (the
+  segment kernels at B = 1 outside that range).  `init_state` is data."""
+  return _TermExpectations.apply(symbol_values, init_state, circuit,
+                                 op.to(init_state.device))
+
+
+def expectation(circuit: ir.Circuit, symbol_values: torch.Tensor,
+                init_state: torch.Tensor, op: paulis.PauliSum) -> torch.Tensor:
+  """<psi(values)| op |psi(values)>, a real scalar with adjoint gradients
+  w.r.t. the values and autograd ones w.r.t. op's coefficients."""
+  terms = adjoint_term_expectations(circuit, symbol_values, init_state, op)
+  return torch.sum(terms * op.coeffs.to(init_state.device).real)
 
 
 def as_pauli_tuple(observables) -> Tuple[paulis.PauliSum, ...]:

@@ -1,10 +1,11 @@
-"""Batched adjoint reverse sweep on Hopper: the port of K5.
+"""Adjoint reverse sweeps on Hopper: the ports of K5 and K2.
 
 `adjoint_sweep_batched` returns the batch-summed gradient of
 sum_b <psi_b| sum_t g_bt P_t |psi_b> w.r.t. the circuit's symbols, given the
 forward states psi and lambda = sum_t g_t P_t psi.  It computes what the
 grid-over-batch Pallas kernel `adjoint_sweep_batched`
-(qhbmlib_tpu/ops/pallas_adjoint.py:540) computes.  Per segment, in reverse:
+(qhbmlib_tpu/ops/pallas_adjoint.py:540, K5) computes.  Per segment, in
+reverse:
 
   (1) gradient reductions from the current (a, lambda), summed over the
       batch:
@@ -12,14 +13,16 @@ grid-over-batch Pallas kernel `adjoint_sweep_batched`
                         (block_transition) and once for the minor cross
                         matrix kmat (cross_gram);
         diag segment -> one `parity_bilinear` over all K parity factors;
-  (2) un-apply the segment to a and lambda: `axis_apply` with the inverse
-      operators, or one `diag_rotate` with sign -1 over both.
+  (2) un-apply the segment to a and lambda: the inverse operators as K1 /
+      `axis_apply` passes (`hopper_sv.plan_passes`), or one `diag_rotate`
+      with sign -1 over both.
+
+`adjoint_sweep` (K2, pallas_adjoint.py:480) runs the same stages for ONE
+state of 8 to 20 qubits in one cooperative launch over a stage table.
 
 The per-gate algebra on the reductions (2x2 partial traces, the
 suffix-conjugated dU contractions, coefficient groupings) runs on the host
-after the sweep, as `_assemble_grads` does outside the Pallas kernel.  A
-Python loop over segments replaces the kernel's per-layer `fori_loop`, so
-no period merge is needed.
+after the sweep, as `_assemble_grads` does outside the Pallas kernels.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from __future__ import annotations
 import functools
 from typing import List, Sequence
 
+import numpy as np
 import torch
 
 from qhbmlib_tpu_torch.ops import _cuda
@@ -138,14 +142,10 @@ def _dagger(mat: torch.Tensor) -> torch.Tensor:
   return mat.mH.resolve_conj().contiguous()
 
 
-def _backward_1q(seg_gates, seg_angles, nr: int, m: int):
-  """One reversed 1q segment: (stage, plan), with host operator planes.
-
-  stage = ("bwd1q", blocks, minor_grads, ops, has_minor): `blocks` lists
-  (start, k, needs_grad) row blocks, `ops` their inverse operators as
-  [re, im] host planes, then the minor inverse operator when present.
-  plan holds the mg entries (qubit, slot, coeff, mg 2x2) for the host-side
-  assembly."""
+def one_qubit_algebra(seg_gates, seg_angles):
+  """Host 2x2 algebra of one reversed 1q segment: ({qubit: inverse of its
+  chain product}, [(qubit, slot, coeff, mg 2x2)], gradient qubits), with
+  mg = suffix dU U^dagger suffix^dagger (adjoint.py `_bwd_1q_segment`)."""
   mats = sv.segment_matrices(seg_gates, seg_angles)
   dmats = sv.segment_matrices(seg_gates, seg_angles, sv.gate_matrix_dangle)
   by_qubit = {}
@@ -163,33 +163,41 @@ def _backward_1q(seg_gates, seg_angles, nr: int, m: int):
         mg_entries.append((q, gate.slot, gate.coeff, mg))
       suffix = suffix @ mat
     inverses[q] = _dagger(suffix)
+  return inverses, mg_entries, grad_qubits
+
+
+def _backward_1q(seg_gates, seg_angles, nr: int, m: int):
+  """One reversed 1q segment: (host stage, assembly plan entry).
+
+  stage = ("bwd1q", grads, inverse ops): `grads` lists the (start, k) bit
+  ranges whose transition matrix the gradient needs (row blocks holding a
+  gradient qubit, then the minor bits (nr, m) for kmat), the inverse ops
+  are `segment_ops` of the per-qubit inverses."""
+  inverses, mg_entries, grad_qubits = one_qubit_algebra(seg_gates,
+                                                        seg_angles)
   minor_grads = tuple(sorted(q for q in grad_qubits if q >= nr))
   blocks = []
-  ops = []
   for start, k in sv._row_blocks(nr):
-    folded = sv._fold_block(inverses, start, k)
     needs_grad = any(start <= q < start + k for q in grad_qubits)
-    if folded is None and not needs_grad:
-      continue
-    blocks.append((start, k, needs_grad))
-    ops.append(hopper_sv.split(folded))
-  # Minor inverse: kron of the per-qubit inverses over the column qubits.
+    if needs_grad or sv._fold_block(inverses, start, k) is not None:
+      blocks.append((start, k, needs_grad))
+  grads = [(s, k) for s, k, ng in blocks if ng]
+  if minor_grads:
+    grads.append((nr, m))
+  majors = {q: v for q, v in inverses.items() if q < nr}
   minor_inv = sv._fold_block({q - nr: v for q, v in inverses.items()
                               if q >= nr}, 0, m)
-  if minor_inv is not None:
-    ops.append(hopper_sv.split(minor_inv))
-  stage = ("bwd1q", tuple(blocks), bool(minor_grads), ops,
-           minor_inv is not None)
+  stage = ("bwd1q", grads, hopper_sv.segment_ops(majors, minor_inv, nr, m))
   plan = ("1q", {"blocks": tuple(blocks), "minor_grads": minor_grads,
                  "mg_entries": mg_entries, "nr": nr, "m": m})
   return stage, plan
 
 
-def prepare_backward(circuit: ir.Circuit, symbol_values, device):
-  """Reverse stages (consumed by the sweep in order) and the assembly plan.
-  Host-built operators and weights cross to `device` in one copy."""
+def backward_plan(circuit: ir.Circuit, symbol_values):
+  """Host reverse stages, in sweep order, and the assembly plan:
+  ("bwd1q", grads, inverse ops) or ("bwddiag", (weights, row_masks,
+  col_masks)) with the FORWARD weights of the segment."""
   n = circuit.num_qubits
-  shape_rc = sv.state_shape(n)
   m = sv.minor_bits(n)
   nr = n - m
   angles = sv.resolve_angles(circuit, hopper_sv.host_values(symbol_values))
@@ -203,9 +211,8 @@ def prepare_backward(circuit: ir.Circuit, symbol_values, device):
       plan.append(info)
     elif cls == "diag":
       coeffs, _, _, owner = sv.diag_segment_triples(seg_gates, nr, m)
-      weights, rms, cms = sv.diag_segment_weights(seg_gates, seg_angles, nr,
-                                                  m)
-      stages.append(("bwddiag", rms, cms, [torch.from_numpy(weights)]))
+      stages.append(("bwddiag", sv.diag_segment_weights(seg_gates, seg_angles,
+                                                        nr, m)))
       plan.append(("diag", {
           "coeffs": tuple(float(x) for x in coeffs),
           "owner": tuple(owner),
@@ -216,17 +223,33 @@ def prepare_backward(circuit: ir.Circuit, symbol_values, device):
     else:
       raise NotImplementedError(
           f"gate {circuit.gates[idxs[0]].kind!r} is neither a 1q dense nor a "
-          "diagonal gate; the batched sweep does not take it yet")
-  host = [t for st in stages
-          for t in (sum(st[3], []) if st[0] == "bwd1q" else st[3])]
+          "diagonal gate; the adjoint sweeps do not take it yet")
+  return stages, plan
+
+
+def prepare_backward(circuit: ir.Circuit, symbol_values, device):
+  """Reverse stages of the batched sweep and the assembly plan:
+  ("bwd1q", grads, passes) with device operators (`plan_passes`), or
+  ("bwddiag", row_masks, col_masks, (cos, sin)) with the segment's forward
+  rotation planes.  Host operators and weights cross in one copy."""
+  n = circuit.num_qubits
+  shape_rc = sv.state_shape(n)
+  nr = n - sv.minor_bits(n)
+  host_stages, plan = backward_plan(circuit, symbol_values)
+  host = []
+  for st in host_stages:
+    if st[0] == "bwd1q":
+      host.extend(t for _, op in st[2] for t in hopper_sv.split(op))
+    else:
+      host.append(torch.from_numpy(st[1][0]))
   moved = iter(hopper_sv.to_device(host, device))
   out = []
-  for st in stages:
+  for st in host_stages:
     if st[0] == "bwd1q":
-      ops = [(next(moved), next(moved)) for _ in st[3]]
-      out.append(st[:3] + (ops, st[4]))
+      ops = [(bits, (next(moved), next(moved))) for bits, _ in st[2]]
+      out.append(("bwd1q", st[1], hopper_sv.plan_passes(ops, nr)))
     else:
-      _, rms, cms, _ = st
+      _, rms, cms = st[1]
       out.append(("bwddiag", rms, cms, hopper_sv.rotation_planes(
           next(moved), rms, cms, shape_rc)))
   return out, plan
@@ -275,6 +298,19 @@ def _assemble_grads(plan, outputs: List[torch.Tensor],
   return grad.to(torch.float32)
 
 
+def _grads_from_flat(flat: torch.Tensor, shapes) -> torch.Tensor:
+  """Splits one host copy of every reduction, in stage order, into complex
+  [N, N] transition matrices ([2, N, N] shapes) and real [K] bilinears."""
+  outputs, pos = [], 0
+  for shape in shapes:
+    size = int(np.prod(shape))
+    part = flat[pos:pos + size].reshape(shape)
+    outputs.append(torch.complex(part[0], part[1]) if len(shape) == 3
+                   else part)
+    pos += size
+  return outputs
+
+
 def adjoint_sweep_batched(circuit: ir.Circuit, symbol_values, psi: Planes,
                           lam: Planes, plain: bool = False) -> torch.Tensor:
   """Batch-summed symbol gradient [num_symbols] from one reverse sweep over
@@ -285,6 +321,7 @@ def adjoint_sweep_batched(circuit: ir.Circuit, symbol_values, psi: Planes,
   `plain=True` runs the kernels' plain versions (reference only)."""
   device = psi[0].device
   b, r, c = psi[0].shape
+  n = (r * c).bit_length() - 1
   gram = axis_gram_plain if plain else axis_gram
   bilin = parity_bilinear_plain if plain else parity_bilinear
   stages, plan = prepare_backward(circuit, symbol_values, device)
@@ -294,32 +331,101 @@ def adjoint_sweep_batched(circuit: ir.Circuit, symbol_values, psi: Planes,
   reductions = []  # [2, N, N] (re, im) grams or [K] bilinears, stage order
   for stage in stages:
     if stage[0] == "bwd1q":
-      _, blocks, minor_grads, ops, has_minor = stage
-      for start, k, needs_grad in blocks:
-        if needs_grad:
-          reductions.append(torch.stack(gram(
-              *lm, *a, b << start, 2**k, (r * c) >> (start + k))))
-      if minor_grads:
-        reductions.append(torch.stack(gram(*lm, *a, b * r, c, 1)))
-      for (start, k, _), op in zip(blocks, ops):
-        a, lm = hopper_sv.apply_stage("rowblock", (start, k), op, [a, lm], -1,
-                                      plain)
-      if has_minor:
-        a, lm = hopper_sv.apply_stage("minor", None, ops[-1], [a, lm], -1,
-                                      plain)
+      _, grads, passes = stage
+      for start, k in grads:
+        reductions.append(torch.stack(gram(
+            *lm, *a, b << start, 2**k, 2**(n - start - k))))
+      a, lm = hopper_sv.apply_passes(passes, [a, lm], n, plain)
     else:
       _, rms, cms, planes = stage
       reductions.append(bilin(*lm, *a, rms, cms))
-      a, lm = hopper_sv.apply_stage("diag", None, planes, [a, lm], -1, plain)
+      a, lm = hopper_sv.apply_stage(("diag", planes), [a, lm], -1, plain)
   # One device->host copy for every reduction, then the tiny algebra.
   outputs = []
   if reductions:
     flat = torch.cat([t.reshape(-1) for t in reductions]).cpu()
-    pos = 0
-    for t in reductions:
-      part = flat[pos:pos + t.numel()].reshape(t.shape)
-      outputs.append(torch.complex(part[0], part[1]) if t.dim() == 3
-                     else part)
-      pos += t.numel()
+    outputs = _grads_from_flat(flat, [tuple(t.shape) for t in reductions])
   grad = _assemble_grads(plan, outputs, circuit.num_symbols)
   return grad.to(device)
+
+
+# ---------------------------------------------------------------------------
+# K2: the whole reverse sweep of one state, one cooperative launch
+# ---------------------------------------------------------------------------
+
+def sweep_table(circuit: ir.Circuit, symbol_values, device):
+  """(stage table, reduction shapes, assembly plan) of `adjoint_sweep`: per
+  reversed segment, the kGram / kBilin reductions from the current states,
+  then the un-apply (kAxis records of the inverse operators, or kDiag with
+  the negated weights)."""
+  host_stages, plan = backward_plan(circuit, symbol_values)
+  table = hopper_sv.StageTable(circuit.num_qubits, torch.device(device))
+  shapes = []
+  for st in host_stages:
+    if st[0] == "bwd1q":
+      for bits in st[1]:
+        table.gram(bits)
+        shapes.append((2, 2**bits[1], 2**bits[1]))
+      for bits, op in st[2]:
+        table.axis(bits, op)
+    else:
+      weights, rms, cms = st[1]
+      table.bilinear(rms, cms)
+      shapes.append((len(rms),))
+      table.diag(weights, rms, cms, sign=-1)
+  return table, shapes, plan
+
+
+def adjoint_sweep(circuit: ir.Circuit, symbol_values, psi: Planes,
+                  lam: Planes, plain: bool = False) -> torch.Tensor:
+  """K2: the symbol gradient [num_symbols] of <psi| sum_t g_t P_t |psi> from
+  the reverse sweep of ONE [R, C] state psi and lam = sum_t g_t P_t psi
+  (float32 planes), in one cooperative launch for a CUDA state of 8 to 20
+  qubits (raises for other sizes).  For a CPU state or `plain=True` it runs
+  the plain version, the per-state sweep of `ops/adjoint.py`.
+
+  Reductions and un-applies run in stage order as in
+  pallas_adjoint._make_bwd_kernel; the inverse operators and the negated
+  diagonal weights are folded on the host, and every reduction returns in
+  one device->host copy for `_assemble_grads`."""
+  dev = psi[0].device
+  if plain or dev.type == "cpu":
+    from qhbmlib_tpu_torch.ops import adjoint  # the plain sweep lives there
+    return adjoint.reverse_sweep(circuit, symbol_values,
+                                 torch.complex(*psi), torch.complex(*lam))
+  if dev.type != "cuda":
+    raise ValueError(f"adjoint_sweep: unsupported device {dev}")
+  n = circuit.num_qubits
+  if not hopper_sv.single_admits(n):
+    raise ValueError(f"adjoint_sweep takes 8 <= n <= 20 qubits, not {n}")
+  shape_rc = sv.state_shape(n)
+  _cuda.require(list(psi) + list(lam), dev, [shape_rc] * 4)
+  table, shapes, plan = sweep_table(circuit, symbol_values, dev)
+  out = launch_adjoint_sweep(table, hopper_sv.state_buffer(psi),
+                             hopper_sv.state_buffer(lam),
+                             hopper_sv.sweep_blocks(dev, 2))
+  outputs = _grads_from_flat(out[:table.out_len].cpu(), shapes)
+  return _assemble_grads(plan, outputs, circuit.num_symbols).to(dev)
+
+
+adjoint_sweep.launches = 0
+
+
+def launch_adjoint_sweep(table: hopper_sv.StageTable, a_buf: torch.Tensor,
+                         l_buf: torch.Tensor, blocks: int) -> torch.Tensor:
+  """The K2 launch alone: `table` (a `sweep_table`) on the states in rows
+  0-1 of `a_buf` and `l_buf` (`hopper_sv.state_buffer`), in place; returns
+  the device buffer of every reduction, in stage order."""
+  dev = a_buf.device
+  records, masks, data = table.pack()
+  partial = torch.empty((blocks, table.widest()), dtype=torch.float32,
+                        device=dev)
+  out = torch.empty((max(table.out_len, 1),), dtype=torch.float32,
+                    device=dev)
+  _cuda.check(_cuda.library().qhbm_adjoint_sweep(
+      a_buf.data_ptr(), l_buf.data_ptr(), table.n, table.m,
+      records.data_ptr(), table.num_stages, data.data_ptr(),
+      masks.data_ptr(), partial.data_ptr(), blocks, out.data_ptr(),
+      _cuda.stream_of(a_buf)), "adjoint_sweep")
+  adjoint_sweep.launches += 1
+  return out

@@ -315,16 +315,15 @@ def parity_outer_sum(weights: torch.Tensor, row_masks, col_masks,
                      shape_rc) -> torch.Tensor:
   """sum_k w_k * s(row & rm_k) (x) s(col & cm_k) as one matmul.
 
-  `weights` is [..., K] (real or complex); returns [..., R, C].  The
-  reference chunks the factors for memory at 28 qubits; K = 116 factors of a
-  20-qubit segment fit in one [R, K] x [K, C] product.
+  `weights` is [..., K] (real or complex); returns [..., R, C] in the
+  weights' dtype, summed in it.  The reference chunks the factors for
+  memory at 28 qubits; K = 116 factors of a 20-qubit segment fit in one
+  [R, K] x [K, C] product.
   """
   r, c = shape_rc
   dev = weights.device
-  s_r = parity_signs(row_masks, r, dev)
-  s_c = parity_signs(col_masks, c, dev)
-  if weights.is_complex():
-    s_r, s_c = s_r.to(weights.dtype), s_c.to(weights.dtype)
+  s_r = parity_signs(row_masks, r, dev).to(weights.dtype)
+  s_c = parity_signs(col_masks, c, dev).to(weights.dtype)
   return torch.matmul((weights[..., :, None] * s_r).transpose(-1, -2), s_c)
 
 
@@ -347,14 +346,16 @@ def diag_segment_weights(gates, angles, nr: int, m: int):
 
 
 def diag_segment_phase(gates, angles, shape_rc, device=None) -> torch.Tensor:
-  """Total phase angle [R, C] of a run of diagonal gates with host angles
-  `angles`, on `device`."""
+  """float32 total phase angle [R, C] of a run of diagonal gates with host
+  angles `angles`, on `device`; summed in float64, as the single-state
+  kernels sum each amplitude's phase."""
   r, c = shape_rc
   n = (int(r) * int(c)).bit_length() - 1
   m = int(c).bit_length() - 1
   weights, rms, cms = diag_segment_weights(gates, angles, n - m, m)
-  return parity_outer_sum(torch.tensor(weights, device=device), rms, cms,
-                          shape_rc)
+  return parity_outer_sum(torch.tensor(weights, dtype=torch.float64,
+                                       device=device), rms, cms,
+                          shape_rc).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -420,17 +421,110 @@ def apply_minor_mat(state: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
 
 
 def apply_majors_and_minor(state: torch.Tensor, major_by_qubit,
-                           minor_combined) -> torch.Tensor:
-  """Folded row-block operators, then the combined minor operator."""
+                           minor_combined, plain: bool = False) -> torch.Tensor:
+  """Folded row-block operators and the combined minor operator, shared by
+  the forward 1q segment and the adjoint un-applies.  Dispatches K1: the
+  operators pair into `axis2_apply` passes (hopper_sv.plan_passes), each
+  one pass over the state; on the CPU (or with `plain`) the passes run
+  their plain versions."""
+  from qhbmlib_tpu_torch.ops import hopper_sv  # hopper_sv imports this
   n = num_qubits_of(state)
-  m = int(state.shape[-1]).bit_length() - 1
-  for start, k in _row_blocks(n - m):
-    mat = _fold_block(major_by_qubit, start, k)
-    if mat is not None:
-      state = apply_row_block(mat.to(state.device), start, k, state)
-  if minor_combined is not None:
-    state = apply_minor_mat(state, minor_combined.to(state.device))
+  r, c = state.shape[-2:]
+  m = int(c).bit_length() - 1
+  ops = hopper_sv.segment_ops(major_by_qubit, minor_combined, n - m, m)
+  if not ops:
+    return state
+  flat = state.reshape(-1, r, c)
+  planes = (flat.real.contiguous(), flat.imag.contiguous())
+  passes = hopper_sv.device_passes(ops, n - m, state.device)
+  re, im = hopper_sv.apply_passes(passes, [planes], n, plain)[0]
+  return torch.complex(re, im).reshape(state.shape)
+
+
+# ---------------------------------------------------------------------------
+# Single-state circuit application
+# ---------------------------------------------------------------------------
+
+def zero_state(num_qubits: int, device=None) -> torch.Tensor:
+  """|0...0> as an [R, C] complex64 state."""
+  state = torch.zeros(state_shape(num_qubits), dtype=COMPLEX_DTYPE,
+                      device=device)
+  state[0, 0] = 1.0
   return state
+
+
+def to_vector(state: torch.Tensor) -> torch.Tensor:
+  """[..., R, C] -> [..., 2^n] in the standard basis order."""
+  return state.reshape(state.shape[:-2] + (-1,))
+
+
+def from_vector(vec: torch.Tensor, num_qubits: int) -> torch.Tensor:
+  """[..., 2^n] -> [..., R, C]."""
+  return vec.reshape(vec.shape[:-1] + state_shape(num_qubits))
+
+
+def _planes_of(state: torch.Tensor):
+  return (state.real.contiguous(), state.imag.contiguous())
+
+
+def _apply_1q_segment(gates, angles, state: torch.Tensor) -> torch.Tensor:
+  """A run of 1-qubit dense gates: per-qubit products, kron-folded into
+  <= 7-bit row-block operators and one [C, C] minor operator."""
+  from qhbmlib_tpu_torch.ops import hopper_sv  # hopper_sv imports this
+  m = int(state.shape[-1]).bit_length() - 1
+  nr = num_qubits_of(state) - m
+  return apply_majors_and_minor(state,
+                                *hopper_sv.fold_1q(gates, angles, nr, m))
+
+
+def _apply_diag_segment(gates, angles, state: torch.Tensor) -> torch.Tensor:
+  """A run of diagonal gates: one rotation by the materialized total phase
+  (`diag_rotate`, at B = 1)."""
+  from qhbmlib_tpu_torch.ops import hopper_sv  # hopper_sv imports this
+  r, c = state.shape
+  nr = num_qubits_of(state) - (int(c).bit_length() - 1)
+  weights, rms, cms = diag_segment_weights(gates, angles, nr,
+                                           int(c).bit_length() - 1)
+  (w,) = hopper_sv.to_device([torch.from_numpy(weights)], state.device)
+  cos_t, sin_t = hopper_sv.rotation_planes(w, rms, cms, (r, c))
+  re, im = (t.reshape(1, r, c) for t in _planes_of(state))
+  hopper_sv.diag_rotate([(re, im)], cos_t, sin_t, +1)
+  return torch.complex(re, im).reshape(r, c)
+
+
+def _apply_circuit_torch(circuit: ir.Circuit, symbol_values,
+                         state: torch.Tensor) -> torch.Tensor:
+  """Segment by segment: K1 / `axis_apply` passes for 1q segments and
+  `diag_rotate` for diagonal ones, at B = 1."""
+  from qhbmlib_tpu_torch.ops import hopper_sv  # hopper_sv imports this
+  angles = resolve_angles(circuit, hopper_sv.host_values(symbol_values))
+  for cls, idxs in segment_circuit(circuit.gates):
+    seg_gates = [circuit.gates[i] for i in idxs]
+    if cls == "1q":
+      state = _apply_1q_segment(seg_gates, angles[list(idxs)], state)
+    elif cls == "diag":
+      state = _apply_diag_segment(seg_gates, angles[list(idxs)], state)
+    else:
+      raise NotImplementedError(
+          f"gate {seg_gates[0].kind!r} is neither a 1q dense nor a diagonal "
+          "gate; the port's engine does not take it yet")
+  return state
+
+
+def apply_circuit(circuit: ir.Circuit, symbol_values,
+                  state: torch.Tensor) -> torch.Tensor:
+  """U(values) applied to one [R, C] complex64 state of any content.
+
+  8 <= n <= 20 qubits: K3 (`hopper_sv.circuit_forward`), the whole circuit
+  in one cooperative launch on the card (its plain version on the CPU), as
+  the reference admits its VMEM-resident kernel.  Otherwise segment by
+  segment (`_apply_circuit_torch`).  `symbol_values` is a tensor on any
+  device or a host array: operators are folded on the host."""
+  from qhbmlib_tpu_torch.ops import hopper_sv  # hopper_sv imports this
+  if hopper_sv.single_admits(circuit.num_qubits):
+    return torch.complex(*hopper_sv.circuit_forward(
+        circuit, symbol_values, _planes_of(state)))
+  return _apply_circuit_torch(circuit, symbol_values, state)
 
 
 def cross_gram(lam: torch.Tensor, a: torch.Tensor) -> torch.Tensor:

@@ -29,6 +29,7 @@ from qhbmlib_tpu_torch.ops import adjoint as tadjoint
 from qhbmlib_tpu_torch.ops import hopper_adjoint
 from qhbmlib_tpu_torch.ops import hopper_sv
 from qhbmlib_tpu_torch.ops import paulis as tp
+from qhbmlib_tpu_torch.ops import statevector as tsv
 
 torch.set_num_threads(1)
 
@@ -267,3 +268,123 @@ def test_batched_expectations_value_and_grad_match_jax():
                              atol=STATE_ATOL)
   np.testing.assert_allclose(v.grad.numpy(), np.asarray(grad_j),
                              atol=GRAD_ATOL)
+
+
+# -- K1: the two-axis fused 1q-segment apply ----------------------------------
+
+# (P, N1, M, N2, Q) views: first row block x minor (20q / 24q pattern, cut
+# in P and M), two adjacent row blocks (24q pass 2, cut in P), a ragged mix.
+VIEWS2 = [(2, 128, 4, 128, 1), (3, 128, 1, 8, 128), (2, 4, 2, 16, 8),
+          (5, 2, 1, 2, 2)]
+
+
+@pytest.mark.parametrize("p,n1,m,n2,q", VIEWS2)
+def test_axis2_apply_plain_matches_numpy(p, n1, m, n2, q):
+  rng = np.random.RandomState(p + n1 + m + n2 + q)
+  x = _planes(rng, (p * n1 * m * n2 * q,))
+  a, b = _planes(rng, (n1, n1)), _planes(rng, (n2, n2))
+  y = hopper_sv.axis2_apply_plain(*x, *a, *b, p, n1, m, n2, q)
+  expected = np.einsum("Ii,Jj,pimjq->pImJq", _c(a), _c(b),
+                       _c(x).reshape(p, n1, m, n2, q))
+  # float32 sums of N1 * N2 products of unit normals: 1e-5 of the scale.
+  np.testing.assert_allclose(_c(y).reshape(expected.shape), expected,
+                             atol=1e-5 * np.abs(expected).max())
+
+
+def test_plan_passes_pairs_first_block_with_minor():
+  """24q: (0,7)x minor, (7,7)x(14,3); 22q: (0,7)x minor, (7,7)x(14,1);
+  20q: (0,7)x minor, then (7,6) alone; no minor: row blocks in pairs."""
+  def bits(ops, nr):
+    return [tuple(p[::2]) for p in hopper_sv.plan_passes(ops, nr)]
+
+  for n, want in [(24, [((0, 7), (17, 7)), ((7, 7), (14, 3))]),
+                  (22, [((0, 7), (15, 7)), ((7, 7), (14, 1))]),
+                  (20, [((0, 7), (13, 7)), ((7, 6),)])]:
+    nr = n - 7
+    ops = [(blk, "op") for blk in tsv._row_blocks(nr)] + [((nr, 7), "op")]
+    assert bits(ops, nr) == want
+  rows = [((0, 7), "a"), ((7, 7), "b"), ((14, 3), "c")]
+  assert hopper_sv.plan_passes(rows, 17) == [
+      ((0, 7), "a", (7, 7), "b"), ((14, 3), "c")]
+
+
+def _unitary(rng, dim):
+  a = rng.standard_normal((dim, dim)) + 1j * rng.standard_normal((dim, dim))
+  return np.linalg.qr(a)[0].astype(np.complex64)
+
+
+@pytest.mark.parametrize("n", [15, 16])
+@pytest.mark.parametrize("use", [(True, True, True), (True, False, True),
+                                 (True, True, False), (False, True, True)])
+def test_k1_plain_matches_fused_blocks_minor_apply_interpret(n, use):
+  """fused_blocks_minor_apply (axis2_apply passes, plain) against the
+  reference's Pallas K1 in interpret mode, each stage present or None."""
+  rng = np.random.RandomState(n)
+  r, c = jsv.state_shape(n)
+  state = rng.standard_normal((r, c)) + 1j * rng.standard_normal((r, c))
+  state = (state / np.linalg.norm(state)).astype(np.complex64)
+  (s1, k1), (s2, k2) = jsv._row_blocks(n - 7)[:2]
+  mats = [_unitary(rng, 2**k1), _unitary(rng, 2**k2), _unitary(rng, c)]
+  m1, m2, minor = [mat if u else None for mat, u in zip(mats, use)]
+  expected = pallas_sv.fused_blocks_minor_apply(
+      jnp.asarray(state), k1, k2, None if m1 is None else jnp.asarray(m1),
+      None if m2 is None else jnp.asarray(m2),
+      None if minor is None else jnp.asarray(minor.T), interpret=True)
+  ops = [None if mat is None else _split(mat) for mat in (m1, m2, minor)]
+  got = hopper_sv.fused_blocks_minor_apply(
+      tuple(t[None] for t in _split(state)), k1, k2, *ops)
+  np.testing.assert_allclose(_c(got)[0], np.asarray(expected),
+                             atol=STATE_ATOL)
+
+
+def test_k1_plain_matches_apply_majors_and_minor_22q():
+  """Three row blocks (0,7), (7,7), (14,1) and the minor operator: the
+  port's apply_majors_and_minor (two axis2_apply passes) against the
+  reference's block matmuls."""
+  n = 22
+  rng = np.random.RandomState(22)
+  r, c = jsv.state_shape(n)
+  state = (rng.standard_normal((r, c)) +
+           1j * rng.standard_normal((r, c))).astype(np.complex64)
+  majors = {q: _unitary(rng, 2) for q in (0, 5, 8, 13, 14)}
+  minor = np.kron(_unitary(rng, 2), np.eye(64)).astype(np.complex64)
+  expected = jsv.apply_majors_and_minor(
+      jnp.asarray(state), {q: jnp.asarray(u) for q, u in majors.items()},
+      jnp.asarray(minor))
+  got = tsv.apply_majors_and_minor(
+      torch.tensor(state), {q: torch.tensor(u) for q, u in majors.items()},
+      torch.tensor(minor))
+  np.testing.assert_allclose(got.numpy(), np.asarray(expected), atol=1e-4)
+
+
+def test_k4_forward_with_k1_stages_matches_xla_16q():
+  """The batched forward, whose 1q stages run as K1 passes ((0,7) x minor,
+  then (7,2)), against the reference's XLA forward per state at 16q."""
+  n, batch = 16, 2
+  pqc, values, bits, _, _ = _problem(n, 2, batch, 16)
+  stages = hopper_sv.prepare_segments(tcu.hardware_efficient_ansatz(n, 2),
+                                      values, "cpu")
+  assert any(len(p) == 4 for kind, body in stages if kind == "1q"
+             for p in body)
+  got = hopper_sv.apply_circuit_batched(
+      tcu.hardware_efficient_ansatz(n, 2), torch.tensor(values),
+      torch.tensor(_rowcol(bits, n)))
+  for b in range(batch):
+    expected = jsv.apply_circuit(pqc, jnp.asarray(values),
+                                 jsv.basis_state(n, jnp.asarray(bits[b])))
+    np.testing.assert_allclose(_c(got)[b], np.asarray(expected),
+                               atol=STATE_ATOL)
+
+
+def test_axis2_apply_cpu_plain_and_other_devices_refused():
+  rng = np.random.RandomState(2)
+  x, a, b = _planes(rng, (2 * 4 * 8,)), _planes(rng, (4, 4)), _planes(
+      rng, (8, 8))
+  before = hopper_sv.axis2_apply.launches
+  y = hopper_sv.axis2_apply(*x, *a, *b, 2, 4, 1, 8, 1)
+  np.testing.assert_array_equal(
+      _c(y), _c(hopper_sv.axis2_apply_plain(*x, *a, *b, 2, 4, 1, 8, 1)))
+  assert hopper_sv.axis2_apply.launches == before
+  meta = [t.to("meta") for t in x + a + b]
+  with pytest.raises(ValueError, match="unsupported device"):
+    hopper_sv.axis2_apply(*meta, 2, 4, 1, 8, 1)
