@@ -2,29 +2,38 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels of `qhbmlib_tpu_torch/csrc/` with nvcc and holds
-each of the seven against its plain PyTorch version: `axis_apply`,
-`diag_rotate`, `axis_gram`, `parity_bilinear` at the 20-qubit shapes;
-`axis2_apply` (K1) at the 24- and 20-qubit pass shapes; `circuit_forward`
-(K3) and `adjoint_sweep` (K2) at 20q/4L for one random state.  Then it
-holds the batched forward and sweep against their plain versions and the
-9-qubit VQT loss and single-state `adjoint.expectation` against the CPU,
-and drives the main paths, each with every launch count reset just
-before it: the VQT train step (TFIM target, beta = 1.2, Adam 1e-2) at
-20q/4L/500 samples/64 unique and 24q/2L/100/8 for a warm-up and three
-timed steps, and three single-state value-and-gradient calls at 20q/4L.
-Before the last line it prints a JSON line {"kernels": [...]} with each
-kernel's launches on the main paths, its error against the plain version,
-and both times; the last line is {"ok": true, "device": {...}}.  It exits
-non-zero without a CUDA device, and on any failed check.  Imports no jax.
+Builds the CUDA kernels of `qhbmlib_tpu_torch/csrc/` with nvcc (one
+process per source, in parallel) and holds each of the eight against its
+plain PyTorch version: `axis_apply`, `diag_rotate`, `axis_gram`,
+`parity_bilinear` at the 20-qubit shapes; `axis2_apply` (K1) at the 24-
+and 20-qubit pass shapes; `circuit_forward` (K3) and `adjoint_sweep` (K2)
+at 20q/4L for one random state; `stream_scale` (K6) on the 24-qubit plane
+at each tile size.  Each kernel is timed beside its plain version, the one
+PyTorch call that computes the same function where there is one
+(`library_ms`), and its bound: the larger of its bytes over 3.35 TB/s and
+its float32 operations over 67 TFLOP/s (H100 SXM), counted from the
+shapes it ran on.  Then it holds the batched forward and sweep against
+their plain versions and the 9-qubit VQT loss and single-state
+`adjoint.expectation` against the CPU, and drives the main paths, each
+with every launch count reset just before it and read just after: the
+port's bench (`qhbmlib_tpu_torch.bench`: a warm-up and three timed VQT
+train steps at 24q/2L/100/8 and at 20q/4L/500/64, the precision gate, the
+24q forward <H> against the f64 oracle, PauliSum expectations/s at 20q,
+the HBM stream probe) and three single-state value-and-gradient calls at
+20q/4L.  It fails if the gate's gradient error reaches 1e-2 or the
+forward <H> is more than 1e-4 from the oracle.  Before the last line it
+prints a JSON line {"kernels": [...]} with each kernel's launches on the
+main paths, its error against the plain version, its times and its bound;
+the last line is {"ok": true, "device": {...}}.  It exits non-zero
+without a CUDA device, and on any failed check.  Imports no jax.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
-import subprocess
 import sys
 import time
 
@@ -35,17 +44,10 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 N_QUBITS = 20
 LAYERS = 4
 SAMPLES = 500
-MAX_UNIQUE = 64
-BETA = 1.2
 BATCH = 8  # states in the kernel and K4/K5 comparisons
-STEPS = 3
+STEPS = 3  # timed train steps per bench workload (after one warm-up)
 SEED = 0
-# The JAX bench's 24-qubit workload (bench.py:50): 2 layers, 100 samples,
-# 8 unique states.
-N24 = 24
-LAYERS24 = 2
-SAMPLES24 = 100
-MAX_UNIQUE24 = 8
+N24 = 24  # the bench's headline workload: 24q/2L/100 samples/8 unique
 SINGLE_CALLS = 3  # single-state value-and-gradient calls at 20q/4L
 # ||kernel - plain||_2 / ||plain||_2 limits.  States: both versions are fp32
 # with the same products in another summation order.  Grams and bilinears
@@ -53,6 +55,13 @@ SINGLE_CALLS = 3  # single-state value-and-gradient calls at 20q/4L
 STATE_TOL = 1e-5
 REDUCTION_TOL = 1e-4
 GRAD_TOL = 1e-4
+# The bench's bars: the gate's gradient error (bench.GRAD_REL_GATE) and the
+# 24q forward <H> against the f64 oracle, relative.
+ORACLE_TOL = 1e-4
+# H100 SXM peaks (NVIDIA's data sheet, at its 700 W limit): memory rate and
+# float32 outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -83,6 +92,17 @@ def cuda_ms(fn, reps: int = 10) -> float:
   end.record()
   torch.cuda.synchronize()
   return start.elapsed_time(end) / reps
+
+
+def bound(flops: float, nbytes: float) -> dict:
+  """The least time the card could take for `flops` float32 operations
+  over `nbytes` bytes (each input read once, each output written once):
+  {"bound_ms", "bound_by", "flops", "bytes"}."""
+  t_ops = flops / PEAK_FP32_PER_S * 1e3
+  t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+  return {"bound_ms": max(t_ops, t_bytes),
+          "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+          "flops": flops, "bytes": nbytes}
 
 
 def check(name: str, err: float, tol: float) -> None:
@@ -134,11 +154,18 @@ def phase_kernels(device):
   err = max(rel_err(torch.cat([g[0], g[1]]), torch.cat([f[0], f[1]]))
             for g, f in zip(got, ref))
   check("axis_apply (rowblock 0:7, rowblock 7:6, minor)", err, STATE_TOL)
+  # Per pass: a complex multiply-add (8 flops) per amplitude per row of the
+  # [N, N] operator; the state read and written once, the operator read.
+  x_c = torch.complex(x_re, x_im)
+  lib_ops = [(torch.complex(*ops), x_c.view(pnq)) for pnq, ops in shapes]
   report["axis_apply"] = dict(
       err=err, max_abs_err=max(max_abs(torch.cat(g), torch.cat(f))
                                for g, f in zip(got, ref)),
       ms=cuda_ms(lambda: apply_all(hs.axis_apply)),
-      plain_ms=cuda_ms(lambda: apply_all(hs.axis_apply_plain)))
+      plain_ms=cuda_ms(lambda: apply_all(hs.axis_apply_plain)),
+      library_ms=cuda_ms(lambda: [torch.matmul(o, v) for o, v in lib_ops]),
+      **bound(sum(8 * p * n * q * n for (p, n, q), _ in shapes),
+              sum(16 * p * n * q + 8 * n * n for (p, n, q), _ in shapes)))
 
   def rot(fn, states):
     fn(states, cos_t, sin_t, -1)
@@ -151,10 +178,16 @@ def phase_kernels(device):
   err = rel_err(got, ref)
   check("diag_rotate (a and lambda, sign -1)", err, STATE_TOL)
   one = [(x_re.clone(), x_im.clone())]
+  phase = torch.complex(cos_t, sin_t)
+  amps = x_re.numel()
   report["diag_rotate"] = dict(
       err=err, max_abs_err=max_abs(got, ref),
       ms=cuda_ms(lambda: hs.diag_rotate(one, cos_t, sin_t, +1)),
-      plain_ms=cuda_ms(lambda: hs.diag_rotate_plain(one, cos_t, sin_t, +1)))
+      plain_ms=cuda_ms(lambda: hs.diag_rotate_plain(one, cos_t, sin_t, +1)),
+      library_ms=cuda_ms(lambda: x_c * phase),
+      # One complex multiply (6 flops) per amplitude; the batch read and
+      # written once, the [R, C] cos and sin planes read once.
+      **bound(6 * amps, 16 * amps + 8 * cos_t.numel()))
 
   def gram_all(fn):
     return [fn(l_re, l_im, x_re, x_im, *pnq) for pnq, _ in shapes]
@@ -163,11 +196,19 @@ def phase_kernels(device):
   err = max(rel_err(torch.cat([g[0], g[1]]), torch.cat([f[0], f[1]]))
             for g, f in zip(got, ref))
   check("axis_gram (G block 0:7, G block 7:6, kmat)", err, REDUCTION_TOL)
+  l_c = torch.complex(l_re, l_im)
+  lib_grams = [(l_c.view(pnq).conj(), x_c.view(pnq)) for pnq, _ in shapes]
   report["axis_gram"] = dict(
       err=err, max_abs_err=max(max_abs(torch.cat(g), torch.cat(f))
                                for g, f in zip(got, ref)),
       ms=cuda_ms(lambda: gram_all(ha.axis_gram)),
-      plain_ms=cuda_ms(lambda: gram_all(ha.axis_gram_plain)))
+      plain_ms=cuda_ms(lambda: gram_all(ha.axis_gram_plain)),
+      library_ms=cuda_ms(lambda: [torch.einsum("pIq,pJq->IJ", lc, a)
+                                  for lc, a in lib_grams]),
+      # Per gram: N complex multiply-adds per amplitude of lambda; both
+      # states read once, the [N, N] gram written.
+      **bound(sum(8 * p * n * q * n for (p, n, q), _ in shapes),
+              sum(16 * p * n * q + 8 * n * n for (p, n, q), _ in shapes)))
 
   nr = N_QUBITS - sv.minor_bits(N_QUBITS)
   diag_gates = [pqc.gates[i] for cls, idxs in sv.segment_circuit(pqc.gates)
@@ -179,14 +220,28 @@ def phase_kernels(device):
   got, ref = ha.parity_bilinear(*args), ha.parity_bilinear_plain(*args)
   err = rel_err(got, ref)
   check(f"parity_bilinear (K={len(rms)})", err, REDUCTION_TOL)
+  r, c = x_re.shape[1:]
+  k = len(rms)
   report["parity_bilinear"] = dict(
       err=err, max_abs_err=max_abs(got, ref),
       ms=cuda_ms(lambda: ha.parity_bilinear(*args)),
-      plain_ms=cuda_ms(lambda: ha.parity_bilinear_plain(*args)))
+      plain_ms=cuda_ms(lambda: ha.parity_bilinear_plain(*args)),
+      # Im(conj(lam) a) is two real calls before any einsum: no one call.
+      library_ms=None,
+      # Im(conj(lam) a) summed over the batch (4 flops an amplitude), then
+      # each factor's signed sum over [R, C] as a matrix-vector product
+      # (2 flops an entry) and a dot over R; four planes read once.
+      **bound(4 * amps + 2 * r * c * k + 2 * r * k, 16 * amps + 4 * k))
   for name, rec in report.items():
     log(f"[kernels] {name}: kernel {rec['ms']:.4f} ms, plain "
-        f"{rec['plain_ms']:.4f} ms, max abs err {rec['max_abs_err']:.3e}")
+        f"{rec['plain_ms']:.4f} ms, library {fmt_ms(rec['library_ms'])}, "
+        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), max abs err "
+        f"{rec['max_abs_err']:.3e}")
   return report
+
+
+def fmt_ms(ms) -> str:
+  return "--" if ms is None else f"{ms:.4f} ms"
 
 
 def phase_end_to_end(device, n=N_QUBITS, layers=LAYERS, batch=BATCH):
@@ -219,56 +274,29 @@ def phase_end_to_end(device, n=N_QUBITS, layers=LAYERS, batch=BATCH):
         rel_err(grad.cpu(), grad_ref.cpu()), GRAD_TOL)
 
 
-def build_vqt(device, n, layers, samples, max_unique, exact=False):
-  """The bench's VQT model (bench.py build_train_step), built with the
-  port, with seeded random weights."""
-  from qhbmlib_tpu_torch import models, nn
-  from qhbmlib_tpu_torch.inference import ebm, qhbm, qnn, vqt_loss
-  from qhbmlib_tpu_torch.ops import paulis
-  target = paulis.tfim_1d(n, device=device)
-  energy = models.BernoulliEnergy(
-      list(range(n)), initializer=nn.RandomUniform(seed=SEED + 2),
-      device=device)
-  e_inf = ebm.BernoulliEnergyInference(energy, samples, initial_seed=11,
-                                       exact=exact,
-                                       max_unique_samples=max_unique,
-                                       device=device)
-  circuit = models.DirectQuantumCircuit(
-      models.hardware_efficient_ansatz(n, layers),
-      initializer=nn.RandomUniform(0, 2, seed=SEED + 3), device=device)
-  h = qhbm.QHBM(e_inf, qnn.AnalyticQuantumInference(circuit))
-  return h, vqt_loss.make_vqt(h, target)
-
-
-def loss_and_grads(h, loss_fn):
-  for p in h.parameters():
-    p.grad = None
-  loss = loss_fn(BETA)
-  loss.backward()
-  return loss.detach(), [p.grad.detach().clone() for p in h.parameters()]
-
-
 def phase_small_reference(device):
-  """The port's VQT loss and gradients at 9q on the card against the same
-  model on the CPU (plain versions), with the exact EBM support."""
-  h_dev, f_dev = build_vqt(device, 9, 2, SAMPLES, None, exact=True)
-  h_cpu, f_cpu = build_vqt("cpu", 9, 2, SAMPLES, None, exact=True)
-  l_dev, g_dev = loss_and_grads(h_dev, f_dev)
-  l_cpu, g_cpu = loss_and_grads(h_cpu, f_cpu)
+  """The bench's VQT train step (`bench.build_train_step`, seeded weights)
+  at 9q on the card against the same step on the CPU (plain versions),
+  with the exact EBM support: loss and gradient before the update."""
+  from qhbmlib_tpu_torch import bench
+  cfg = dict(n=9, layers=2, samples=SAMPLES, max_unique=None)
+  l_dev, g_dev = bench.build_train_step(cfg, device, exact=True)[2]()
+  l_cpu, g_cpu = bench.build_train_step(cfg, "cpu", exact=True)[2]()
   check("9q/2L VQT loss, card vs CPU", rel_err(l_dev.cpu(), l_cpu), 1e-5)
-  check("9q/2L VQT gradient, card vs CPU",
-        rel_err(torch.cat([g.cpu() for g in g_dev]), torch.cat(g_cpu)),
+  check("9q/2L VQT gradient, card vs CPU", rel_err(g_dev.cpu(), g_cpu),
         GRAD_TOL)
 
 
 def kernel_wrappers():
+  from qhbmlib_tpu_torch.benchmarks import hbm_probe
   from qhbmlib_tpu_torch.ops import hopper_adjoint as ha
   from qhbmlib_tpu_torch.ops import hopper_sv as hs
   return {"axis_apply": hs.axis_apply, "diag_rotate": hs.diag_rotate,
           "axis_gram": ha.axis_gram, "parity_bilinear": ha.parity_bilinear,
           "axis2_apply": hs.axis2_apply,
           "circuit_forward": hs.circuit_forward,
-          "adjoint_sweep": ha.adjoint_sweep}
+          "adjoint_sweep": ha.adjoint_sweep,
+          "stream_scale": hbm_probe.stream_scale}
 
 
 def reset_launches() -> None:
@@ -287,39 +315,58 @@ def read_launches(path: str, required) -> dict:
   return launches
 
 
-def phase_train(device, n, layers, samples, max_unique, required):
-  """Warm-up plus STEPS timed VQT train steps; returns the launches."""
-  h, loss_fn = build_vqt(device, n, layers, samples, max_unique)
-  opt = torch.optim.Adam(h.parameters(), lr=1e-2)
-  tag = f"train {n}q/{layers}L"
-  reset_launches()
-  times = []
-  for step in range(STEPS + 1):
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    opt.zero_grad()
-    loss = loss_fn(BETA)
-    loss.backward()
-    grads = [p.grad for p in h.parameters()]
-    opt.step()
-    end.record()
+# Kernels each main path of the bench must launch.  Every 24q operator
+# pairs into an axis2_apply pass, so the 24q step launches no axis_apply.
+BENCH_PATHS = {
+    "train 24q": ["axis2_apply", "diag_rotate", "axis_gram",
+                  "parity_bilinear"],
+    "train 20q": ["axis_apply", "axis2_apply", "diag_rotate", "axis_gram",
+                  "parity_bilinear"],
+    "pauli 20q": ["axis_apply", "axis2_apply", "diag_rotate"],
+    "probe": ["stream_scale"],
+}
+
+
+def phase_bench(device):
+  """The port's bench (`qhbmlib_tpu_torch.bench.run_bench`, STEPS timed
+  steps a workload) with every launch count reset just before each of its
+  main paths and read just after; checks its gate, its oracle error and
+  that every number it reports is finite.  Returns (result, launches by
+  path)."""
+  from qhbmlib_tpu_torch import bench
+  paths = {}
+
+  @contextlib.contextmanager
+  def path(name):
+    reset_launches()
+    yield
     torch.cuda.synchronize()
-    finite = bool(torch.isfinite(loss)) and all(
-        bool(torch.isfinite(g).all()) for g in grads)
-    grad_norm = float(torch.cat(grads).norm())
-    log(f"[{tag}] step {step}{' (warm-up)' if step == 0 else ''}: loss "
-        f"{float(loss.detach()):.6f}, |grad| {grad_norm:.4e}, "
-        f"{start.elapsed_time(end):.2f} ms")
-    if not finite:
-      raise AssertionError(f"{tag} step {step}: non-finite loss or gradient")
-    if step > 0:
-      times.append(start.elapsed_time(end))
-  launches = read_launches(tag, required)
-  log(f"[{tag}] {samples} samples/{max_unique} unique: mean step "
-      f"{sum(times) / len(times):.2f} ms over {STEPS} steps "
-      f"({', '.join(f'{t:.2f}' for t in times)})")
-  return launches
+    paths[name] = read_launches(f"bench {name}", BENCH_PATHS[name])
+
+  result = bench.run_bench(device, steps=STEPS, path=path)
+  log(f"[bench] {json.dumps(result)}")
+  extra = result["extra"]
+  for name in ("train 24q", "train 20q"):
+    per_step = {k: v / (STEPS + 1) for k, v in paths[name].items() if v}
+    log(f"[bench {name}] launches per step (warm-up + {STEPS} steps): "
+        f"{per_step}")
+  numbers = [result["value"], extra["steps_per_sec_20q"],
+             extra["gate_grad_rel_err"], extra["forward_h_rel_err"],
+             extra["pauli_expectations_per_sec_20q"]]
+  numbers += [r["gb_per_s"] for r in extra["hbm_probe"]["results"].values()]
+  if not all(x == x and abs(x) != float("inf") for x in numbers):
+    raise AssertionError(f"bench: a non-finite number in {numbers}")
+  if not extra["gate_grad_rel_err"] < bench.GRAD_REL_GATE:
+    raise AssertionError(f"bench: gate gradient error "
+                         f"{extra['gate_grad_rel_err']} >= "
+                         f"{bench.GRAD_REL_GATE}")
+  check("bench 24q forward <H> vs f64 oracle", extra["forward_h_rel_err"],
+        ORACLE_TOL)
+  log(f"[bench] 24q {result['value']:.4f} steps/s, 20q "
+      f"{extra['steps_per_sec_20q']:.4f} steps/s, gate grad rel err "
+      f"{extra['gate_grad_rel_err']:.3e}, "
+      f"{extra['pauli_expectations_per_sec_20q']:.1f} expectations/s")
+  return result, paths
 
 
 def first_segment_passes(n, device):
@@ -357,19 +404,41 @@ def phase_k1(device):
     views = [f"({s1},{k1})x({s2},{k2})" for (s1, k1), _, (s2, k2), _ in pairs]
     check(f"axis2_apply {n}q B={BATCH} passes {' '.join(views)}", err,
           STATE_TOL)
-    rec = dict(err=err, max_abs_err=max(max_abs(torch.cat(g), torch.cat(f))
-                                        for g, f in zip(got, ref)),
+    abs_err = max(max_abs(torch.cat(g), torch.cat(f))
+                  for g, f in zip(got, ref))
+    del got, ref
+    # One einsum of both operators with the [P, N1, M, N2, Q] view a pass.
+    x_c = torch.complex(*x[0])
+    lib = [(torch.complex(*op1), torch.complex(*op2),
+            x_c.view(BATCH << s1, 2**k1, 2**(s2 - s1 - k1), 2**k2,
+                     2**(n - s2 - k2)))
+           for (s1, k1), op1, (s2, k2), op2 in pairs]
+    amps = x_c.numel()
+    rec = dict(err=err, max_abs_err=abs_err,
                ms=cuda_ms(lambda: run(False), reps=5),
-               plain_ms=cuda_ms(lambda: run(True), reps=5))
+               plain_ms=cuda_ms(lambda: run(True), reps=5),
+               # The state first: contracted left to right (torch's order
+               # without opt_einsum), no [N1, N1, N2, N2] product forms.
+               library_ms=cuda_ms(lambda: [
+                   torch.einsum("pimjq,Ii,Jj->pImJq", v, a, b)
+                   for a, b, v in lib], reps=5),
+               # Per pass: N1 + N2 complex multiply-adds per amplitude; the
+               # state read and written once, both operators read.
+               **bound(sum(8 * amps * (2**k1 + 2**k2)
+                           for (_, k1), _, (_, k2), _ in pairs),
+                       sum(16 * amps + 8 * (4**k1 + 4**k2)
+                           for (_, k1), _, (_, k2), _ in pairs)))
     # The same operators one axis_apply pass each, as before K1.
     singles = [(p[0], p[1]) for p in pairs] + [(p[2], p[3]) for p in pairs]
     unfused_ms = cuda_ms(lambda: [hs.apply_pass(p, x, n) for p in singles],
                          reps=5)
     log(f"[kernels] axis2_apply {n}q ({len(pairs)} passes, B={BATCH}): "
-        f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, the "
-        f"same operators as {len(singles)} axis_apply passes {unfused_ms:.4f}"
-        f" ms, max abs err {rec['max_abs_err']:.3e}")
-    del got, ref, x
+        f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+        f"library {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}), the same operators as {len(singles)} "
+        f"axis_apply passes {unfused_ms:.4f} ms, max abs err "
+        f"{rec['max_abs_err']:.3e}")
+    del x, x_c, lib
     torch.cuda.empty_cache()
     report = report or rec
   return report
@@ -406,10 +475,12 @@ def phase_single_kernels(device):
   ref = hs.circuit_forward(pqc, values, planes, plain=True)
   err = rel_err(torch.cat(got), torch.cat(ref))
   check(f"circuit_forward (K3) {n}q/{LAYERS}L", err, STATE_TOL)
-  table, buf = hs.forward_table(pqc, values, device), hs.state_buffer(planes)
+  k3_table = hs.forward_table(pqc, values, device)
+  buf = hs.state_buffer(planes)
   blocks = hs.sweep_blocks(device, 1)
   k3 = dict(err=err, max_abs_err=max_abs(torch.cat(got), torch.cat(ref)),
-            ms=cuda_ms(lambda: hs.launch_circuit_forward(table, buf, blocks)),
+            ms=cuda_ms(lambda: hs.launch_circuit_forward(k3_table, buf,
+                                                         blocks)),
             wrapper_ms=cuda_ms(lambda: hs.circuit_forward(pqc, values,
                                                           planes)),
             plain_ms=cuda_ms(lambda: hs.circuit_forward(pqc, values, planes,
@@ -434,11 +505,48 @@ def phase_single_kernels(device):
                                                         lam), reps=5),
             plain_ms=cuda_ms(lambda: ha.adjoint_sweep(pqc, values, ref, lam,
                                                       plain=True), reps=5))
+  # No one PyTorch call runs a whole circuit or a whole reverse sweep.
+  size = 2**n
+  k3.update(library_ms=None, **bound(
+      table_flops(k3_table, 1), 16 * size + table_bytes(k3_table)))
+  k2.update(library_ms=None, **bound(
+      table_flops(table, 2),
+      16 * size + table_bytes(table) + 4 * table.out_len))
   for name, rec in (("circuit_forward", k3), ("adjoint_sweep", k2)):
     log(f"[kernels] {name} {n}q/{LAYERS}L: kernel {rec['ms']:.4f} ms (the "
         f"launch alone; the whole wrapper {rec['wrapper_ms']:.4f} ms), plain "
-        f"{rec['plain_ms']:.4f} ms, max abs err {rec['max_abs_err']:.3e}")
+        f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}), max abs err {rec['max_abs_err']:.3e}")
   return k3, k2
+
+
+def table_flops(table, states: int) -> int:
+  """Float operations of one cooperative launch over `table` on `states`
+  states (1: K3; 2: K2's a and lambda): per record, an axis stage's complex
+  multiply-adds (8 flops, 2^k an amplitude) and a diagonal stage's K-term
+  phase sum and complex multiply (K + 6 an amplitude; the kernel sums the
+  phase in float64, counted here at the float32 rate) on each state; a
+  gram's multiply-adds over the pair; a bilinear's Im(conj(lam) a) and K
+  signed sums (4 + K an amplitude)."""
+  from qhbmlib_tpu_torch.ops import hopper_sv as hs
+  size = 2**table.n
+  flops = 0
+  records = table.pack()[0].cpu().view(-1, hs.STAGE_INTS).tolist()
+  for kind, _, k, count, *_ in records:
+    if kind == hs.AXIS:
+      flops += states * 8 * size * 2**k
+    elif kind == hs.DIAG:
+      flops += states * size * (count + 6)
+    elif kind == hs.GRAM:
+      flops += 8 * size * 2**k
+    else:
+      flops += size * (4 + count)
+  return flops
+
+
+def table_bytes(table) -> int:
+  """Bytes of a packed stage table (records, masks, data), read once."""
+  return sum(4 * t.numel() for t in table.pack())
 
 
 def phase_long_diag(device, n=9, reps=10):
@@ -526,7 +634,42 @@ def phase_single_main(device):
                        ["circuit_forward", "adjoint_sweep"])
 
 
-SOURCE = "qhbmlib_tpu_torch/csrc/statevector_kernels.cu"
+def phase_k6(device):
+  """stream_scale (K6) against its plain version on the 24q plane at each
+  tile size: exactly equal (one float32 multiply either way).  Its `ms` is
+  the fastest tile size's."""
+  from qhbmlib_tpu_torch.benchmarks import hbm_probe as hp
+  shape = (2**(N24 - 7), hp.COLS)
+  gen = torch.Generator(device=device).manual_seed(SEED + 9)
+  x = torch.randn(shape, generator=gen, device=device)
+  v = torch.tensor([1.0001], device=device)
+  ref = hp.stream_scale_plain(x, v)
+  times = {}
+  err = 0.0
+  for rpt in hp.ROWS_PER_TILE:
+    got = hp.stream_scale(x, v, rpt)
+    err = max(err, max_abs(got, ref))
+    if err != 0.0:
+      raise AssertionError(f"stream_scale rpt={rpt}: max abs err {err} != 0")
+    times[rpt] = cuda_ms(lambda rpt=rpt: hp.stream_scale(x, v, rpt), reps=20)
+  out = torch.empty_like(x)
+  # x read once and o written once; one multiply an element.
+  rec = dict(err=err, max_abs_err=err, ms=min(times.values()),
+             plain_ms=cuda_ms(lambda: hp.stream_scale_plain(x, v), reps=20),
+             library_ms=cuda_ms(lambda: torch.mul(x, v, out=out), reps=20),
+             **bound(x.numel(), 8 * x.numel() + 4))
+  log(f"[check] stream_scale (K6) 24q plane {shape}, rows per tile "
+      f"{list(times)}: max abs err {err} (must be 0) ok")
+  log(f"[kernels] stream_scale 24q: kernel "
+      + ", ".join(f"{ms:.4f} ms (rpt {rpt}, "
+                  f"{8 * x.numel() / ms / 1e6:.0f} GB/s)"
+                  for rpt, ms in times.items())
+      + f"; plain {rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f}"
+      f" ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+  return rec
+
+
+SOURCES = {"stream_scale": "qhbmlib_tpu_torch/csrc/stream_kernels.cu"}
 REPLACES = {
     "axis_apply": "qhbmlib_tpu/ops/pallas_sv.py:459",
     "diag_rotate": "qhbmlib_tpu/ops/pallas_sv.py:459",
@@ -535,9 +678,8 @@ REPLACES = {
     "axis2_apply": "qhbmlib_tpu/ops/pallas_sv.py:615",
     "circuit_forward": "qhbmlib_tpu/ops/pallas_sv.py:667",
     "adjoint_sweep": "qhbmlib_tpu/ops/pallas_adjoint.py:480",
+    "stream_scale": "benchmarks/hbm_probe.py:65",
 }
-BATCHED = ["axis_apply", "diag_rotate", "axis_gram", "parity_bilinear",
-           "axis2_apply"]
 
 
 def kernel_name(entry: str, source: str) -> str:
@@ -558,15 +700,13 @@ def main() -> int:
     print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
           "needs a CUDA device", file=sys.stderr)
     return 1
+  from qhbmlib_tpu_torch import bench
   from qhbmlib_tpu_torch.ops import _cuda
 
   torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in fp32
   torch.backends.cudnn.allow_tf32 = False
   device = torch.device("cuda:0")
-  smi = subprocess.run(
-      ["nvidia-smi", "--query-gpu=name,power.limit",
-       "--format=csv,noheader"], capture_output=True, text=True, check=True)
-  card = smi.stdout.strip().splitlines()[0]
+  card = bench.card(device)
   log(card)
   log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
       f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}, "
@@ -594,25 +734,29 @@ def main() -> int:
   report["axis2_apply"] = phase_k1(device)
   report["circuit_forward"], report["adjoint_sweep"] = (
       phase_single_kernels(device))
+  report["stream_scale"] = phase_k6(device)
+  torch.cuda.empty_cache()
   phase_end_to_end(device)
   phase_small_reference(device)
   phase_single_small(device)
   phase_long_diag(device)
   # The main paths, each driven with every count at 0 just before it.
-  paths = [
-      phase_train(device, N_QUBITS, LAYERS, SAMPLES, MAX_UNIQUE, BATCHED),
-      # Every 24q operator pairs into an axis2_apply pass: no axis_apply.
-      phase_train(device, N24, LAYERS24, SAMPLES24, MAX_UNIQUE24,
-                  [k for k in BATCHED if k != "axis_apply"]),
-      phase_single_main(device),
-  ]
+  _, paths = phase_bench(device)
+  paths["single"] = phase_single_main(device)
   log(f"[done] on {card}, {time.time() - t0:.1f} s since the build started")
   kernels = [{
-      "name": name, "route": "cuda", "source": SOURCE,
+      "name": name, "route": "cuda",
+      "source": SOURCES.get(name,
+                            "qhbmlib_tpu_torch/csrc/statevector_kernels.cu"),
       "replaces": REPLACES[name],
-      "launches": sum(path[name] for path in paths),
+      "launches": sum(path[name] for path in paths.values()),
       "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-      "plain_ms": rec["plain_ms"]} for name, rec in report.items()]
+      "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+      "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+             for name, rec in report.items()]
+  idle = [k["name"] for k in kernels if k["launches"] <= 0]
+  if idle:
+    raise AssertionError(f"kernels never launched on a main path: {idle}")
   print(json.dumps({"kernels": kernels}))
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

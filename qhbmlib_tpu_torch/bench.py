@@ -1,0 +1,347 @@
+"""The port's bench: VQT train steps/s at 24 qubits on one CUDA card.
+
+The counterpart of the repo's `bench.py` for its accelerator path, with its
+workloads (bench.py:49-52) at full width and depth:
+
+  * 24q: 1D TFIM, Bernoulli EBM (100 samples, 8 unique states), 2-layer
+    hardware-efficient ansatz -- the headline;
+  * 20q: the same at 500 samples, 64 unique states, 4 layers.
+
+A train step is what bench.py:134-176 builds (EBM sampling, VQT loss with
+the eq. A5 score-function and adjoint gradients, Adam 1e-2), with seeded
+random weights; steps/s comes from a host-clock loop of `--steps` steps
+after one warm-up, ending in a synchronize.  Then, as bench.py does:
+
+  * the precision gate: at each timed 24q step's (params, EBM generator
+    state) the kernels' loss and gradient against the same step through
+    the kernels' plain versions (`plain=True`, TF32 off), bar 1e-2 on the
+    gradient's relative error (the JAX bench's reference arm is its
+    `highest` matmul precision; the port has one precision);
+  * the 24q forward <H> of one basis state against the float64 C++ oracle
+    (`native/qsim_oracle.cc`);
+  * PauliSum expectations/s at 20q: 16 chained forwards of 64 states;
+  * the HBM stream probe (`benchmarks/hbm_probe.py`, with its kernel K6);
+  * with `--independent`, the 24q step of the independent single-core C++
+    simulator (`native/fast_sim.cc`), cached in `build/qhbmlib_tpu_torch/`.
+
+  python -m qhbmlib_tpu_torch.bench [--steps 8] [--independent]
+
+Prints ONE JSON line on stdout, {"metric": "vqt_train_steps_per_sec_24q",
+"value", "unit": "steps/s", "extra": {...}}, with the card's name and power
+limit (nvidia-smi) in extra; progress goes to stderr.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from qhbmlib_tpu_torch import device as device_lib
+from qhbmlib_tpu_torch import models
+from qhbmlib_tpu_torch import nn
+from qhbmlib_tpu_torch.benchmarks import hbm_probe
+from qhbmlib_tpu_torch.inference import ebm, qhbm, qnn, vqt_loss
+from qhbmlib_tpu_torch.ops import _cuda
+from qhbmlib_tpu_torch.ops import adjoint
+from qhbmlib_tpu_torch.ops import native_fast
+from qhbmlib_tpu_torch.ops import native_oracle
+from qhbmlib_tpu_torch.ops import paulis
+
+BETA = 1.2
+GRAD_REL_GATE = 1e-2
+WORKLOADS = {
+    "24q": dict(n=24, layers=2, samples=100, max_unique=8),
+    "20q": dict(n=20, layers=4, samples=500, max_unique=64),
+}
+INDEPENDENT_CACHE = _cuda.BUILD_DIR / "independent_anchor.json"
+
+
+def log(msg: str) -> None:
+  print(msg, file=sys.stderr, flush=True)
+
+
+def _sync(device: torch.device) -> None:
+  if device.type == "cuda":
+    torch.cuda.synchronize(device)
+
+
+def flat_grads(h: qhbm.QHBM) -> torch.Tensor:
+  return torch.cat([p.grad.reshape(-1) for p in h.parameters()])
+
+
+def build_train_step(cfg, device, exact: bool = False):
+  """The bench's VQT train step (bench.py:134-176) in the port, with
+  seeded random weights.
+
+  Returns (h, target, train_step): train_step() takes one Adam step on h's
+  parameters and returns the loss and the flat gradient [theta, phi] from
+  before the update, both on the device.  `exact` uses the full 2^n EBM
+  support with expected counts (n <= 16) instead of sampling."""
+  n = cfg["n"]
+  target = paulis.tfim_1d(n, device=device)  # open chain, as bench.py
+  energy = models.BernoulliEnergy(
+      list(range(n)), initializer=nn.RandomUniform(seed=2),
+      device=device)
+  e_inf = ebm.BernoulliEnergyInference(energy, cfg["samples"],
+                                       initial_seed=11, exact=exact,
+                                       max_unique_samples=cfg["max_unique"],
+                                       device=device)
+  circuit = models.DirectQuantumCircuit(
+      models.hardware_efficient_ansatz(n, cfg["layers"]),
+      initializer=nn.RandomUniform(0, 2, seed=3), device=device)
+  h = qhbm.QHBM(e_inf, qnn.AnalyticQuantumInference(circuit))
+  loss_fn = vqt_loss.make_vqt(h, target)
+  opt = torch.optim.Adam(h.parameters(), lr=1e-2)
+
+  def train_step():
+    opt.zero_grad(set_to_none=True)
+    loss = loss_fn(BETA)
+    loss.backward()
+    grads = flat_grads(h)
+    opt.step()
+    return loss.detach(), grads
+
+  return h, target, train_step
+
+
+def run_workload(name: str, cfg, steps: int, device, traj=None) -> float:
+  """Steps/s of `steps` train steps after one warm-up, host clock ending in
+  a synchronize.
+
+  With `traj` (a dict) it records the gate's trajectory: the model and
+  target, and for every timed step its input (parameters, the EBM
+  generator's state) and its output (loss, flat gradient), copied to the
+  host after the timing."""
+  h, target, train_step = build_train_step(cfg, device)
+  t0 = time.perf_counter()
+  loss, _ = train_step()
+  log(f"[bench:{name}] warm-up step (builds the kernels if unbuilt): "
+      f"{time.perf_counter() - t0:.2f} s, loss {float(loss):.6f}")
+  gen = h.e_inference.generator
+  snaps, losses, grads = [], [], []
+  t0 = time.perf_counter()
+  for _ in range(steps):
+    if traj is not None:
+      snaps.append(([p.detach().clone() for p in h.parameters()],
+                    gen.get_state()))
+    loss, g = train_step()
+    if traj is not None:
+      losses.append(loss)
+      grads.append(g)
+  _sync(device)
+  dt = time.perf_counter() - t0
+  if traj is not None:
+    traj.update(model=h, target=target, snaps=snaps,
+                losses=[float(x) for x in losses],
+                grads=[g.cpu() for g in grads])
+  log(f"[bench:{name}] {steps} steps in {dt:.3f} s -> {steps / dt:.4f} "
+      f"steps/s (final loss {float(loss):.6f})")
+  return steps / dt
+
+
+def precision_gate(traj) -> dict:
+  """Kernels against plain versions at the trajectory's recorded points.
+
+  Each point's (parameters, generator state) is restored and the step's
+  loss and gradient recomputed with `plain=True`: both arms see the same
+  parameters and the same EBM support, so every difference is the kernels'
+  rounding against the plain PyTorch ops."""
+  h = traj["model"]
+  plain = qhbm.QHBM(h.e_inference, qnn.AnalyticQuantumInference(
+      h.q_inference.circuit, plain=True))
+  loss_fn = vqt_loss.make_vqt(plain, traj["target"])
+  gen = h.e_inference.generator
+  loss_err = grad_rel = 0.0
+  for (params, state), loss_k, grad_k in zip(traj["snaps"], traj["losses"],
+                                             traj["grads"]):
+    with torch.no_grad():
+      for p, v in zip(h.parameters(), params):
+        p.copy_(v)
+    gen.set_state(state)
+    for p in h.parameters():
+      p.grad = None
+    loss = loss_fn(BETA)
+    loss.backward()
+    grad_p = flat_grads(h).cpu().double()
+    loss_err = max(loss_err, abs(loss_k - float(loss.detach())))
+    grad_rel = max(grad_rel, float(
+        torch.linalg.vector_norm(grad_k.double() - grad_p) /
+        max(float(torch.linalg.vector_norm(grad_p)), 1e-12)))
+  out = {"gate_loss_err": loss_err, "gate_grad_rel_err": grad_rel,
+         "gate_reference": "plain",
+         "gate_trajectory_steps": len(traj["snaps"])}
+  log(f"[bench:gate] kernels vs plain at {out['gate_trajectory_steps']} "
+      f"identical (params, generator state) points: max loss err "
+      f"{loss_err:.3e}, max grad rel err {grad_rel:.3e} (gate "
+      f"{GRAD_REL_GATE:.0e})")
+  return out
+
+
+def measure_oracle_forward_err(cfg, device) -> dict:
+  """The engine's TFIM <H> against the float64 C++ oracle
+  (`native_oracle.simulate` + `expectation_f64`) for one basis-state-
+  prepared, circuit-evolved state at cfg's shape (bench.py:436-472)."""
+  n = cfg["n"]
+  circuit = models.hardware_efficient_ansatz(n, cfg["layers"])
+  rng = np.random.RandomState(3)
+  values = rng.uniform(0, 2, circuit.num_symbols).astype(np.float32)
+  bits = rng.randint(0, 2, size=(1, n)).astype(np.int8)
+  target = paulis.tfim_1d(n, device=device)
+  with torch.no_grad():
+    got = float(adjoint.batched_expectations(
+        circuit, torch.from_numpy(values).to(device),
+        torch.from_numpy(bits).to(device), (target,))[0, 0])
+  psi = native_oracle.simulate(circuit, values.astype(np.float64),
+                               bits=bits[0])
+  want = native_oracle.expectation_f64(psi, target)
+  err = abs(got - want)
+  log(f"[bench:accuracy] {n}q forward <H> {got:.8f}, f64 oracle {want:.8f}, "
+      f"abs err {err:.3e}")
+  return {"forward_h": got, "forward_h_f64_oracle": want,
+          "forward_h_abs_err": err,
+          "forward_h_rel_err": err / max(abs(want), 1e-12)}
+
+
+def measure_pauli_expectations(cfg, device, iters: int = 16) -> float:
+  """PauliSum expectations/s (bench.py:288-331): one expectation is <H>
+  of the TFIM for one basis-state-prepared, circuit-evolved state; `iters`
+  chained forwards of cfg's unique-state count, each nudging the
+  parameters by 1e-9 * mean(<H>), best of 3 after a warm-up."""
+  n, batch = cfg["n"], cfg["max_unique"]
+  target = paulis.tfim_1d(n, device=device)
+  circuit = models.DirectQuantumCircuit(
+      models.hardware_efficient_ansatz(n, cfg["layers"]),
+      initializer=nn.RandomUniform(0, 2, seed=3), device=device)
+  q_inf = qnn.AnalyticQuantumInference(circuit)
+  bits = torch.from_numpy(np.random.RandomState(2).randint(
+      0, 2, (batch, n)).astype(np.int8)).to(device)
+  phi = circuit.values.detach().clone()
+
+  @torch.no_grad()
+  def run():
+    circuit.values.copy_(phi)
+    outs = []
+    for _ in range(iters):
+      mean = q_inf.expectation(bits, target).mean()
+      circuit.values.add_(mean * 1e-9)
+      outs.append(mean)
+    return torch.stack(outs)
+
+  run()
+  _sync(device)
+  best = float("inf")
+  for _ in range(3):
+    t0 = time.perf_counter()
+    run()
+    _sync(device)
+    best = min(best, time.perf_counter() - t0)
+  eps = iters * batch / best
+  log(f"[bench:{n}q] {iters}x{batch} PauliSum expectations in {best:.3f} s "
+      f"-> {eps:.1f} expectations/s")
+  return eps
+
+
+def run_independent_anchor(cfg) -> float:
+  """Steps/s of the workload's quantum step through the independent C++
+  simulator (`native/fast_sim.cc`, one core): forward, TFIM <H> and adjoint
+  gradient for each unique state (bench.py:475-495).  It omits the
+  classical EBM / Adam arithmetic, so it overstates the CPU's rate."""
+  circuit = models.hardware_efficient_ansatz(cfg["n"], cfg["layers"])
+  rng = np.random.RandomState(0)
+  values = rng.uniform(0, 2, circuit.num_symbols)
+  zz, xs = native_fast.split_pauli_terms(paulis.tfim_1d(cfg["n"],
+                                                        device="cpu"))
+  bits = rng.randint(0, 2, size=(cfg["max_unique"], cfg["n"]))
+  return 1.0 / native_fast.step_seconds(circuit, values, zz, xs, bits,
+                                        repeats=2)
+
+
+def independent_steps_per_sec(name: str, cfg) -> float:
+  """`run_independent_anchor`, cached in INDEPENDENT_CACHE keyed on the
+  config and the simulator's artifact key (source, flags, host CPU)."""
+  src = native_fast.artifact_key()
+  cache = (json.loads(INDEPENDENT_CACHE.read_text())
+           if INDEPENDENT_CACHE.exists() else {})
+  entry = cache.get(name)
+  if entry and entry["config"] == cfg and entry["src"] == src:
+    log(f"[bench:{name}] cached independent C++ anchor: "
+        f"{entry['steps_per_sec']:.6f} steps/s")
+    return entry["steps_per_sec"]
+  log(f"[bench:{name}] measuring the independent C++ anchor (minutes)...")
+  sps = run_independent_anchor(cfg)
+  cache[name] = {"config": cfg, "src": src, "steps_per_sec": sps}
+  INDEPENDENT_CACHE.parent.mkdir(parents=True, exist_ok=True)
+  INDEPENDENT_CACHE.write_text(json.dumps(cache, indent=1))
+  return sps
+
+
+def card(device: torch.device):
+  """The first card's `nvidia-smi --query-gpu=name,power.limit` line, or
+  None off the card."""
+  if device.type != "cuda":
+    return None
+  out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True)
+  return out.stdout.strip().splitlines()[0]
+
+
+def run_bench(device, steps: int = 8, independent: bool = False,
+              workloads=WORKLOADS, path=contextlib.nullcontext) -> dict:
+  """Every measurement of the bench; returns its JSON object.
+
+  `path(name)` is a context manager entered around each main path ("train
+  24q", "train 20q", "pauli 20q", "probe"); `chip_smoke.py` counts the
+  kernels' launches with it."""
+  if steps < 1:
+    raise ValueError(f"steps must be >= 1, not {steps}")
+  device = torch.device(device)
+  torch.backends.cuda.matmul.allow_tf32 = False  # fp32 products, both arms
+  torch.backends.cudnn.allow_tf32 = False
+  w24, w20 = workloads["24q"], workloads["20q"]
+  traj = {}
+  with path("train 24q"):
+    sps24 = run_workload("24q", w24, steps, device, traj)
+  with path("train 20q"):
+    sps20 = run_workload("20q", w20, steps, device)
+  extra = {"steps_per_sec_20q": sps20}
+  extra.update(precision_gate(traj))
+  extra.update(measure_oracle_forward_err(w24, device))
+  with path("pauli 20q"):
+    extra["pauli_expectations_per_sec_20q"] = measure_pauli_expectations(
+        w20, device)
+  with path("probe"):
+    extra["hbm_probe"] = hbm_probe.measure(w24["n"], device=device)
+  if independent:
+    indep = independent_steps_per_sec("24q", w24)
+    extra["cpu_independent_steps_per_sec"] = indep
+    extra["vs_independent"] = sps24 / indep
+  extra.update(
+      steps=steps, workload=w24, workload_20q=w20,
+      device=(torch.cuda.get_device_name(device) if device.type == "cuda"
+              else str(device)),
+      card=card(device))
+  return {"metric": "vqt_train_steps_per_sec_24q", "value": sps24,
+          "unit": "steps/s", "extra": extra}
+
+
+def main(argv=None) -> None:
+  p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+  p.add_argument("--steps", type=int, default=8,
+                 help="timed train steps per workload (and gate points)")
+  p.add_argument("--independent", action="store_true",
+                 help="also measure the 24q C++ anchor (minutes, cached)")
+  args = p.parse_args(argv)
+  result = run_bench(device_lib.resolve(), args.steps, args.independent)
+  print(json.dumps(result), flush=True)
+
+
+if __name__ == "__main__":
+  main()

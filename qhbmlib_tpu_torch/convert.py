@@ -15,13 +15,18 @@ from typing import Dict, Mapping, Sequence
 import numpy as np
 import torch
 
+from qhbmlib_tpu_torch import device as device_lib
+
 
 def from_jax_params(params: Mapping[str, Sequence],
                     device=None) -> Dict[str, torch.Tensor]:
   """{'theta': [array], 'phi': [array]} -> {'theta': tensor, 'phi': tensor}.
 
-  Raises if a group holds other than exactly one array (the port's
-  BernoulliEnergy and DirectQuantumCircuit each have one parameter)."""
+  The tensors land on `device` (None means the CUDA card,
+  `device.resolve`).  Raises if a group holds other than exactly one array
+  (the port's BernoulliEnergy and DirectQuantumCircuit each have one
+  parameter)."""
+  device = device_lib.resolve(device)
   out = {}
   for key in ("theta", "phi"):
     group = list(params[key])

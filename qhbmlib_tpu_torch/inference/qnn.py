@@ -36,10 +36,19 @@ class QuantumInference(abc.ABC):
 
 class AnalyticQuantumInference(QuantumInference):
   """Exact expectations with adjoint gradients (reference qnn.py:117-144);
-  PauliSum observables only."""
+  PauliSum observables only.
+
+  `plain=True` runs the kernels' plain PyTorch versions on any device: the
+  reference arm of the bench's precision gate (the counterpart of the JAX
+  bench's `QHBM_MATMUL_PRECISION=highest` arm), never the main path."""
+
+  def __init__(self, input_circuit: circuit_model.QuantumCircuit,
+               name: Optional[str] = None, plain: bool = False):
+    super().__init__(input_circuit, name)
+    self.plain = plain
 
   def expectation(self, initial_states: torch.Tensor,
                   observables) -> torch.Tensor:
     return adjoint.batched_expectations(
         self._circuit.pqc, self._circuit.resolved_values(), initial_states,
-        adjoint.as_pauli_tuple(observables))
+        adjoint.as_pauli_tuple(observables), plain=self.plain)

@@ -14,13 +14,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from qhbmlib_tpu_torch import device as device_lib
 from qhbmlib_tpu_torch import nn as qnn_init
 from qhbmlib_tpu_torch.ops import circuit_ir as ir
 
 
 class QuantumCircuit(nn.Module):
   """A parameterized circuit; subclasses define `symbol_values()` in
-  `symbol_names` order."""
+  `symbol_names` order.  `device` None means the CUDA card
+  (`device.resolve`)."""
 
   def __init__(self, pqc: ir.Circuit, symbol_names: Sequence[str],
                name: Optional[str] = None, device=None):
@@ -35,7 +37,8 @@ class QuantumCircuit(nn.Module):
     self.register_buffer(
         "_perm",
         torch.as_tensor(np.asarray([pos[s] for s in pqc.symbol_names],
-                                   np.int64), device=device),
+                                   np.int64),
+                        device=device_lib.resolve(device)),
         persistent=False)
 
   @property
@@ -66,6 +69,7 @@ class DirectQuantumCircuit(QuantumCircuit):
                initializer: Optional[qnn_init.Initializer] = None,
                name: Optional[str] = None, device=None):
     symbol_names = tuple(sorted(pqc.symbol_names))
+    device = device_lib.resolve(device)
     super().__init__(pqc, symbol_names, name, device)
     initializer = initializer or qnn_init.RandomUniform(0, 2)
     self.values = nn.Parameter(initializer([len(symbol_names)], device))

@@ -43,7 +43,8 @@ class BitstringEnergy(nn.Module):
 
 
 class BernoulliEnergy(BitstringEnergy):
-  """Independent spins in magnetic fields: E(x) = sum_i theta_i s_i."""
+  """Independent spins in magnetic fields: E(x) = sum_i theta_i s_i.  Its
+  kernel lives on `device` (None means the CUDA card, `device.resolve`)."""
 
   def __init__(self, bits: List[int],
                initializer: Optional[qnn_init.Initializer] = None,

@@ -8,6 +8,7 @@ from typing import List, Optional
 import torch
 from torch import nn
 
+from qhbmlib_tpu_torch import device as device_lib
 from qhbmlib_tpu_torch import nn as qnn_init
 
 
@@ -26,14 +27,16 @@ class SpinsFromBitstrings(nn.Module):
 
 
 class VariableDot(nn.Module):
-  """Dot product with a trainable [num_inputs] kernel."""
+  """Dot product with a trainable [num_inputs] kernel on `device` (None
+  means the CUDA card, `device.resolve`)."""
 
   def __init__(self, num_inputs: int,
                initializer: Optional[qnn_init.Initializer] = None,
                device=None):
     super().__init__()
     initializer = initializer or qnn_init.RandomUniform()
-    self.kernel = nn.Parameter(initializer([num_inputs], device))
+    self.kernel = nn.Parameter(initializer([num_inputs],
+                                           device_lib.resolve(device)))
 
   def forward(self, inputs: torch.Tensor) -> torch.Tensor:
     return torch.sum(inputs.to(torch.float32) * self.kernel, dim=-1)

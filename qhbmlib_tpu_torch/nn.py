@@ -12,9 +12,12 @@ from typing import Optional, Sequence
 
 import torch
 
+from qhbmlib_tpu_torch import device as device_lib
+
 
 class Initializer:
-  """Callable (shape, device) -> float32 tensor."""
+  """Callable (shape, device) -> float32 tensor; device None means the
+  CUDA card (`device.resolve`)."""
 
   def __call__(self, shape: Sequence[int], device=None) -> torch.Tensor:
     raise NotImplementedError()
@@ -45,7 +48,8 @@ class RandomUniform(Initializer):
   def __call__(self, shape, device=None):
     u = torch.rand(tuple(shape), generator=self.generator,
                    device=self.generator.device, dtype=torch.float32)
-    return (self.minval + (self.maxval - self.minval) * u).to(device)
+    return (self.minval + (self.maxval - self.minval) * u).to(
+        device_lib.resolve(device))
 
 
 class Constant(Initializer):
@@ -55,5 +59,5 @@ class Constant(Initializer):
 
   def __call__(self, shape, device=None):
     return torch.full(tuple(shape), self.value, dtype=torch.float32,
-                      device=device)
+                      device=device_lib.resolve(device))
 

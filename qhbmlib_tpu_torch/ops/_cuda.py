@@ -1,10 +1,14 @@
 """Builds and loads the package's CUDA kernels (nvcc + ctypes).
 
 The sources under `qhbmlib_tpu_torch/csrc/` have a plain C interface, so
-they compile in seconds with nvcc alone -- no PyTorch headers:
+they compile in seconds with nvcc alone -- no PyTorch headers.  Each source
+compiles to an object in its own nvcc process, all started together, and
+one more nvcc links them:
 
-  nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-       -Xcompiler -fPIC -o build/qhbmlib_tpu_torch/libqhbm_kernels-<hash>.so
+  nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+       -Xcompiler -fPIC -c -o <stem>.o csrc/<stem>.cu        (each source)
+  nvcc -gencode arch=compute_90a,code=sm_90a -shared
+       -o build/qhbmlib_tpu_torch/libqhbm_kernels-<hash>.so *.o
 
 The library is built at first use into `build/` beside the package (the
 hash covers the sources and flags, so an edited source rebuilds) and loaded
@@ -30,8 +34,8 @@ import torch
 _PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "qhbmlib_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +51,7 @@ _SIGNATURES = {
     "qhbm_sweep_blocks": [_I],
     "qhbm_circuit_forward": [_P, _I, _I, _P, _I, _P, _P, _I, _P],
     "qhbm_adjoint_sweep": [_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _P],
+    "qhbm_stream_scale": [_P, _P, _P, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -81,29 +86,42 @@ def library_path() -> pathlib.Path:
 
 
 def build(verbose: bool = False) -> pathlib.Path:
-  """Compiles the sources unless the hashed library exists.  With
-  `verbose`, adds `-Xptxas -v` and keeps the compiler's output in
-  `last_build_log` (registers, shared memory and spills per kernel)."""
+  """Compiles the sources unless the hashed library exists: one nvcc
+  process per source, all at once, then one link.  With `verbose`, adds
+  `-Xptxas -v` and keeps the compilers' output in `last_build_log`
+  (registers, shared memory and spills per kernel)."""
   global last_build_log
   out = library_path()
   if out.exists() and not verbose:
     return out
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
-  fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-  os.close(fd)
-  cmd = [find_nvcc(), *NVCC_FLAGS]
-  if verbose:
-    cmd += ["-Xptxas", "-v"]
-  cmd += ["-o", tmp, *map(str, sources())]
-  try:
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    last_build_log = proc.stdout + proc.stderr
+  nvcc = find_nvcc()
+  with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    objs, procs = [], []
+    try:
+      for src in sources():
+        objs.append(os.path.join(tmp, src.stem + ".o"))
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+             "-c", "-o", objs[-1], str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+      logs = [proc.communicate()[0] for proc in procs]
+    finally:
+      for proc in procs:  # never leave a compiler running
+        if proc.poll() is None:
+          proc.kill()
+          proc.wait()
+    last_build_log = "".join(logs)
+    failed = [p.returncode for p in procs if p.returncode != 0]
+    if failed:
+      raise RuntimeError(f"nvcc failed ({failed}):\n{last_build_log}")
+    lib = os.path.join(tmp, out.name)
+    proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs],
+                          capture_output=True, text=True, check=False)
     if proc.returncode != 0:
-      raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{last_build_log}")
-    os.replace(tmp, out)  # atomic: concurrent builders never see half a file
-  finally:
-    if os.path.exists(tmp):
-      os.remove(tmp)
+      raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                         f"{proc.stdout}{proc.stderr}")
+    os.replace(lib, out)  # atomic: concurrent builders never see half a file
   return out
 
 

@@ -47,15 +47,16 @@ class _BatchedTerms(torch.autograd.Function):
   differentiable w.r.t. the symbol values by the adjoint method."""
 
   @staticmethod
-  def forward(ctx, symbol_values, rowcol, circuit, op):
+  def forward(ctx, symbol_values, rowcol, circuit, op, plain):
     # One host copy of the values serves both passes: the backward folds
     # its operators from it without waiting on the device.
     values = hopper_sv.host_values(symbol_values)
-    psi = hopper_sv.apply_circuit_batched(circuit, values, rowcol)
+    psi = hopper_sv.apply_circuit_batched(circuit, values, rowcol, plain)
     terms = sv.expectation_terms(torch.complex(*psi), op)
     ctx.circuit = circuit
     ctx.op = op
     ctx.values = values
+    ctx.plain = plain
     ctx.save_for_backward(*psi)
     return terms
 
@@ -69,13 +70,14 @@ class _BatchedTerms(torch.autograd.Function):
                              term_weights=g)
     grad = hopper_adjoint.adjoint_sweep_batched(
         ctx.circuit, ctx.values, (psi_re, psi_im),
-        (lam.real.contiguous(), lam.imag.contiguous()))
-    return grad, None, None, None
+        (lam.real.contiguous(), lam.imag.contiguous()), ctx.plain)
+    return grad, None, None, None, None
 
 
 def batched_expectations(circuit: ir.Circuit, symbol_values: torch.Tensor,
                          init_bits: torch.Tensor,
-                         ops: Sequence[paulis.PauliSum]) -> torch.Tensor:
+                         ops: Sequence[paulis.PauliSum],
+                         plain: bool = False) -> torch.Tensor:
   """Expectations of each op against U|b> for each bitstring b.
 
   All terms of all ops are concatenated into one PauliSum, so each batch
@@ -87,6 +89,8 @@ def batched_expectations(circuit: ir.Circuit, symbol_values: torch.Tensor,
     symbol_values: [num_symbols] parameters on the device to run on.
     init_bits: [B, n] int bitstrings; each becomes a basis initial state.
     ops: PauliSums to measure.
+    plain: run the kernels' plain versions on any device (the precision
+      gate's reference arm only).
 
   Returns:
     [B, len(ops)] float32 expectations, differentiable w.r.t.
@@ -97,7 +101,7 @@ def batched_expectations(circuit: ir.Circuit, symbol_values: torch.Tensor,
   device = symbol_values.device
   rowcol = bits_to_rowcol(init_bits.to(device), n)
   terms = _BatchedTerms.apply(symbol_values, rowcol, circuit,
-                              big.to(device))  # [B, T]
+                              big.to(device), plain)  # [B, T]
   weighted = terms * big.coeffs.to(device)[None, :]
   return torch.stack([weighted[:, a:b].sum(dim=1) for a, b in slices], dim=1)
 

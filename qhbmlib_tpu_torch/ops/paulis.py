@@ -14,6 +14,8 @@ from typing import Iterable, Mapping, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from qhbmlib_tpu_torch import device as device_lib
+
 I, X, Y, Z = 0, 1, 2, 3
 
 _CHAR_TO_CODE = {"I": I, "X": X, "Y": Y, "Z": Z}
@@ -69,7 +71,8 @@ def pauli_sum_from_strings(
     num_qubits: int,
     terms: Iterable[Tuple[float, Mapping[int, Union[str, int]]]],
     device=None) -> PauliSum:
-  """Builds a PauliSum from (coeff, {qubit: pauli}) pairs."""
+  """Builds a PauliSum from (coeff, {qubit: pauli}) pairs, its coeffs on
+  `device` (None means the CUDA card, `device.resolve`)."""
   codes = []
   coeffs = []
   for coeff, qmap in terms:
@@ -82,7 +85,7 @@ def pauli_sum_from_strings(
     coeffs.append(coeff)
   return PauliSum(codes=_codes_tensor(codes, num_qubits),
                   coeffs=torch.tensor(coeffs, dtype=torch.float32,
-                                      device=device),
+                                      device=device_lib.resolve(device)),
                   num_qubits=num_qubits)
 
 

@@ -28,6 +28,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from qhbmlib_tpu_torch import device as device_lib
 from qhbmlib_tpu_torch.ops import circuit_ir as ir
 from qhbmlib_tpu_torch.ops import paulis
 
@@ -306,9 +307,10 @@ def parity_signs(masks: Sequence[int], size: int, device=None) -> torch.Tensor:
 
   Cached per (masks, size, device): the masks are static circuit and
   observable structure, so each sign matrix crosses to the device once.
-  The result is shared; do not write to it."""
+  The result is shared; do not write to it.  `device` None means the CUDA
+  card (`device.resolve`)."""
   return _parity_signs(tuple(int(x) for x in masks), int(size),
-                       str(torch.device(device or "cpu")))
+                       str(device_lib.resolve(device)))
 
 
 def parity_outer_sum(weights: torch.Tensor, row_masks, col_masks,
@@ -347,15 +349,15 @@ def diag_segment_weights(gates, angles, nr: int, m: int):
 
 def diag_segment_phase(gates, angles, shape_rc, device=None) -> torch.Tensor:
   """float32 total phase angle [R, C] of a run of diagonal gates with host
-  angles `angles`, on `device`; summed in float64, as the single-state
-  kernels sum each amplitude's phase."""
+  angles `angles`, on `device` (None means the CUDA card); summed in
+  float64, as the single-state kernels sum each amplitude's phase."""
   r, c = shape_rc
   n = (int(r) * int(c)).bit_length() - 1
   m = int(c).bit_length() - 1
   weights, rms, cms = diag_segment_weights(gates, angles, n - m, m)
   return parity_outer_sum(torch.tensor(weights, dtype=torch.float64,
-                                       device=device), rms, cms,
-                          shape_rc).to(torch.float32)
+                                       device=device_lib.resolve(device)),
+                          rms, cms, shape_rc).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -446,9 +448,10 @@ def apply_majors_and_minor(state: torch.Tensor, major_by_qubit,
 # ---------------------------------------------------------------------------
 
 def zero_state(num_qubits: int, device=None) -> torch.Tensor:
-  """|0...0> as an [R, C] complex64 state."""
+  """|0...0> as an [R, C] complex64 state on `device` (None means the CUDA
+  card, `device.resolve`)."""
   state = torch.zeros(state_shape(num_qubits), dtype=COMPLEX_DTYPE,
-                      device=device)
+                      device=device_lib.resolve(device))
   state[0, 0] = 1.0
   return state
 

@@ -145,7 +145,8 @@ def test_wrappers_refuse_other_devices():
 
 def test_build_is_lazy_and_targets_sm90a():
   assert "arch=compute_90a,code=sm_90a" in _cuda.NVCC_FLAGS
-  assert [s.name for s in _cuda.sources()] == ["statevector_kernels.cu"]
+  assert [s.name for s in _cuda.sources()] == ["statevector_kernels.cu",
+                                               "stream_kernels.cu"]
   name = _cuda.library_path().name
   assert name.startswith("libqhbm_kernels-") and name.endswith(".so")
   assert _cuda.library_path().parent == _cuda.BUILD_DIR
@@ -261,7 +262,8 @@ def test_batched_expectations_value_and_grad_match_jax():
   val_j, grad_j = jax.value_and_grad(loss_j)(jnp.asarray(values))
   v = torch.tensor(values, requires_grad=True)
   e = tadjoint.batched_expectations(tcu.hardware_efficient_ansatz(n, 2), v,
-                                    torch.tensor(bits), (tp.tfim_1d(n),))
+                                    torch.tensor(bits),
+                                    (tp.tfim_1d(n, device="cpu"),))
   val_t = torch.sum(torch.tensor(w) * e[:, 0])
   val_t.backward()
   np.testing.assert_allclose(float(val_t.detach()), float(val_j),

@@ -107,7 +107,7 @@ def test_segment_path_matches_k3_plain():
 
 def test_state_helpers_match_jax():
   n = 9
-  np.testing.assert_array_equal(tsv.zero_state(n).numpy(),
+  np.testing.assert_array_equal(tsv.zero_state(n, device="cpu").numpy(),
                                 np.asarray(jsv.zero_state(n)))
   vec = np.random.RandomState(0).normal(size=2**n).astype(np.complex64)
   st = tsv.from_vector(torch.tensor(vec), n)
@@ -158,8 +158,10 @@ def test_expectation_value_and_grad_match_jax():
     return jadjoint.expectation(pqc, v, jnp.asarray(state), op)
 
   val_j, grad_j = jax.value_and_grad(f)(jnp.asarray(values))
-  v = convert.from_jax_params(params)["phi"].requires_grad_(True)
-  val_t = tadjoint.expectation(tpqc, v, torch.tensor(state), tp.tfim_1d(n))
+  v = convert.from_jax_params(params, device="cpu")["phi"]
+  v.requires_grad_(True)
+  val_t = tadjoint.expectation(tpqc, v, torch.tensor(state),
+                               tp.tfim_1d(n, device="cpu"))
   val_t.backward()
   np.testing.assert_allclose(float(val_t.detach()), float(val_j),
                              atol=STATE_ATOL)
@@ -174,7 +176,7 @@ def test_expectation_coefficient_grad_and_terms():
   pqc, tpqc, values, state, op, _ = _problem(n, 1, 6)
   terms_j = jadjoint.adjoint_term_expectations(pqc, jnp.asarray(values),
                                                jnp.asarray(state), op)
-  top = tp.tfim_1d(n)
+  top = tp.tfim_1d(n, device="cpu")
   top.coeffs.requires_grad_(True)
   terms_t = tadjoint.adjoint_term_expectations(tpqc, torch.tensor(values),
                                                torch.tensor(state), top)
@@ -191,7 +193,7 @@ def test_expectation_grad_five_point_stencil():
   central-difference stencil of the value."""
   n = 4
   _, tpqc, values, state, _, _ = _problem(n, 2, 7)
-  op = tp.tfim_1d(n)
+  op = tp.tfim_1d(n, device="cpu")
   x = torch.tensor(state)
 
   def f(v):

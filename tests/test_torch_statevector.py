@@ -114,8 +114,8 @@ def test_diag_segment_phase(n):
   gates = _diag_segment(n)
   angles = rng.uniform(-1, 1, len(gates)).astype(np.float32)
   # Phases are sums of ~n angles times pi: 1e-5 relative to their scale.
-  _close(tsv.diag_segment_phase(gates, angles,
-                                jsv.state_shape(n)),
+  _close(tsv.diag_segment_phase(gates, angles, jsv.state_shape(n),
+                                device="cpu"),
          jsv.diag_segment_phase(gates, [jnp.asarray(x) for x in angles],
                                 jsv.state_shape(n)), atol=1e-5 * n)
 
@@ -124,7 +124,8 @@ def test_diag_segment_phase(n):
 def test_expectation_terms_tfim(n):
   rng = np.random.RandomState(n + 6)
   psi = _state(rng, n)
-  _close(tsv.expectation_terms(torch.tensor(psi), tp.tfim_1d(n)),
+  _close(tsv.expectation_terms(torch.tensor(psi),
+                               tp.tfim_1d(n, device="cpu")),
          jsv.expectation_terms(jnp.asarray(psi), jp.tfim_1d(n)))
 
 
@@ -133,7 +134,8 @@ def test_expectation_terms_batched(n):
   """A leading batch axis gives the per-state results."""
   rng = np.random.RandomState(n + 7)
   psis = _state(rng, n, (3,))
-  actual = tsv.expectation_terms(torch.tensor(psis), tp.tfim_1d(n))
+  actual = tsv.expectation_terms(torch.tensor(psis),
+                                 tp.tfim_1d(n, device="cpu"))
   for i in range(3):
     _close(actual[i], jsv.expectation_terms(jnp.asarray(psis[i]),
                                             jp.tfim_1d(n)))
@@ -143,7 +145,7 @@ def test_expectation_terms_batched(n):
 def test_apply_pauli_sum_tfim(n):
   rng = np.random.RandomState(n + 8)
   psis = _state(rng, n, (2,))
-  op_j, op_t = jp.tfim_1d(n), tp.tfim_1d(n)
+  op_j, op_t = jp.tfim_1d(n), tp.tfim_1d(n, device="cpu")
   w = rng.uniform(-1, 1, (2, op_j.num_terms)).astype(np.float32)
   actual = tsv.apply_pauli_sum(torch.tensor(psis), op_t,
                                term_weights=torch.tensor(w))
@@ -155,7 +157,8 @@ def test_apply_pauli_sum_tfim(n):
 def test_untaken_pauli_tiers_raise():
   """Terms spanning row blocks (or mixing row and column qubits) wait for a
   later port; they must raise rather than return a wrong value."""
-  op = tp.pauli_sum_from_strings(15, [(1.0, {0: "X", 14: "X"})])
+  op = tp.pauli_sum_from_strings(15, [(1.0, {0: "X", 14: "X"})],
+                                 device="cpu")
   psi = torch.tensor(_state(np.random.RandomState(0), 15))
   with pytest.raises(NotImplementedError):
     tsv.expectation_terms(psi, op)
@@ -257,8 +260,8 @@ def test_20q_segments_and_row_blocks():
 
 def test_tfim_target_matches_reference():
   for n, periodic in [(2, False), (9, False), (9, True)]:
-    op_t, op_j = tp.tfim_1d(n, periodic=periodic), jp.tfim_1d(
-        n, periodic=periodic)
+    op_t = tp.tfim_1d(n, periodic=periodic, device="cpu")
+    op_j = jp.tfim_1d(n, periodic=periodic)
     assert op_t.code_rows() == op_j.codes
     _close(op_t.coeffs, op_j.coeffs, atol=0)
 

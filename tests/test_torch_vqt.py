@@ -37,6 +37,7 @@ from qhbmlib_tpu_torch.ops import paulis as tp
 torch.set_num_threads(1)
 
 N, LAYERS, BETA, SAMPLES, STEPS, LR = 9, 2, 1.2, 500, 3, 1e-2
+CPU = "cpu"  # the port builds on the CUDA card unless told otherwise
 LOSS_ATOL = 1e-4
 GRAD_ATOL = 2e-4
 PARAM_ATOL = 1e-5
@@ -80,14 +81,14 @@ def jax_run():
 
 
 def _port_model(params0, exact=True):
-  energy = tmodels.BernoulliEnergy(list(range(N)))
+  energy = tmodels.BernoulliEnergy(list(range(N)), device=CPU)
   circuit = tmodels.DirectQuantumCircuit(
-      tmodels.hardware_efficient_ansatz(N, LAYERS))
+      tmodels.hardware_efficient_ansatz(N, LAYERS), device=CPU)
   h = tqhbm.QHBM(tebm.BernoulliEnergyInference(energy, SAMPLES,
                                                initial_seed=0, exact=exact),
                  tqnn.AnalyticQuantumInference(circuit))
-  h.set_params(convert.from_jax_params(params0))
-  return h, tvqt.make_vqt(h, tp.tfim_1d(N))
+  h.set_params(convert.from_jax_params(params0, device=CPU))
+  return h, tvqt.make_vqt(h, tp.tfim_1d(N, device=CPU))
 
 
 def test_vqt_loss_and_gradients_match_jax(jax_run):
@@ -122,7 +123,7 @@ def test_adam_steps_match_optax(jax_run):
 
 
 def test_from_jax_params_and_set_params(jax_run):
-  converted = convert.from_jax_params(jax_run["params0"])
+  converted = convert.from_jax_params(jax_run["params0"], device=CPU)
   assert set(converted) == {"theta", "phi"}
   assert converted["theta"].dtype == torch.float32
   h, _ = _port_model(jax_run["params0"])
@@ -130,7 +131,7 @@ def test_from_jax_params_and_set_params(jax_run):
                                 jax_run["params0"]["phi"][0])
   with pytest.raises(ValueError, match="exactly one"):
     convert.from_jax_params({"theta": [np.zeros(2), np.zeros(2)],
-                             "phi": [np.zeros(3)]})
+                             "phi": [np.zeros(3)]}, device=CPU)
 
 
 def test_log_partition_and_entropy_match_jax():
@@ -139,7 +140,7 @@ def test_log_partition_and_entropy_match_jax():
   j_energy.set_trainable_variables([jnp.asarray(kernel)])
   j_inf = jebm.BernoulliEnergyInference(j_energy, 100, initial_seed=1)
   t_energy = tmodels.BernoulliEnergy(
-      list(range(6)), initializer=tnn.Constant(0.0))
+      list(range(6)), initializer=tnn.Constant(0.0), device=CPU)
   with torch.no_grad():
     t_energy.kernel.copy_(torch.tensor(kernel))
   t_inf = tebm.BernoulliEnergyInference(t_energy, 100, initial_seed=1)
@@ -156,7 +157,8 @@ def test_log_partition_gradient_is_minus_mean_energy_gradient():
   tanh(theta), the derivative of log Z = sum log(2 cosh theta_i)."""
   energy = tmodels.BernoulliEnergy(list(range(5)),
                                    initializer=tnn.RandomUniform(-1, 1,
-                                                                 seed=7))
+                                                                 seed=7),
+                                   device=CPU)
   e_inf = tebm.BernoulliEnergyInference(energy, 100, exact=True,
                                         initial_seed=0)
   e_inf.log_partition().backward()
@@ -185,7 +187,8 @@ def test_sampled_expectation_score_gradient_matches_jax():
   val_j, (g_theta_j, g_w_j) = jax.value_and_grad(j_loss, argnums=(0, 1))(
       [jnp.asarray(kernel)], jnp.asarray(f_w))
   t_energy = tmodels.BernoulliEnergy(list(range(4)),
-                                     initializer=tnn.Constant(0.0))
+                                     initializer=tnn.Constant(0.0),
+                                     device=CPU)
   with torch.no_grad():
     t_energy.kernel.copy_(torch.tensor(kernel))
   w = torch.tensor(f_w, requires_grad=True)
@@ -205,7 +208,7 @@ def test_bernoulli_sampler_marginals():
   standard errors per bit; draws are reproducible from the seed."""
   kernel = np.array([-1.0, -0.3, 0.0, 0.4, 1.2], np.float32)
   energy = tmodels.BernoulliEnergy(list(range(5)),
-                                   initializer=tnn.Constant(0.0))
+                                   initializer=tnn.Constant(0.0), device=CPU)
   with torch.no_grad():
     energy.kernel.copy_(torch.tensor(kernel))
   e_inf = tebm.BernoulliEnergyInference(energy, 100, initial_seed=5)
@@ -223,7 +226,8 @@ def test_sampled_support_is_deduped_top_counts():
   summing to the number of kept draws."""
   energy = tmodels.BernoulliEnergy(list(range(8)),
                                    initializer=tnn.RandomUniform(-0.2, 0.2,
-                                                                 seed=1))
+                                                                 seed=1),
+                                   device=CPU)
   e_inf = tebm.BernoulliEnergyInference(energy, 300, initial_seed=9,
                                         max_unique_samples=16)
   support, counts = e_inf.support_and_counts()
