@@ -222,12 +222,18 @@ def phase_kernels(device):
   check(f"parity_bilinear (K={len(rms)})", err, REDUCTION_TOL)
   r, c = x_re.shape[1:]
   k = len(rms)
+  # One einsum: Im of sum_b s_r[k] (conj(lam) a)_b s_c[k] with the sign
+  # matrices in complex64, built outside the timed call.
+  lib_bilinear = ("brc,brc,kr,kc->k", l_c.conj(), x_c,
+                  *(sv.parity_signs(m, size, device).to(torch.complex64)
+                    for m, size in ((rms, r), (cms, c))))
+  check("parity_bilinear's library einsum vs its plain version",
+        rel_err(torch.einsum(*lib_bilinear).imag, ref), REDUCTION_TOL)
   report["parity_bilinear"] = dict(
       err=err, max_abs_err=max_abs(got, ref),
       ms=cuda_ms(lambda: ha.parity_bilinear(*args)),
       plain_ms=cuda_ms(lambda: ha.parity_bilinear_plain(*args)),
-      # Im(conj(lam) a) is two real calls before any einsum: no one call.
-      library_ms=None,
+      library_ms=cuda_ms(lambda: torch.einsum(*lib_bilinear).imag),
       # Im(conj(lam) a) summed over the batch (4 flops an amplitude), then
       # each factor's signed sum over [R, C] as a matrix-vector product
       # (2 flops an entry) and a dot over R; four planes read once.
@@ -717,6 +723,10 @@ def main() -> int:
   _cuda.library()
   log(f"[build] nvcc {' '.join(_cuda.NVCC_FLAGS)}: "
       f"{time.time() - t0:.1f} s -> {_cuda.library_path().name}")
+  secs = _cuda.build_seconds
+  log("[build] seconds, one nvcc process a source: " + ", ".join(
+      f"{name} {t:.1f}" for name, t in secs.items()) + f"; the sources' sum "
+      f"{sum(t for name, t in secs.items() if name != 'link'):.1f}")
   regs = [int(x) for x in re.findall(r"Used (\d+) registers",
                                      _cuda.last_build_log)]
   spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores",

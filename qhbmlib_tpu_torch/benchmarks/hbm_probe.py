@@ -6,14 +6,16 @@ PyTorch multiply (`torch_scale`, the counterpart of `xla_scale`) and the
 hand-written kernel `stream_scale` (K6, `csrc/stream_kernels.cu`, the port
 of `_pallas_scale`) at three tile sizes.  Each pass moves twice the plane's
 bytes (one read, one write); the rate is that traffic over the best of 3
-repeats of `iters` chained passes, timed with CUDA events.  It gives the
-circuit kernels a measured stream floor beside the card's 3.35 TB/s.
+repeats of `iters` chained passes.  On the card each chain is captured once
+in a CUDA graph (the counterpart of the reference's `jax.jit`) and timed
+as one replay with CUDA events, so no host work falls between its passes:
+the per-pass stream rate the circuit kernels compare against, beside the
+card's 3.35 TB/s.
 
   python -m qhbmlib_tpu_torch.benchmarks.hbm_probe [--qubits 24] [--iters 32]
 
 Prints one JSON line {"qubits", "traffic_gb", "results"}; progress goes to
-stderr.  Runs on the CUDA card (`--device cpu` runs the plain multiply and
-times it on the host).
+stderr.  Runs on the CUDA card.
 """
 
 from __future__ import annotations
@@ -76,7 +78,7 @@ def chain(step, shape, iters):
 
   def run(v: torch.Tensor) -> torch.Tensor:
     x = torch.zeros(shape, dtype=torch.float32, device=v.device)
-    x[0, 0] = 1.0
+    x[0, 0].fill_(1.0)  # a device fill: no host copy, so it can be captured
     ps = []
     for _ in range(iters):
       x = step(v, x)
@@ -86,6 +88,33 @@ def chain(step, shape, iters):
     return torch.stack(ps).sum() + x.reshape(-1)[1]
 
   return run
+
+
+def graphed(run, v: torch.Tensor):
+  """`run` captured once in a CUDA graph on v's card: returns replay(v),
+  which copies v into the graph's input, replays the graph on the current
+  stream and returns its (static) output.  The K6 launches recorded in the
+  capture are counted at each replay, where they run."""
+  dev = v.device
+  static_v = v.clone()
+  side = torch.cuda.Stream(dev)
+  side.wait_stream(torch.cuda.current_stream(dev))
+  with torch.cuda.stream(side):
+    run(static_v)  # warm-up off the capture, as torch.cuda.graph asks
+  torch.cuda.current_stream(dev).wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  before = stream_scale.launches
+  with torch.cuda.graph(graph):
+    out = run(static_v)
+  captured, stream_scale.launches = stream_scale.launches - before, before
+
+  def replay(v: torch.Tensor) -> torch.Tensor:
+    static_v.copy_(v)
+    graph.replay()
+    stream_scale.launches += captured
+    return out
+
+  return replay
 
 
 def _elapsed_ms(fn, device: torch.device) -> float:
@@ -105,8 +134,11 @@ def _elapsed_ms(fn, device: torch.device) -> float:
 def time_chain(name, run, iters: int, traffic_gb: float, device,
                repeats: int = 3):
   """(ms per pass, GB/s): the best of `repeats` timed runs after one
-  warm-up, each from a slightly different v."""
+  warm-up, each from a slightly different v; on the card each run is one
+  replay of the chain's CUDA graph."""
   v = torch.tensor(1.0001, dtype=torch.float32, device=device)
+  if device.type == "cuda":
+    run = graphed(run, v)
   float(run(v))
   best = float("inf")
   for r in range(repeats):
@@ -140,10 +172,8 @@ def main(argv=None) -> None:
   p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   p.add_argument("--qubits", type=int, default=24)
   p.add_argument("--iters", type=int, default=32)
-  p.add_argument("--device", default=None,
-                 help="torch device (default: the CUDA card)")
   args = p.parse_args(argv)
-  print(json.dumps(measure(args.qubits, args.iters, args.device)))
+  print(json.dumps(measure(args.qubits, args.iters)))
 
 
 if __name__ == "__main__":

@@ -19,6 +19,7 @@ runs at import time.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -27,6 +28,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from typing import Optional
 
 import torch
@@ -57,6 +59,7 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 last_build_log = ""
+build_seconds: dict = {}
 
 
 def find_nvcc() -> str:
@@ -87,40 +90,39 @@ def library_path() -> pathlib.Path:
 
 def build(verbose: bool = False) -> pathlib.Path:
   """Compiles the sources unless the hashed library exists: one nvcc
-  process per source, all at once, then one link.  With `verbose`, adds
+  process per source, all at once, then one link, so the build takes the
+  slowest source's time rather than the sum.  With `verbose`, adds
   `-Xptxas -v` and keeps the compilers' output in `last_build_log`
-  (registers, shared memory and spills per kernel)."""
+  (registers, shared memory and spills per kernel).  `build_seconds`
+  holds each source's compile time and the link's."""
   global last_build_log
   out = library_path()
   if out.exists() and not verbose:
     return out
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
   nvcc = find_nvcc()
+  ptxas = ["-Xptxas", "-v"] if verbose else []
+
+  def run(name, cmd):
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    build_seconds[name] = time.perf_counter() - t0
+    return proc
+
   with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-    objs, procs = [], []
-    try:
-      for src in sources():
-        objs.append(os.path.join(tmp, src.stem + ".o"))
-        procs.append(subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-             "-c", "-o", objs[-1], str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-      logs = [proc.communicate()[0] for proc in procs]
-    finally:
-      for proc in procs:  # never leave a compiler running
-        if proc.poll() is None:
-          proc.kill()
-          proc.wait()
-    last_build_log = "".join(logs)
+    objs = {src.name: os.path.join(tmp, src.stem + ".o") for src in sources()}
+    with concurrent.futures.ThreadPoolExecutor(len(objs)) as pool:
+      procs = list(pool.map(
+          lambda src: run(src.name, [nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o",
+                                     objs[src.name], str(src)]), sources()))
+    lib = os.path.join(tmp, out.name)
+    if not any(p.returncode for p in procs):
+      procs.append(run("link", [nvcc, *ARCH_FLAGS, "-shared", "-o", lib,
+                                *objs.values()]))
+    last_build_log = "".join(p.stdout + p.stderr for p in procs)
     failed = [p.returncode for p in procs if p.returncode != 0]
     if failed:
       raise RuntimeError(f"nvcc failed ({failed}):\n{last_build_log}")
-    lib = os.path.join(tmp, out.name)
-    proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs],
-                          capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-      raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
-                         f"{proc.stdout}{proc.stderr}")
     os.replace(lib, out)  # atomic: concurrent builders never see half a file
   return out
 

@@ -10,7 +10,8 @@
     1e-5 on the loss, 1e-4 relative L2 on the gradient;
   * the gate reports 0 when both arms are the plain versions (the CPU);
   * the 8q forward <H> is within 1e-5 relative of the f64 oracle;
-  * the bench's JSON line and the probe's have their keys.
+  * the bench's JSON line and the probe's have their keys; the probe's
+    CLI runs on the card only.
 
 The kernels themselves run only on the card (`python3 chip_smoke.py`).
 """
@@ -135,11 +136,14 @@ def test_bench_json_line_has_its_keys():
   assert paths == ["train 24q", "train 20q", "pauli 20q", "probe"]
 
 
-def test_probe_main_prints_the_reference_shape(capsys):
-  hbm_probe.main(["--qubits", "9", "--iters", "2", "--device", "cpu"])
-  out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+def test_probe_main_prints_the_reference_shape():
+  out = json.loads(json.dumps(hbm_probe.measure(9, 2, device="cpu")))
   assert out["qubits"] == 9
   assert out["traffic_gb"] == 2 * 4 * 128 * 4 / 1e9
   # Off the card only the plain multiply runs; the kernel needs CUDA.
   assert set(out["results"]) == {"torch_scale"}
   assert set(out["results"]["torch_scale"]) == {"ms", "gb_per_s"}
+  # The CLI runs on the card only: without one it raises resolve's error.
+  if not torch.cuda.is_available():
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+      hbm_probe.main(["--qubits", "9", "--iters", "2"])
