@@ -58,10 +58,11 @@ GRAD_TOL = 1e-4
 # The bench's bars: the gate's gradient error (bench.GRAD_REL_GATE) and the
 # 24q forward <H> against the f64 oracle, relative.
 ORACLE_TOL = 1e-4
-# H100 SXM peaks (NVIDIA's data sheet, at its 700 W limit): memory rate and
-# float32 outside the tensor cores.
+# H100 SXM peaks (NVIDIA's data sheet, at its 700 W limit): memory rate,
+# float32 outside the tensor cores, and dense TF32 on the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_TF32_PER_S = 495e12
 
 
 def log(msg: str) -> None:
@@ -94,11 +95,12 @@ def cuda_ms(fn, reps: int = 10) -> float:
   return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float) -> dict:
+def bound(flops: float, nbytes: float, ops_per_s: float = PEAK_FP32_PER_S
+          ) -> dict:
   """The least time the card could take for `flops` float32 operations
-  over `nbytes` bytes (each input read once, each output written once):
-  {"bound_ms", "bound_by", "flops", "bytes"}."""
-  t_ops = flops / PEAK_FP32_PER_S * 1e3
+  at `ops_per_s` over `nbytes` bytes (each input read once, each output
+  written once): {"bound_ms", "bound_by", "flops", "bytes"}."""
+  t_ops = flops / ops_per_s * 1e3
   t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
   return {"bound_ms": max(t_ops, t_bytes),
           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -390,7 +392,11 @@ def first_segment_passes(n, device):
 
 def phase_k1(device):
   """axis2_apply (K1) against its plain version on the passes of a 1q
-  segment at 24q and 20q, B = BATCH; returns the 24q record."""
+  segment at 24q and 20q, B = BATCH; returns the 24q record.  K1 runs its
+  contractions on the tensor cores in 3xTF32 (three TF32 products per
+  float32 product), so its bound is the 3xTF32 tensor bound,
+  max(bytes / 3.35 TB/s, 3 * flops / 495 TFLOP/s); the float32-core bound
+  of earlier records is logged beside it as `fp32_bound_ms`."""
   from qhbmlib_tpu_torch.ops import hopper_sv as hs
   from qhbmlib_tpu_torch.ops import statevector as sv
   report = None
@@ -420,6 +426,11 @@ def phase_k1(device):
                      2**(n - s2 - k2)))
            for (s1, k1), op1, (s2, k2), op2 in pairs]
     amps = x_c.numel()
+    # Per pass: N1 + N2 complex multiply-adds per amplitude; the state read
+    # and written once, both operators read.
+    flops = sum(8 * amps * (2**k1 + 2**k2) for (_, k1), _, (_, k2), _ in pairs)
+    nbytes = sum(16 * amps + 8 * (4**k1 + 4**k2) for (_, k1), _, (_, k2), _
+                 in pairs)
     rec = dict(err=err, max_abs_err=abs_err,
                ms=cuda_ms(lambda: run(False), reps=5),
                plain_ms=cuda_ms(lambda: run(True), reps=5),
@@ -428,20 +439,18 @@ def phase_k1(device):
                library_ms=cuda_ms(lambda: [
                    torch.einsum("pimjq,Ii,Jj->pImJq", v, a, b)
                    for a, b, v in lib], reps=5),
-               # Per pass: N1 + N2 complex multiply-adds per amplitude; the
-               # state read and written once, both operators read.
-               **bound(sum(8 * amps * (2**k1 + 2**k2)
-                           for (_, k1), _, (_, k2), _ in pairs),
-                       sum(16 * amps + 8 * (4**k1 + 4**k2)
-                           for (_, k1), _, (_, k2), _ in pairs)))
+               **bound(3 * flops, nbytes, PEAK_TF32_PER_S))
+    rec["fp32_bound_ms"] = bound(flops, nbytes)["bound_ms"]
     # The same operators one axis_apply pass each, as before K1.
     singles = [(p[0], p[1]) for p in pairs] + [(p[2], p[3]) for p in pairs]
     unfused_ms = cuda_ms(lambda: [hs.apply_pass(p, x, n) for p in singles],
                          reps=5)
     log(f"[kernels] axis2_apply {n}q ({len(pairs)} passes, B={BATCH}): "
         f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-        f"library {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-        f"({rec['bound_by']}), the same operators as {len(singles)} "
+        f"library {rec['library_ms']:.4f} ms, 3xTF32 tensor bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; share "
+        f"{rec['bound_ms'] / rec['ms']:.1%}), fp32-core bound "
+        f"{rec['fp32_bound_ms']:.4f} ms, the same operators as {len(singles)} "
         f"axis_apply passes {unfused_ms:.4f} ms, max abs err "
         f"{rec['max_abs_err']:.3e}")
     del x, x_c, lib

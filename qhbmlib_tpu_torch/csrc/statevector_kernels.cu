@@ -521,117 +521,189 @@ __global__ void diag_rotate_kernel(float4* re0, float4* im0, float4* re1,
 // a [128, 8, W] slab read in runs of W = 16 floats).  Pairing the first two
 // row blocks instead would read one float per 32-byte sector.
 //
-// Bound: a slab of N1 * N2 * W <= 2^14 amplitudes (132 KB as two padded
-// planes) is read once, both contractions run on it in shared memory, and
-// it is written once -- one state pass for two operators.  The work is
-// 8 * (N1 + N2) flop per amplitude, so at N1 = N2 = 128 the kernel is fp32
-// FMA-bound as axis_apply is.  The slab leaves no room for whole
-// operators, so they stream through shared memory in [N, 32] panels; the
-// inner loop then reads them as 16-byte broadcasts, as axis_apply does.
-// (Read straight from global memory as warp-uniform float4 loads, the first
-// version ran 0.885 ms where two axis_apply passes take ~0.6 ms at 20q.)
-constexpr int kSlab = 1 << 14;  // amplitudes per slab
+// Bound: a slab of N1 * N2 * W <= 2^14 amplitudes (128 KB as two planes) is
+// read once, both contractions run on it in shared memory, and it is
+// written once -- one state pass for two operators.  The work is
+// 8 * (N1 + N2) flop per amplitude, 2048 at N1 = N2 = 128 against 16 bytes:
+// far past the ridge of fp32 on the CUDA cores, where the FMA version of
+// this kernel sat at 37% of 67 TFLOP/s.  So the contractions run on the
+// tensor cores in 3xTF32.  Split rule: each fp32 operand x becomes, in
+// registers, big = tf32(x) and small = tf32(x - big), both rounded as
+// cvt.rna.tf32.f32 rounds (to nearest, ties away from zero; `tf32_rna`), and
+// a real product is small*big + big*small + big*big in fp32.  The dropped
+// small*small term and the rounding of small cost ~2^-22 relative, fp32's
+// level, where one TF32 product (2^-11) would break the 1e-5 gate.  A
+// complex product is four real ones on the re/im planes (with -Im(S) for the
+// real part), not the 3-multiply form, whose cancellation the gate does not
+// allow: 12 mma.sync.m16n8k8 a k-step of 8.  Three TF32 products per fp32
+// product at the H100's 495 TFLOP/s dense make fp32-accurate 165 TFLOP/s, so
+// the bound is max(bytes / 3.35 TB/s, 3 * flops / 495 TFLOP/s): the
+// operations at every main-path shape.
+//
+// Work split: for an operator with N >= 16 a contraction is the GEMM
+// Y[N, cols] = Op[N, N] S[N, cols] over the slab, in chunks of kChunk
+// columns.  The 8 warps of the 256-thread block tile the [N, kChunk]
+// output in warp tiles of kAxis2WarpRows x kAxis2WarpCols: at N = 128, 4 x 2
+// warps of 32 x 32 (2 x 4 m16n8 tiles, 64 fp32 accumulators a thread, up to
+// 255 registers), chunks of 64 columns.  (16 warps of 32 x 16, or 8 of
+// 32 x 64 or 64 x 32, ran slower on the H100: PERF.md.)  The operator is the
+// MMA's A: it streams through shared memory in [N, 32] panels that cp.async
+// copies into a double buffer, so one panel's copy overlaps the previous
+// panel's MMAs, and the next contraction's first panel is copied during
+// this one's last.  The operator is split per fragment as it is loaded, not
+// once per panel: pre-split panels would take twice the shared memory, which
+// the slab does not leave.  The results go back into the slab in place once
+// a block barrier shows that every warp has read its inputs.  N < 16 (the
+// 24q pass 2's N2 = 8, 8/128 of that pass's flops) keeps fp32 FMAs: one
+// thread a column, the operator read from its staged panel as broadcasts.
+//
+// Shared memory: the slab, 2 x 2^14 floats = 128 KB, and two panel buffers
+// of 2 planes x [128, 36] floats = 72 KB: 200 KB of 227 KB, one block per
+// SM.  The slab is the MMA's B along two axes: element k of a column at
+// stride L (the N1 contraction) or at stride 1 (the N2 one at W = 1).  Row i
+// stores r at i * L + (r ^ swizzle(i)), an XOR of bits 2-4 under which both
+// fragment loads are free of bank conflicts (`slab_at`); panel rows are
+// padded to 36 floats for the same reason.  The slab comes in by cp.async
+// (16-byte runs) where the view allows.
+constexpr int kLogSlab = 14;  // log2 of the amplitudes per slab
+constexpr int kAxis2Threads = 256;
+constexpr int kAxis2WarpRows = 32;  // a warp's output tile (N >= 32)
+constexpr int kAxis2WarpCols = 32;
+constexpr int kPanel = 32;      // operator columns (k) staged per panel
+constexpr int kPanelLd = kPanel + 4;          // padded panel row
+constexpr int kPanelPlane = 128 * kPanelLd;   // floats of one panel plane
+constexpr size_t kPanelSmem = 2 * 2 * kPanelPlane * sizeof(float);
 
-constexpr int kPanel = 32;  // operator columns staged per panel
-constexpr size_t kPanelSmem = 2 * 128 * kPanel * sizeof(float);
+// Bits 2-4 of slab row i's XOR: i's bits 0 and 1 to bits 3 and 4, bit 2
+// kept.  The N1 contraction's fragment (thread g, t: column g, element t)
+// then spans 32 banks as g + 8t, the N2 one's (column g, element t) as
+// 4 * perm(g) + t.
+__device__ __forceinline__ int slab_swizzle(int i) {
+  return ((i << 3) & 24) | (i & 4);
+}
 
-// In place on a shared-memory slab: every column v of `cols` is replaced by
-// Op v.  Column c = o * W + w holds element n at o * ld + n * stride + w.
-// Threads: lane -> two columns of a 64-column chunk, warp -> output rows.
-// The operator streams through shared memory in [N, kPanel] panels
-// (p_re / p_im), so its reads are 16-byte broadcasts as in axis_apply.
-template <int N>
-__device__ void slab_axis_apply(float* s_re, float* s_im,
-                                const float* __restrict__ op_re,
-                                const float* __restrict__ op_im, int cols,
-                                int W, int ld, int stride, float* p_re,
-                                float* p_im) {
-  constexpr int kGroups = kApplyThreads / 32;
-  constexpr int kRows = (N + kGroups - 1) / kGroups;
-  constexpr int kStep = (N % 4 == 0) ? 4 : 1;
-  constexpr int kWidth = N < kPanel ? N : kPanel;
-  const int lane = threadIdx.x & 31;
-  const int group = threadIdx.x >> 5;
-  for (int c0 = 0; c0 < cols; c0 += 64) {
-    int base[2];
-    bool ok[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = c0 + lane + 32 * h;
-      ok[h] = c < cols;
-      const int o = c / W;
-      base[h] = ok[h] ? o * ld + (c - o * W) : 0;
-    }
-    float ar[kRows][2], ai[kRows][2];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      ar[r][0] = ar[r][1] = ai[r][0] = ai[r][1] = 0.f;
-    }
-#pragma unroll 1
-    for (int p0 = 0; p0 < N; p0 += kWidth) {
-      __syncthreads();  // the previous panel is fully read
-      for (int i = threadIdx.x; i < N * kWidth; i += kApplyThreads) {
-        const int m = i / kWidth;
-        const int j = i - m * kWidth;
-        p_re[i] = op_re[m * N + p0 + j];
-        p_im[i] = op_im[m * N + p0 + j];
-      }
-      __syncthreads();
-#pragma unroll 1
-      for (int n0 = 0; n0 < kWidth; n0 += kStep) {
-        float xr[2][kStep], xi[2][kStep];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-#pragma unroll
-          for (int j = 0; j < kStep; ++j) {
-            xr[h][j] = s_re[base[h] + (p0 + n0 + j) * stride];
-            xi[h][j] = s_im[base[h] + (p0 + n0 + j) * stride];
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const int m = group + r * kGroups;
-          if (m < N) {
-            float wr[kStep], wi[kStep];
-            if constexpr (kStep == 4) {
-              const float4 vr =
-                  *reinterpret_cast<const float4*>(&p_re[m * kWidth + n0]);
-              const float4 vi =
-                  *reinterpret_cast<const float4*>(&p_im[m * kWidth + n0]);
-              wr[0] = vr.x; wr[1] = vr.y; wr[2] = vr.z; wr[3] = vr.w;
-              wi[0] = vi.x; wi[1] = vi.y; wi[2] = vi.z; wi[3] = vi.w;
-            } else {
-              wr[0] = p_re[m * kWidth + n0];
-              wi[0] = p_im[m * kWidth + n0];
-            }
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-#pragma unroll
-              for (int j = 0; j < kStep; ++j) {
-                ar[r][h] =
-                    fmaf(wr[j], xr[h][j], fmaf(-wi[j], xi[h][j], ar[r][h]));
-                ai[r][h] =
-                    fmaf(wr[j], xi[h][j], fmaf(wi[j], xr[h][j], ai[r][h]));
-              }
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();  // every thread has read this chunk's inputs
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int m = group + r * kGroups;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (m < N && ok[h]) {
-          s_re[base[h] + m * stride] = ar[r][h];
-          s_im[base[h] + m * stride] = ai[r][h];
-        }
-      }
-    }
-    __syncthreads();
+// Offset of element k of column c in the slab [N1, L = N2 * W]: row i,
+// r = j * W + w at i * L + (r ^ slab_swizzle(i)).  AXIS 1 (A on N1): column
+// c = r, element k = i.  AXIS 2 (B on N2): column c = i * W + w, element
+// k = j.  L is a power of two; the XOR stays inside the row.
+template <int AXIS>
+__device__ __forceinline__ int slab_at(int k, int c, int L, int log_w) {
+  if constexpr (AXIS == 1) {
+    return k * L + (c ^ (slab_swizzle(k) & (L - 1)));
+  } else {
+    const int i = c >> log_w;
+    const int r = (k << log_w) | (c & ((1 << log_w) - 1));
+    return i * L + (r ^ (slab_swizzle(i) & (L - 1)));
   }
+}
+
+// slab_at<AXIS>(kb + e, c) for k-step bases kb (multiples of 8) and one
+// element e < 8 of a fragment, split into a part fixed per (c, e) and a part
+// that follows kb: AXIS 1, kb * L + off; AXIS 2, off + ((kb << log_w) ^ hi).
+// Exact: kb's bits and e's sit in disjoint bit ranges, and the XOR acts on
+// each range apart.
+template <int AXIS>
+struct SlabColumn {
+  int off[2];  // e = t, t + 4
+  int hi;
+
+  static __device__ __forceinline__ SlabColumn make(int t, int c, int L,
+                                                    int log_w) {
+    SlabColumn col;
+    if constexpr (AXIS == 1) {
+      col.off[0] = slab_at<1>(t, c, L, log_w);
+      col.off[1] = slab_at<1>(t + 4, c, L, log_w);
+      col.hi = 0;
+    } else {
+      const int i = c >> log_w;
+      const int x = slab_swizzle(i) & (L - 1);
+      const int lo_mask = (8 << log_w) - 1;  // bits of e * W + w
+      const int w = c & ((1 << log_w) - 1);
+      col.off[0] = i * L + (((t << log_w) | w) ^ (x & lo_mask));
+      col.off[1] = i * L + ((((t + 4) << log_w) | w) ^ (x & lo_mask));
+      col.hi = x & ~lo_mask;
+    }
+    return col;
+  }
+
+  __device__ __forceinline__ int at(int kb, int h, int L, int log_w) const {
+    if constexpr (AXIS == 1) {
+      return kb * L + off[h];
+    } else {
+      return off[h] + ((kb << log_w) ^ hi);
+    }
+  }
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async_16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits for every committed copy group but the newest.
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Starts copying columns [p0, p0 + width) of the split-complex [N, N]
+// operator (N = 2^log_n; width = min(N, kPanel)) into a panel buffer: the
+// re plane, then the im plane kPanelPlane floats on, rows kPanelLd floats
+// apart.  16-byte copies where both planes are 16-byte aligned, else 4-byte
+// ones.  One body for every N (shifts, no template): a call per panel
+// inside the MMA loop stays inline.
+__device__ __forceinline__ void issue_panel(const float* op_re,
+                                            const float* op_im, int log_n,
+                                            int p0, float* dst) {
+  const int log_width = log_n < 5 ? log_n : 5;  // kPanel = 2^5
+  const bool vec = log_width >= 2 &&
+                   ((reinterpret_cast<unsigned long long>(op_re) |
+                     reinterpret_cast<unsigned long long>(op_im)) &
+                    15) == 0;
+  const int log_run = vec ? 2 : 0;         // floats a copy
+  const int log_row = log_width - log_run;  // copies a row
+  const int copies = 2 << (log_n + log_row);
+  for (int e = threadIdx.x; e < copies; e += kAxis2Threads) {
+    const int plane = e >> (log_n + log_row);
+    const int rem = e & ((1 << (log_n + log_row)) - 1);
+    const int m = rem >> log_row;
+    const int j = (rem & ((1 << log_row) - 1)) << log_run;
+    float* d = dst + plane * kPanelPlane + m * kPanelLd + j;
+    const float* src = (plane ? op_im : op_re) + (m << log_n) + p0 + j;
+    if (vec) {
+      cp_async_16(d, src);
+    } else {
+      cp_async_4(d, src);
+    }
+  }
+}
+
+// The operator whose first panel a contraction copies during its last one
+// (k = log2 N; 0: none).
+struct NextOp {
+  int k;
+  const float* re;
+  const float* im;
+};
+
+__device__ __forceinline__ void issue_next(NextOp next, float* dst) {
+  if (next.k > 0) issue_panel(next.re, next.im, next.k, 0, dst);
 }
 
 #define QHBM_LOG2_SWITCH(K, FN, ...)       \
@@ -646,7 +718,249 @@ __device__ void slab_axis_apply(float* s_re, float* s_im,
     default: break;                        \
   }
 
-__global__ void __launch_bounds__(kApplyThreads)
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero), low 13 bits cleared: half a TF32 ulp added to the magnitude
+// bits, then truncated.  Equal to cvt.rna for every finite x; with cvt the
+// kernel ran 13% slower on the H100 (32 x 16 warp tiles, PERF.md).
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x -> (big, small) TF32 parts: big = tf32(x), small = tf32(x - big).
+__device__ __forceinline__ void split_tf32(float x, unsigned& big,
+                                           unsigned& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// d += a b on one m16n8k8 tile: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+// a3 (g + 8, t + 4); b0 (k = t, n = g), b1 (t + 4, g); d0 (g, 2t),
+// d1 (g, 2t + 1), d2 (g + 8, 2t), d3 (g + 8, 2t + 1), for lane 4g + t.
+__device__ __forceinline__ void mma_tf32(float* d, const unsigned* a,
+                                         const unsigned* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a b (a zero accumulator).
+__device__ __forceinline__ void mma_tf32_first(float* d, const unsigned* a,
+                                               const unsigned* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f));
+}
+
+// In place on the slab, N >= 16: every column v of `cols` is replaced by
+// Op v on the tensor cores (3xTF32).  On entry the operator's first panel
+// is in flight in panel buffer `buf`; on exit `next`'s first panel is, in
+// the buffer returned.  Each k-step of 8 is summed in fresh registers, the
+// small cross terms first, and added to the fp32 totals with
+// round-to-nearest adds: the tensor cores truncate as they accumulate, and
+// one accumulator over all 16 k-steps (96 MMAs) was 3.4e-6 off the plain
+// version a pass on the H100, a shrink of the norm that adds up over a
+// circuit's passes (fresh sums: 3.5e-7, below the FMA version's 4.6e-7).
+template <int N, int AXIS>
+__device__ __forceinline__ int slab_mma_apply(float* s_re, float* s_im,
+                                              const float* __restrict__ op_re,
+                                              const float* __restrict__ op_im,
+                                              int cols, int L, int log_w,
+                                              float* panels, int buf,
+                                              NextOp next) {
+  constexpr int kLogN = N == 16 ? 4 : N == 32 ? 5 : N == 64 ? 6 : 7;
+  constexpr int kMT = (N < kAxis2WarpRows ? N : kAxis2WarpRows) / 16;
+  constexpr int kNT = kAxis2WarpCols / 8;
+  constexpr int kWarpsM = N / (16 * kMT);
+  constexpr int kWarpsN = kAxis2Threads / 32 / kWarpsM;
+  constexpr int kChunk = kWarpsN * kNT * 8;  // columns a block tile
+  constexpr int kWidth = N < kPanel ? N : kPanel;
+  constexpr int kPanels = N / kWidth;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int warp = threadIdx.x >> 5;
+  const int row0 = (warp % kWarpsM) * kMT * 16;
+  const int chunks = (cols + kChunk - 1) / kChunk;
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int col0 = ch * kChunk + (warp / kWarpsM) * kNT * 8;
+    float acc[kMT][kNT][8];  // per tile: re d0..d3, then im d0..d3
+    SlabColumn<AXIS> bcol[kNT];  // this lane's column c of each n-tile
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      bcol[nt] = SlabColumn<AXIS>::make(t, col0 + nt * 8 + g, L, log_w);
+    }
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[mt][nt][e] = 0.f;
+      }
+    }
+#pragma unroll 1
+    for (int p = 0; p < kPanels; ++p) {
+      float* nxt = panels + (buf ^ 1) * 2 * kPanelPlane;
+      if (p + 1 < kPanels) {
+        issue_panel(op_re, op_im, kLogN, (p + 1) * kWidth, nxt);
+      } else if (ch + 1 < chunks) {
+        issue_panel(op_re, op_im, kLogN, 0, nxt);
+      } else {
+        issue_next(next, nxt);
+      }
+      cp_async_commit();
+      cp_async_wait_prior();
+      __syncthreads();  // panel p has landed; earlier slab writes are seen
+      const float* pr = panels + buf * 2 * kPanelPlane;
+      const float* pi = pr + kPanelPlane;
+#pragma unroll
+      for (int ks = 0; ks < kWidth; ks += 8) {
+        const int kb = p * kWidth + ks;  // the k-step's first element
+        unsigned arb[kMT][4], ars[kMT][4], aib[kMT][4], ais[kMT][4];
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          const int a = (row0 + mt * 16 + g) * kPanelLd + ks + t;
+          const int a_off[4] = {a, a + 8 * kPanelLd, a + 4,
+                                a + 8 * kPanelLd + 4};
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            split_tf32(pr[a_off[r]], arb[mt][r], ars[mt][r]);
+            split_tf32(pi[a_off[r]], aib[mt][r], ais[mt][r]);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          const int c = col0 + nt * 8 + g;
+          unsigned brb[2], brs[2], bib[2], bis[2], nbb[2], nbs[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float xr = 0.f;
+            float xi = 0.f;
+            if (c < cols) {
+              const int o = bcol[nt].at(kb, h, L, log_w);
+              xr = s_re[o];
+              xi = s_im[o];
+            }
+            split_tf32(xr, brb[h], brs[h]);
+            split_tf32(xi, bib[h], bis[h]);
+            nbb[h] = bib[h] ^ 0x80000000u;  // -Im(S), exactly
+            nbs[h] = bis[h] ^ 0x80000000u;
+          }
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+            float d[8];
+            // Re += A_re S_re - A_im S_im, Im += A_re S_im + A_im S_re:
+            // the cross terms (small x big, big x small), then big x big.
+            mma_tf32_first(d, ars[mt], brb);
+            mma_tf32_first(d + 4, ars[mt], bib);
+            mma_tf32(d, arb[mt], brs);
+            mma_tf32(d + 4, arb[mt], bis);
+            mma_tf32(d, ais[mt], nbb);
+            mma_tf32(d + 4, ais[mt], brb);
+            mma_tf32(d, aib[mt], nbs);
+            mma_tf32(d + 4, aib[mt], brs);
+            mma_tf32(d, arb[mt], brb);
+            mma_tf32(d + 4, arb[mt], bib);
+            mma_tf32(d, aib[mt], nbb);
+            mma_tf32(d + 4, aib[mt], brb);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) acc[mt][nt][e] += d[e];
+          }
+        }
+      }
+      __syncthreads();  // panel p is read (the last: so are the columns)
+      buf ^= 1;
+    }
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = row0 + mt * 16 + g + 8 * (e >> 1);
+          const int c = col0 + nt * 8 + 2 * t + (e & 1);
+          if (c < cols) {
+            const int o = slab_at<AXIS>(m, c, L, log_w);
+            s_re[o] = acc[mt][nt][e];
+            s_im[o] = acc[mt][nt][4 + e];
+          }
+        }
+      }
+    }
+  }
+  return buf;
+}
+
+// In place on the slab, N < 16, in fp32 FMAs: a thread replaces whole
+// columns v by Op v, the operator (one panel) read as broadcasts.  Panel
+// buffers as in slab_mma_apply.
+template <int N, int AXIS>
+__device__ __forceinline__ int slab_fma_apply(float* s_re, float* s_im,
+                                              int cols, int L, int log_w,
+                                              float* panels, int buf,
+                                              NextOp next) {
+  issue_next(next, panels + (buf ^ 1) * 2 * kPanelPlane);
+  cp_async_commit();
+  cp_async_wait_prior();
+  __syncthreads();  // the operator has landed; earlier slab writes are seen
+  const float* pr = panels + buf * 2 * kPanelPlane;
+  const float* pi = pr + kPanelPlane;
+  for (int c = threadIdx.x; c < cols; c += kAxis2Threads) {
+    float xr[N], xi[N];
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int o = slab_at<AXIS>(k, c, L, log_w);
+      xr[k] = s_re[o];
+      xi[k] = s_im[o];
+    }
+#pragma unroll
+    for (int m = 0; m < N; ++m) {
+      float yr = 0.f;
+      float yi = 0.f;
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        const float wr = pr[m * kPanelLd + k];
+        const float wi = pi[m * kPanelLd + k];
+        yr = fmaf(wr, xr[k], fmaf(-wi, xi[k], yr));
+        yi = fmaf(wr, xi[k], fmaf(wi, xr[k], yi));
+      }
+      const int o = slab_at<AXIS>(m, c, L, log_w);
+      s_re[o] = yr;
+      s_im[o] = yi;
+    }
+  }
+  __syncthreads();  // the panel is read
+  return buf ^ 1;
+}
+
+// The contraction of an [N, N] operator on axis AXIS of the slab.
+// Returns the panel buffer that holds `next`'s first panel.
+template <int AXIS>
+struct SlabApply {
+  template <int N>
+  static __device__ __forceinline__ int run(float* s_re, float* s_im,
+                                            const float* op_re,
+                                            const float* op_im, int cols,
+                                            int L, int log_w, float* panels,
+                                            int buf, NextOp next) {
+    if constexpr (N >= 16) {
+      return slab_mma_apply<N, AXIS>(s_re, s_im, op_re, op_im, cols, L,
+                                     log_w, panels, buf, next);
+    } else {
+      return slab_fma_apply<N, AXIS>(s_re, s_im, cols, L, log_w, panels, buf,
+                                     next);
+    }
+  }
+};
+
+// One persistent block walks slabs blockIdx.x, + gridDim.x, ...: each is
+// [N1, L = N2 * W] amplitudes at one (p, m, q-tile), read, A applied on N1,
+// B on N2, written.  Operator panels stream across slabs: A's first panel is
+// copied before the first slab, B's during A's last panel, the next slab's
+// A's during B's last.
+__global__ void __launch_bounds__(kAxis2Threads)
     axis2_apply_kernel(const float* __restrict__ x_re,
                        const float* __restrict__ x_im,
                        const float* __restrict__ a_re,
@@ -654,48 +968,82 @@ __global__ void __launch_bounds__(kApplyThreads)
                        const float* __restrict__ b_re,
                        const float* __restrict__ b_im,
                        float* __restrict__ y_re, float* __restrict__ y_im,
-                       long long P, int k1, int M, int k2, int Q, int W) {
+                       long long P, int k1, int M, int k2, int Q, int log_w) {
   extern __shared__ float smem[];
   const int n1 = 1 << k1;
-  const int n2 = 1 << k2;
-  const int L = n2 * W;    // slab row: (j, w) pairs
-  const int ld = L + 1;    // padded row stride
+  const int log_l = k2 + log_w;
+  const int L = 1 << log_l;  // slab row: (j, w) pairs
   float* s_re = smem;
-  float* s_im = smem + n1 * ld;
-  float* p_re = s_im + n1 * ld;  // 16-byte aligned: 2 * n1 * ld % 4 == 0
-  float* p_im = p_re + 128 * kPanel;
-  const long long q_tiles = Q / W;
+  float* s_im = smem + n1 * L;
+  float* panels = s_im + n1 * L;  // 16-byte aligned: n1 * L >= 4
+  const long long q_tiles = Q >> log_w;
   const long long slabs = P * M * q_tiles;
-  const long long i_stride = (long long)M * n2 * Q;
+  const long long i_stride = (long long)M * (1 << k2) * Q;
+  // Runs of 4 floats of a slab row are 16 contiguous, aligned bytes of the
+  // state (the XOR keeps bits 0-1): cp.async them in and store float4s.
+  const bool vec = L % 4 == 0 && ((1 << log_w) >= 4 || (1 << log_w) == Q) &&
+                   ((reinterpret_cast<unsigned long long>(x_re) |
+                     reinterpret_cast<unsigned long long>(x_im) |
+                     reinterpret_cast<unsigned long long>(y_re) |
+                     reinterpret_cast<unsigned long long>(y_im)) &
+                    15) == 0;
+  const int step = vec ? 4 : 1;
+  int buf = 0;
+  if (blockIdx.x < slabs) {
+    issue_panel(a_re, a_im, k1, 0, panels);
+    cp_async_commit();
+  }
   for (long long slab = blockIdx.x; slab < slabs; slab += gridDim.x) {
     const long long pm = slab / q_tiles;
-    const long long q0 = (slab - pm * q_tiles) * W;
+    const long long q0 = (slab - pm * q_tiles) << log_w;
     const long long p = pm / M;
     const long long m = pm - p * M;
-    const long long base = p * n1 * i_stride + m * n2 * (long long)Q + q0;
+    const long long base = p * n1 * i_stride + m * ((long long)Q << k2) + q0;
+    // Element e = i * L + (j * W + w) of the slab: its offset in the
+    // state and in the slab.
+    auto state_at = [&](int e) {
+      return base + (e >> log_l) * i_stride +
+             (long long)((e & (L - 1)) >> log_w) * Q + (e & ((1 << log_w) - 1));
+    };
+    auto slab_of = [&](int e) {
+      return slab_at<1>(e >> log_l, e & (L - 1), L, log_w);
+    };
     __syncthreads();  // the previous slab is fully stored
-    for (int e = threadIdx.x; e < n1 * L; e += kApplyThreads) {
-      const int i = e / L;
-      const int rem = e - i * L;
-      const int j = rem / W;
-      const long long off = base + i * i_stride + (long long)j * Q + (rem - j * W);
-      s_re[i * ld + rem] = x_re[off];
-      s_im[i * ld + rem] = x_im[off];
+    for (int e = threadIdx.x * step; e < n1 << log_l;
+         e += kAxis2Threads * step) {
+      const long long off = state_at(e);
+      const int s = slab_of(e);
+      if (vec) {
+        cp_async_16(s_re + s, x_re + off);
+        cp_async_16(s_im + s, x_im + off);
+      } else {
+        s_re[s] = x_re[off];
+        s_im[s] = x_im[off];
+      }
     }
-    __syncthreads();
-    // A on the N1 axis: columns are the L (j, w) pairs, element i at i * ld.
-    QHBM_LOG2_SWITCH(k1, slab_axis_apply, s_re, s_im, a_re, a_im, L, L, 0, ld,
-                     p_re, p_im)
-    // B on the N2 axis: columns are the (i, w) pairs, element j at j * W.
-    QHBM_LOG2_SWITCH(k2, slab_axis_apply, s_re, s_im, b_re, b_im, n1 * W, W,
-                     ld, W, p_re, p_im)
-    for (int e = threadIdx.x; e < n1 * L; e += kApplyThreads) {
-      const int i = e / L;
-      const int rem = e - i * L;
-      const int j = rem / W;
-      const long long off = base + i * i_stride + (long long)j * Q + (rem - j * W);
-      y_re[off] = s_re[i * ld + rem];
-      y_im[off] = s_im[i * ld + rem];
+    cp_async_commit();  // the first contraction waits for it
+    const NextOp op_b = {k2, b_re, b_im};
+    const NextOp op_a = {slab + gridDim.x < slabs ? k1 : 0, a_re, a_im};
+    // A on the N1 axis: columns are the L (j, w) pairs.
+    QHBM_LOG2_SWITCH(k1, buf = SlabApply<1>::run, s_re, s_im, a_re, a_im, L,
+                     L, log_w, panels, buf, op_b)
+    // B on the N2 axis: columns are the N1 * W (i, w) pairs.
+    QHBM_LOG2_SWITCH(k2, buf = SlabApply<2>::run, s_re, s_im, b_re, b_im,
+                     n1 << log_w, L, log_w, panels, buf, op_a)
+    __syncthreads();  // every column is written back
+    for (int e = threadIdx.x * step; e < n1 << log_l;
+         e += kAxis2Threads * step) {
+      const long long off = state_at(e);
+      const int s = slab_of(e);
+      if (vec) {
+        *reinterpret_cast<float4*>(y_re + off) =
+            *reinterpret_cast<const float4*>(s_re + s);
+        *reinterpret_cast<float4*>(y_im + off) =
+            *reinterpret_cast<const float4*>(s_im + s);
+      } else {
+        y_re[off] = s_re[s];
+        y_im[off] = s_im[s];
+      }
     }
   }
 }
@@ -1062,17 +1410,19 @@ int qhbm_axis2_apply(const float* x_re, const float* x_im, const float* a_re,
   if (k1 < 1 || k1 > 7 || k2 < 1 || k2 > 7 || Q < 1 || (Q & (Q - 1))) {
     return (int)cudaErrorInvalidValue;
   }
-  int W = kSlab >> (k1 + k2);
-  if (W < 1) W = 1;
-  if (W > Q) W = Q;
+  int log_q = 0;
+  while ((1 << log_q) < Q) ++log_q;
+  // W = 2^log_w columns of Q a slab: the slab's 2^kLogSlab amplitudes, or
+  // all of Q.  k1 + k2 <= 14, so W >= 1.
+  const int log_w = kLogSlab - k1 - k2 < log_q ? kLogSlab - k1 - k2 : log_q;
   const size_t smem =
-      2 * (size_t)(1 << k1) * ((1 << k2) * W + 1) * sizeof(float) +
-      kPanelSmem;
-  const int grid = persistent_grid(axis2_apply_kernel, kApplyThreads, smem,
-                                   (long long)P * M * (Q / W));
-  axis2_apply_kernel<<<grid, kApplyThreads, smem,
+      2 * ((size_t)1 << (k1 + k2 + log_w)) * sizeof(float) + kPanelSmem;
+  const int grid = persistent_grid(axis2_apply_kernel, kAxis2Threads, smem,
+                                   (long long)P * M * (Q >> log_w));
+  axis2_apply_kernel<<<grid, kAxis2Threads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
-      x_re, x_im, a_re, a_im, b_re, b_im, y_re, y_im, P, k1, M, k2, Q, W);
+      x_re, x_im, a_re, a_im, b_re, b_im, y_re, y_im, P, k1, M, k2, Q,
+      log_w);
   return (int)cudaGetLastError();
 }
 

@@ -390,3 +390,79 @@ def test_axis2_apply_cpu_plain_and_other_devices_refused():
   meta = [t.to("meta") for t in x + a + b]
   with pytest.raises(ValueError, match="unsupported device"):
     hopper_sv.axis2_apply(*meta, 2, 4, 1, 8, 1)
+
+
+# -- K1 on the tensor cores: the error budget of 3xTF32 -----------------------
+
+def _tf32(x):
+  """float32 -> TF32 as cvt.rna.tf32.f32 rounds: to nearest, ties away from
+  zero, on the bit pattern (10 explicit mantissa bits kept)."""
+  bits = np.asarray(x, np.float32).view(np.uint32)
+  return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _matmul_tf32(a, b, products):
+  """a @ b of float32 matrices from TF32 parts, as K1's contraction splits
+  them: big = tf32(x), small = tf32(x - big); products 3 sums small*big +
+  big*small + big*big, products 1 big*big alone.  TF32 products are exact
+  in float32, summed in float32."""
+  a_big, b_big = _tf32(a), _tf32(b)
+  out = a_big @ b_big
+  if products == 3:
+    out = (_tf32(a - a_big) @ b_big + a_big @ _tf32(b - b_big)) + out
+  return out
+
+
+def _cmatmul_tf32(o_re, o_im, s_re, s_im, products):
+  """Op S in split complex, four real products (no 3-multiply form)."""
+  return (_matmul_tf32(o_re, s_re, products) -
+          _matmul_tf32(o_im, s_im, products),
+          _matmul_tf32(o_re, s_im, products) +
+          _matmul_tf32(o_im, s_re, products))
+
+
+@pytest.mark.parametrize("n", [24, 20])
+def test_k1_3xtf32_split_holds_the_state_gate(n):
+  """K1's first pass ((0,7) block x the minor operator) of the n-qubit
+  ansatz's first 1q segment, seeded angles and a seeded state cut to
+  M = 4, computed with the 3xTF32 split: within 1e-5 relative L2
+  (chip_smoke's STATE_TOL for K1 against its plain version) of the float64
+  product and within 2x of plain float32's error, where one TF32 product
+  is not within 1e-5."""
+  nr = n - tsv.minor_bits(n)
+  pqc = tcu.hardware_efficient_ansatz(n, 2)
+  values = np.random.RandomState(n).uniform(0, 2, pqc.num_symbols)
+  ops = hopper_sv.forward_plan(pqc, values)[0][1]
+  (s1, k1), op_a, (s2, k2), op_b = hopper_sv.plan_passes(ops, nr)[0]
+  assert (s1, k1, s2, k2) == (0, 7, nr, 7)
+  n1, n2, m = 2**k1, 2**k2, 4
+  rng = np.random.RandomState(n + 1)
+  x = [rng.standard_normal((n1, m * n2)).astype(np.float32)
+       for _ in range(2)]
+  a = [t.numpy() for t in hopper_sv.split(op_a)]
+  b = [t.numpy() for t in hopper_sv.split(op_b)]
+  expected = (a[0] + 1j * a[1]).astype(np.complex128) @ (
+      x[0] + 1j * x[1]).astype(np.complex128)
+  expected = (expected.reshape(n1, m, n2) @ (b[0] + 1j * b[1]).T.astype(
+      np.complex128)).reshape(n1, m * n2)
+
+  def pass_(products):
+    # A on the N1 axis, the slab held in float32, then B on the N2 axis.
+    y = _cmatmul_tf32(*a, *x, products)
+    cols = [t.reshape(n1, m, n2).transpose(2, 0, 1).reshape(n2, -1)
+            for t in y]
+    y = _cmatmul_tf32(*b, *cols, products)
+    y = [t.reshape(n2, n1, m).transpose(1, 2, 0).reshape(n1, -1) for t in y]
+    return y[0] + 1j * y[1].astype(np.complex128)
+
+  def err(y):
+    return np.linalg.norm(y - expected) / np.linalg.norm(expected)
+
+  # The plain version's float32 complex products, for scale (~3e-7).
+  fp32 = ((a[0] + 1j * a[1]).astype(np.complex64) @
+          (x[0] + 1j * x[1]).astype(np.complex64)).reshape(n1, m, n2) @ (
+              b[0] + 1j * b[1]).T.astype(np.complex64)
+  three = err(pass_(3))
+  assert three < 1e-5
+  assert three < 2 * err(fp32.reshape(n1, -1))
+  assert err(pass_(1)) > 1e-5  # one TF32 product: ~4e-4
