@@ -9,8 +9,8 @@ train step (`bench.build_train_step`), takes one warm-up step, then traces
 synchronize.  From the exported Chrome trace: the busy share, the union of
 the device intervals (kernels, copies, sets) inside the region over the
 region's wall time -- the profiler stretches the wall, so this is a lower
-bound for an untraced step -- and each kernel's device milliseconds per
-step, summed by name.  Prints one JSON line a workload, with the card's
+bound for an untraced step -- and the device milliseconds per step of the
+TOP kernels by name (the rest summed).  Prints one JSON line a workload, with the card's
 name and power limit.  Needs the CUDA card.
 """
 
@@ -29,6 +29,7 @@ from qhbmlib_tpu_torch import bench
 
 REGION = "qhbm_train_steps"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+TOP = 12  # kernels reported by name; the rest are summed
 
 
 def union_us(intervals) -> float:
@@ -62,12 +63,15 @@ def breakdown(events, steps: int) -> dict:
   for e in dev:
     if e["cat"] == "kernel":
       by_name[kernel_name(e["name"])] += e["dur"]
+  ranked = by_name.most_common()
+  per_step = {k: v / 1e3 / steps for k, v in ranked[:TOP]}
+  if len(ranked) > TOP:
+    per_step["(other kernels)"] = sum(v for _, v in ranked[TOP:]) / 1e3 / steps
   return {
       "region_ms_per_step": (t1 - t0) / 1e3 / steps,
       "busy_share": union_us((e["ts"], e["ts"] + e["dur"]) for e in dev) /
                     (t1 - t0),
-      "kernel_ms_per_step": {k: v / 1e3 / steps
-                             for k, v in by_name.most_common()},
+      "kernel_ms_per_step": per_step,
   }
 
 

@@ -45,3 +45,14 @@ def test_breakdown_counts_only_the_region():
   assert out["busy_share"] == pytest.approx((350 + 100 + 50) / 1000)
   assert out["kernel_ms_per_step"] == pytest.approx(
       {"axis2_apply_kernel": 0.2, "gemm": 0.025})
+
+
+def test_breakdown_names_the_top_kernels_and_sums_the_rest():
+  events = [{"name": sp.REGION, "cat": "user_annotation", "ts": 0,
+             "dur": 10_000}]
+  events += [{"name": f"k{i}", "cat": "kernel", "ts": 100 * i, "dur": i + 1}
+             for i in range(sp.TOP + 3)]
+  per_step = sp.breakdown(events, steps=1)["kernel_ms_per_step"]
+  assert len(per_step) == sp.TOP + 1
+  assert per_step[f"k{sp.TOP + 2}"] == pytest.approx((sp.TOP + 3) / 1e3)
+  assert per_step["(other kernels)"] == pytest.approx(6 / 1e3)
