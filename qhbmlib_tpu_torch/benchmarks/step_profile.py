@@ -1,11 +1,10 @@
 """Where a VQT train step's device time goes, from one torch.profiler trace.
 
-    python -m qhbmlib_tpu_torch.benchmarks.step_profile [--steps 3]
-        [--workloads 24q 20q] [--trace-dir chiprun_out]
+    python -m qhbmlib_tpu_torch.benchmarks.step_profile [--trace-dir DIR]
 
 For each of the port's bench workloads (`bench.WORKLOADS`) it builds the
 train step (`bench.build_train_step`), takes one warm-up step, then traces
-`--steps` steps inside one `record_function` region that ends in a
+STEPS steps inside one `record_function` region that ends in a
 synchronize.  From the exported Chrome trace: the busy share, the union of
 the device intervals (kernels, copies, sets) inside the region over the
 region's wall time -- the profiler stretches the wall, so this is a lower
@@ -29,6 +28,7 @@ from qhbmlib_tpu_torch import bench
 
 REGION = "qhbm_train_steps"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+STEPS = 3  # traced steps a workload
 TOP = 12  # kernels reported by name; the rest are summed
 
 
@@ -75,7 +75,7 @@ def breakdown(events, steps: int) -> dict:
   }
 
 
-def profile_workload(name: str, steps: int, trace_dir: str) -> dict:
+def profile_workload(name: str, trace_dir: str) -> dict:
   device = torch.device("cuda")
   _, _, train_step = bench.build_train_step(bench.WORKLOADS[name], device)
   train_step()  # warm-up: builds the kernels
@@ -84,7 +84,7 @@ def profile_workload(name: str, steps: int, trace_dir: str) -> dict:
           torch.profiler.ProfilerActivity.CUDA]
   with torch.profiler.profile(activities=acts) as prof:
     with torch.profiler.record_function(REGION):
-      for _ in range(steps):
+      for _ in range(STEPS):
         train_step()
       torch.cuda.synchronize()
   os.makedirs(trace_dir, exist_ok=True)
@@ -92,24 +92,20 @@ def profile_workload(name: str, steps: int, trace_dir: str) -> dict:
   prof.export_chrome_trace(path)
   with open(path) as f:
     events = json.load(f)["traceEvents"]
-  return {"workload": name, "steps": steps, **breakdown(events, steps),
+  return {"workload": name, "steps": STEPS, **breakdown(events, STEPS),
           "trace": path, "card": bench.card(device)}
 
 
 def main(argv=None) -> None:
   p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-  p.add_argument("--steps", type=int, default=3)
-  p.add_argument("--workloads", nargs="+", default=list(bench.WORKLOADS),
-                 choices=list(bench.WORKLOADS))
   p.add_argument("--trace-dir", default="chiprun_out")
   args = p.parse_args(argv)
   if not torch.cuda.is_available():
     sys.exit("step_profile: needs the CUDA card")
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
-  for name in args.workloads:
-    print(json.dumps(profile_workload(name, args.steps, args.trace_dir)),
-          flush=True)
+  for name in bench.WORKLOADS:
+    print(json.dumps(profile_workload(name, args.trace_dir)), flush=True)
 
 
 if __name__ == "__main__":

@@ -8,8 +8,8 @@ below (EMU_CUDA_H, DRIVER_CC): each CUDA thread is a std::thread,
 (cp.async, mma.sync.m16n8k8 tf32) are replaced by emulations that follow the
 PTX ISA's fragment layouts, with a model of the tensor cores' truncating
 accumulation.  That checks the kernel's own index arithmetic (slab swizzle,
-warp tiles, panel stream across contractions and slabs, the scalar and
-cp.async slab paths) and its accumulation scheme at the main-path views
+warp tiles, double-buffered operator panels, the scalar and cp.async
+slab paths) and its accumulation scheme at the main-path views
 cut to a few slabs.  The fragment layouts themselves are the card's to
 confirm.
 """
@@ -266,10 +266,25 @@ EMULATED = {
     "cp_async_4": "std::memcpy(dst, src, 4);",
     "cp_async_commit": "",
     "cp_async_wait_prior": "",
+    "cp_async_wait_all": "",
     "mma_tf32": "emu_mma(d, a, b);",
     "mma_tf32_first": "for (int e = 0; e < 4; ++e) d[e] = 0.f;\n"
                       "  emu_mma(d, a, b);",
 }
+
+
+def body_span(source: str, name: str) -> tuple:
+  """(start, end) of the body of device function `name`, inside its
+  braces, found by the name and a balanced brace scan."""
+  m = re.search(r"__device__[\w\s]*?\bvoid\s+" + name + r"\s*\(", source)
+  assert m, f"no device function {name} in {SOURCE.name}"
+  start = source.index("{", m.end()) + 1
+  depth = 1
+  for i in range(start, len(source)):
+    depth += {"{": 1, "}": -1}.get(source[i], 0)
+    if depth == 0:
+      return start, i
+  raise AssertionError(f"unbalanced braces in {name}")
 
 
 def emulable(source: str) -> str:
@@ -280,10 +295,8 @@ def emulable(source: str) -> str:
   s = re.sub(r"<<<.*?>>>", "", s, flags=re.S)
   s = s.replace("extern __shared__ float smem[];", "float* smem = emu_smem;")
   for name, body in EMULATED.items():
-    m = re.search(r"__device__ __forceinline__ void " + name +
-                  r"\(.*?\) \{\n(.*?)\n\}\n", s, flags=re.S)
-    assert m, f"no device function {name} in {SOURCE.name}"
-    s = s[:m.start(1)] + "  " + body + s[m.end(1):]
+    start, end = body_span(s, name)
+    s = s[:start] + "\n  " + body + "\n" + s[end:]
   assert not re.search(r"^\s*asm", s, flags=re.M), "PTX left unemulated"
   return s
 
