@@ -699,7 +699,9 @@ __device__ __forceinline__ void issue_panel(const float* op_re,
   }
 }
 
-constexpr int log2_of(int n) { return n > 1 ? 1 + log2_of(n >> 1) : 0; }
+__host__ __device__ constexpr int log2_of(int n) {
+  return n > 1 ? 1 + log2_of(n >> 1) : 0;
+}
 
 #define QHBM_LOG2_SWITCH(K, FN, ...)       \
   switch (K) {                             \
