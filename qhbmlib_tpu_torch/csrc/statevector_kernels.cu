@@ -549,8 +549,9 @@ __global__ void diag_rotate_kernel(float4* re0, float4* im0, float4* re1,
 // 32 x 64 or 64 x 32, ran slower on the H100: PERF.md.)  The operator is the
 // MMA's A: it streams through shared memory in [N, 32] panels that cp.async
 // copies into a double buffer, so one panel's copy overlaps the previous
-// panel's MMAs; a contraction copies its own first panel as it starts.  The
-// operator is split per fragment as it is loaded, not
+// panel's MMAs, and the next contraction's first panel is copied during
+// this one's last (each contraction copying its own first panel as it
+// starts ran 3% slower at 24q on the H100: PERF.md).  The operator is split per fragment as it is loaded, not
 // once per panel: pre-split panels would take twice the shared memory, which
 // the slab does not leave.  The results go back into the slab in place once
 // a block barrier shows that every warp has read its inputs.  N < 16 (the
@@ -662,11 +663,6 @@ __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// Waits for every committed copy group.
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // Starts copying columns [p0, p0 + width) of the split-complex [N, N]
 // operator (N = 2^log_n; width = min(N, kPanel)) into a panel buffer: the
 // re plane, then the im plane kPanelPlane floats on, rows kPanelLd floats
@@ -699,8 +695,16 @@ __device__ __forceinline__ void issue_panel(const float* op_re,
   }
 }
 
-__host__ __device__ constexpr int log2_of(int n) {
-  return n > 1 ? 1 + log2_of(n >> 1) : 0;
+// The operator whose first panel a contraction copies during its last one
+// (k = log2 N; 0: none).
+struct NextOp {
+  int k;
+  const float* re;
+  const float* im;
+};
+
+__device__ __forceinline__ void issue_next(NextOp next, float* dst) {
+  if (next.k > 0) issue_panel(next.re, next.im, next.k, 0, dst);
 }
 
 #define QHBM_LOG2_SWITCH(K, FN, ...)       \
@@ -752,19 +756,22 @@ __device__ __forceinline__ void mma_tf32_first(float* d, const unsigned* a,
 }
 
 // In place on the slab, N >= 16: every column v of `cols` is replaced by
-// Op v on the tensor cores (3xTF32).  Each k-step of 8 is summed in fresh registers, the
+// Op v on the tensor cores (3xTF32).  On entry the operator's first panel
+// is in flight in panel buffer `buf`; on exit `next`'s first panel is, in
+// the buffer returned.  Each k-step of 8 is summed in fresh registers, the
 // small cross terms first, and added to the fp32 totals with
 // round-to-nearest adds: the tensor cores truncate as they accumulate, and
 // one accumulator over all 16 k-steps (96 MMAs) was 3.4e-6 off the plain
 // version a pass on the H100, a shrink of the norm that adds up over a
 // circuit's passes (fresh sums: 3.5e-7, below the FMA version's 4.6e-7).
 template <int N, int AXIS>
-__device__ __forceinline__ void slab_mma_apply(float* s_re, float* s_im,
-                                               const float* __restrict__ op_re,
-                                               const float* __restrict__ op_im,
-                                               int cols, int L, int log_w,
-                                               float* panels) {
-  constexpr int kLogN = log2_of(N);
+__device__ __forceinline__ int slab_mma_apply(float* s_re, float* s_im,
+                                              const float* __restrict__ op_re,
+                                              const float* __restrict__ op_im,
+                                              int cols, int L, int log_w,
+                                              float* panels, int buf,
+                                              NextOp next) {
+  constexpr int kLogN = N == 16 ? 4 : N == 32 ? 5 : N == 64 ? 6 : 7;
   constexpr int kMT = (N < kAxis2WarpRows ? N : kAxis2WarpRows) / 16;
   constexpr int kNT = kAxis2WarpCols / 8;
   constexpr int kWarpsM = N / (16 * kMT);
@@ -778,9 +785,6 @@ __device__ __forceinline__ void slab_mma_apply(float* s_re, float* s_im,
   const int warp = threadIdx.x >> 5;
   const int row0 = (warp % kWarpsM) * kMT * 16;
   const int chunks = (cols + kChunk - 1) / kChunk;
-  int buf = 0;
-  issue_panel(op_re, op_im, kLogN, 0, panels);
-  cp_async_commit();
   for (int ch = 0; ch < chunks; ++ch) {
     const int col0 = ch * kChunk + (warp / kWarpsM) * kNT * 8;
     float acc[kMT][kNT][8];  // per tile: re d0..d3, then im d0..d3
@@ -804,6 +808,8 @@ __device__ __forceinline__ void slab_mma_apply(float* s_re, float* s_im,
         issue_panel(op_re, op_im, kLogN, (p + 1) * kWidth, nxt);
       } else if (ch + 1 < chunks) {
         issue_panel(op_re, op_im, kLogN, 0, nxt);
+      } else {
+        issue_next(next, nxt);
       }
       cp_async_commit();
       cp_async_wait_prior();
@@ -885,21 +891,22 @@ __device__ __forceinline__ void slab_mma_apply(float* s_re, float* s_im,
       }
     }
   }
+  return buf;
 }
 
 // In place on the slab, N < 16, in fp32 FMAs: a thread replaces whole
-// columns v by Op v, the operator (one panel) read as broadcasts.
+// columns v by Op v, the operator (one panel) read as broadcasts.  Panel
+// buffers as in slab_mma_apply.
 template <int N, int AXIS>
-__device__ __forceinline__ void slab_fma_apply(float* s_re, float* s_im,
-                                               const float* __restrict__ op_re,
-                                               const float* __restrict__ op_im,
-                                               int cols, int L, int log_w,
-                                               float* panels) {
-  issue_panel(op_re, op_im, log2_of(N), 0, panels);
+__device__ __forceinline__ int slab_fma_apply(float* s_re, float* s_im,
+                                              int cols, int L, int log_w,
+                                              float* panels, int buf,
+                                              NextOp next) {
+  issue_next(next, panels + (buf ^ 1) * 2 * kPanelPlane);
   cp_async_commit();
-  cp_async_wait_all();
+  cp_async_wait_prior();
   __syncthreads();  // the operator has landed; earlier slab writes are seen
-  const float* pr = panels;
+  const float* pr = panels + buf * 2 * kPanelPlane;
   const float* pi = pr + kPanelPlane;
   for (int c = threadIdx.x; c < cols; c += kAxis2Threads) {
     float xr[N], xi[N];
@@ -926,29 +933,34 @@ __device__ __forceinline__ void slab_fma_apply(float* s_re, float* s_im,
     }
   }
   __syncthreads();  // the panel is read
+  return buf ^ 1;
 }
 
 // The contraction of an [N, N] operator on axis AXIS of the slab.
+// Returns the panel buffer that holds `next`'s first panel.
 template <int AXIS>
 struct SlabApply {
   template <int N>
-  static __device__ __forceinline__ void run(float* s_re, float* s_im,
-                                             const float* op_re,
-                                             const float* op_im, int cols,
-                                             int L, int log_w, float* panels) {
+  static __device__ __forceinline__ int run(float* s_re, float* s_im,
+                                            const float* op_re,
+                                            const float* op_im, int cols,
+                                            int L, int log_w, float* panels,
+                                            int buf, NextOp next) {
     if constexpr (N >= 16) {
-      slab_mma_apply<N, AXIS>(s_re, s_im, op_re, op_im, cols, L, log_w,
-                              panels);
+      return slab_mma_apply<N, AXIS>(s_re, s_im, op_re, op_im, cols, L,
+                                     log_w, panels, buf, next);
     } else {
-      slab_fma_apply<N, AXIS>(s_re, s_im, op_re, op_im, cols, L, log_w,
-                              panels);
+      return slab_fma_apply<N, AXIS>(s_re, s_im, cols, L, log_w, panels, buf,
+                                     next);
     }
   }
 };
 
 // One persistent block walks slabs blockIdx.x, + gridDim.x, ...: each is
 // [N1, L = N2 * W] amplitudes at one (p, m, q-tile), read, A applied on N1,
-// B on N2, written.
+// B on N2, written.  Operator panels stream across slabs: A's first panel is
+// copied before the first slab, B's during A's last panel, the next slab's
+// A's during B's last.
 __global__ void __launch_bounds__(kAxis2Threads)
     axis2_apply_kernel(const float* __restrict__ x_re,
                        const float* __restrict__ x_im,
@@ -977,6 +989,11 @@ __global__ void __launch_bounds__(kAxis2Threads)
                      reinterpret_cast<unsigned long long>(y_im)) &
                     15) == 0;
   const int step = vec ? 4 : 1;
+  int buf = 0;
+  if (blockIdx.x < slabs) {
+    issue_panel(a_re, a_im, k1, 0, panels);
+    cp_async_commit();
+  }
   for (long long slab = blockIdx.x; slab < slabs; slab += gridDim.x) {
     const long long pm = slab / q_tiles;
     const long long q0 = (slab - pm * q_tiles) << log_w;
@@ -1006,12 +1023,14 @@ __global__ void __launch_bounds__(kAxis2Threads)
       }
     }
     cp_async_commit();  // the first contraction waits for it
+    const NextOp op_b = {k2, b_re, b_im};
+    const NextOp op_a = {slab + gridDim.x < slabs ? k1 : 0, a_re, a_im};
     // A on the N1 axis: columns are the L (j, w) pairs.
-    QHBM_LOG2_SWITCH(k1, SlabApply<1>::run, s_re, s_im, a_re, a_im, L, L,
-                     log_w, panels)
+    QHBM_LOG2_SWITCH(k1, buf = SlabApply<1>::run, s_re, s_im, a_re, a_im, L,
+                     L, log_w, panels, buf, op_b)
     // B on the N2 axis: columns are the N1 * W (i, w) pairs.
-    QHBM_LOG2_SWITCH(k2, SlabApply<2>::run, s_re, s_im, b_re, b_im,
-                     n1 << log_w, L, log_w, panels)
+    QHBM_LOG2_SWITCH(k2, buf = SlabApply<2>::run, s_re, s_im, b_re, b_im,
+                     n1 << log_w, L, log_w, panels, buf, op_a)
     __syncthreads();  // every column is written back
     for (int e = threadIdx.x * step; e < n1 << log_l;
          e += kAxis2Threads * step) {

@@ -8,8 +8,8 @@ below (EMU_CUDA_H, DRIVER_CC): each CUDA thread is a std::thread,
 (cp.async, mma.sync.m16n8k8 tf32) are replaced by emulations that follow the
 PTX ISA's fragment layouts, with a model of the tensor cores' truncating
 accumulation.  That checks the kernel's own index arithmetic (slab swizzle,
-warp tiles, double-buffered operator panels, the scalar and cp.async
-slab paths) and its accumulation scheme at the main-path views
+warp tiles, panel stream across contractions and slabs, the scalar and
+cp.async slab paths) and its accumulation scheme at the main-path views
 cut to a few slabs.  The fragment layouts themselves are the card's to
 confirm.
 """
@@ -266,7 +266,6 @@ EMULATED = {
     "cp_async_4": "std::memcpy(dst, src, 4);",
     "cp_async_commit": "",
     "cp_async_wait_prior": "",
-    "cp_async_wait_all": "",
     "mma_tf32": "emu_mma(d, a, b);",
     "mma_tf32_first": "for (int e = 0; e < 4; ++e) d[e] = 0.f;\n"
                       "  emu_mma(d, a, b);",
