@@ -4,9 +4,11 @@
 
 Builds the CUDA kernels of `qhbmlib_tpu_torch/csrc/` with nvcc (one
 process per source, in parallel) and holds each of the eight against its
-plain PyTorch version: `axis_apply`, `diag_rotate`, `axis_gram`,
-`parity_bilinear` at the 20-qubit shapes; `axis2_apply` (K1) at the 24-
-and 20-qubit pass shapes; `circuit_forward` (K3) and `adjoint_sweep` (K2)
+plain PyTorch version: `axis_apply`, `diag_rotate`, `parity_bilinear` at
+the 20-qubit shapes; `axis2_apply` (K1) at the 24- and 20-qubit pass
+shapes; `qubit_transitions` (K5's 1q reductions) at 24 and 20 qubits,
+B = 8, with its other pass plans timed beside the default;
+`circuit_forward` (K3) and `adjoint_sweep` (K2)
 at 20q/4L for one random state; `stream_scale` (K6) on the 24-qubit plane
 at each tile size.  Each kernel is timed beside its plain version, the one
 PyTorch call that computes the same function where there is one
@@ -191,26 +193,8 @@ def phase_kernels(device):
       # written once, the [R, C] cos and sin planes read once.
       **bound(6 * amps, 16 * amps + 8 * cos_t.numel()))
 
-  def gram_all(fn):
-    return [fn(l_re, l_im, x_re, x_im, *pnq) for pnq, _ in shapes]
-
-  got, ref = gram_all(ha.axis_gram), gram_all(ha.axis_gram_plain)
-  err = max(rel_err(torch.cat([g[0], g[1]]), torch.cat([f[0], f[1]]))
-            for g, f in zip(got, ref))
-  check("axis_gram (G block 0:7, G block 7:6, kmat)", err, REDUCTION_TOL)
-  l_c = torch.complex(l_re, l_im)
-  lib_grams = [(l_c.view(pnq).conj(), x_c.view(pnq)) for pnq, _ in shapes]
-  report["axis_gram"] = dict(
-      err=err, max_abs_err=max(max_abs(torch.cat(g), torch.cat(f))
-                               for g, f in zip(got, ref)),
-      ms=cuda_ms(lambda: gram_all(ha.axis_gram)),
-      plain_ms=cuda_ms(lambda: gram_all(ha.axis_gram_plain)),
-      library_ms=cuda_ms(lambda: [torch.einsum("pIq,pJq->IJ", lc, a)
-                                  for lc, a in lib_grams]),
-      # Per gram: N complex multiply-adds per amplitude of lambda; both
-      # states read once, the [N, N] gram written.
-      **bound(sum(8 * p * n * q * n for (p, n, q), _ in shapes),
-              sum(16 * p * n * q + 8 * n * n for (p, n, q), _ in shapes)))
+  report["qubit_transitions"] = check_transitions(
+      f"{N_QUBITS}q", (l_re, l_im, x_re, x_im), first_segment_qubits(pqc))
 
   nr = N_QUBITS - sv.minor_bits(N_QUBITS)
   diag_gates = [pqc.gates[i] for cls, idxs in sv.segment_circuit(pqc.gates)
@@ -226,6 +210,7 @@ def phase_kernels(device):
   k = len(rms)
   # One einsum: Im of sum_b s_r[k] (conj(lam) a)_b s_c[k] with the sign
   # matrices in complex64, built outside the timed call.
+  l_c = torch.complex(l_re, l_im)
   lib_bilinear = ("brc,brc,kr,kc->k", l_c.conj(), x_c,
                   *(sv.parity_signs(m, size, device).to(torch.complex64)
                     for m, size in ((rms, r), (cms, c))))
@@ -246,6 +231,99 @@ def phase_kernels(device):
         f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), max abs err "
         f"{rec['max_abs_err']:.3e}")
   return report
+
+
+def first_segment_qubits(pqc):
+  """The gradient qubits of the circuit's first 1q segment."""
+  from qhbmlib_tpu_torch.ops import statevector as sv
+  idxs = next(i for cls, i in sv.segment_circuit(pqc.gates) if cls == "1q")
+  return sorted({pqc.gates[i].qubits[0] for i in idxs
+                 if pqc.gates[i].slot >= 0})
+
+
+# (tile bits, min run) of qubit_transitions' pass plans timed beside the
+# default (13, 2): runs of 8 floats (three passes at 24q), tiles of 12 bits
+# (three passes at 24q).
+TRANSITION_PLANS = ((13, 3), (12, 2))
+
+
+def check_transitions(label, planes, qubits):
+  """qubit_transitions against its plain version on [B, R, C] planes
+  (l_re, l_im, a_re, a_im) for `qubits`, timed beside the plain version,
+  the library's way to the same traces and the other pass plans; returns
+  the record."""
+  from qhbmlib_tpu_torch.ops import hopper_adjoint as ha
+  from qhbmlib_tpu_torch.ops import statevector as sv
+  got = ha.qubit_transitions(*planes, qubits)
+  ref = ha.qubit_transitions_plain(*planes, qubits)
+  err = rel_err(got, ref)
+  check(f"qubit_transitions {label} B={planes[0].shape[0]}, {len(qubits)} "
+        "qubits", err, REDUCTION_TOL)
+  b, r, c = planes[0].shape
+  n = (r * c).bit_length() - 1
+  m = c.bit_length() - 1
+  l_c = torch.complex(planes[0], planes[1])
+  a_c = torch.complex(planes[2], planes[3])
+  blocks = ha.gram_blocks(qubits, n - m, m)
+
+  def library():
+    # One complex einsum per gram the traces come from, then each qubit's
+    # partial trace: the library's way to the same numbers.
+    grams = {}
+    for s, k in blocks:
+      view = (b << s, 2**k, 2**(n - s - k))
+      grams[(s, k)] = torch.einsum("pIq,pJq->IJ", l_c.view(view).conj(),
+                                   a_c.view(view))
+    traces = []
+    for q in qubits:
+      s, k = ha._block_of(q, n - m, m)
+      traces.append(sv.partial_trace_1q(grams[(s, k)], k, q - s))
+    return traces
+
+  lib = torch.stack([torch.stack([t.real, t.imag]) for t in library()])
+  check(f"qubit_transitions' library traces {label} vs its plain version",
+        rel_err(lib, ref), REDUCTION_TOL)
+  amps = planes[0].numel()
+  rec = dict(err=err, max_abs_err=max_abs(got, ref),
+             ms=cuda_ms(lambda: ha.qubit_transitions(*planes, qubits)),
+             plain_ms=cuda_ms(lambda: ha.qubit_transitions_plain(*planes,
+                                                                 qubits)),
+             library_ms=cuda_ms(library),
+             # conj(l) a per amplitude (8 flops with its sums) and, per
+             # qubit, two complex multiply-adds per pair and the diagonal's
+             # add (10 an amplitude); the four planes read once, Q x 8
+             # floats written.
+             **bound((8 + 10 * len(qubits)) * amps,
+                     16 * amps + 32 * len(qubits)))
+  plans = {}
+  for tile_bits, min_run in TRANSITION_PLANS:
+    alt = ha.qubit_transitions(*planes, qubits, tile_bits, min_run)
+    check(f"qubit_transitions {label}, tiles of {tile_bits} bits, runs of "
+          f">= {2**min_run} floats", rel_err(alt, ref), REDUCTION_TOL)
+    plans[(tile_bits, min_run)] = cuda_ms(
+        lambda: ha.qubit_transitions(*planes, qubits, tile_bits, min_run))
+  log(f"[kernels] qubit_transitions {label} B={b} ({len(qubits)} qubits, "
+      f"{len(blocks)} grams' worth): kernel {rec['ms']:.4f} ms, plain "
+      f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, bound "
+      f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; share "
+      f"{rec['bound_ms'] / rec['ms']:.1%}); other plans (tile bits, min "
+      "run): " + ", ".join(f"{k} {v:.4f} ms" for k, v in plans.items())
+      + f"; max abs err {rec['max_abs_err']:.3e}")
+  return rec
+
+
+def phase_k5(device):
+  """qubit_transitions at 24q B = BATCH over all 24 qubits (the row's
+  headline shape; the 20q check runs in phase_kernels)."""
+  from qhbmlib_tpu_torch.ops import statevector as sv
+  r, c = sv.state_shape(N24)
+  dgen = torch.Generator(device=device).manual_seed(SEED + 30)
+  planes = tuple(torch.randn((BATCH, r, c), generator=dgen, device=device)
+                 for _ in range(4))
+  rec = check_transitions(f"{N24}q", planes, list(range(N24)))
+  del planes
+  torch.cuda.empty_cache()
+  return rec
 
 
 def fmt_ms(ms) -> str:
@@ -300,7 +378,8 @@ def kernel_wrappers():
   from qhbmlib_tpu_torch.ops import hopper_adjoint as ha
   from qhbmlib_tpu_torch.ops import hopper_sv as hs
   return {"axis_apply": hs.axis_apply, "diag_rotate": hs.diag_rotate,
-          "axis_gram": ha.axis_gram, "parity_bilinear": ha.parity_bilinear,
+          "qubit_transitions": ha.qubit_transitions,
+          "parity_bilinear": ha.parity_bilinear,
           "axis2_apply": hs.axis2_apply,
           "circuit_forward": hs.circuit_forward,
           "adjoint_sweep": ha.adjoint_sweep,
@@ -326,10 +405,10 @@ def read_launches(path: str, required) -> dict:
 # Kernels each main path of the bench must launch.  Every 24q operator
 # pairs into an axis2_apply pass, so the 24q step launches no axis_apply.
 BENCH_PATHS = {
-    "train 24q": ["axis2_apply", "diag_rotate", "axis_gram",
+    "train 24q": ["axis2_apply", "diag_rotate", "qubit_transitions",
                   "parity_bilinear"],
-    "train 20q": ["axis_apply", "axis2_apply", "diag_rotate", "axis_gram",
-                  "parity_bilinear"],
+    "train 20q": ["axis_apply", "axis2_apply", "diag_rotate",
+                  "qubit_transitions", "parity_bilinear"],
     "pauli 20q": ["axis_apply", "axis2_apply", "diag_rotate"],
     "probe": ["stream_scale"],
 }
@@ -688,7 +767,7 @@ SOURCES = {"stream_scale": "qhbmlib_tpu_torch/csrc/stream_kernels.cu"}
 REPLACES = {
     "axis_apply": "qhbmlib_tpu/ops/pallas_sv.py:459",
     "diag_rotate": "qhbmlib_tpu/ops/pallas_sv.py:459",
-    "axis_gram": "qhbmlib_tpu/ops/pallas_adjoint.py:540",
+    "qubit_transitions": "qhbmlib_tpu/ops/pallas_adjoint.py:540",
     "parity_bilinear": "qhbmlib_tpu/ops/pallas_adjoint.py:540",
     "axis2_apply": "qhbmlib_tpu/ops/pallas_sv.py:615",
     "circuit_forward": "qhbmlib_tpu/ops/pallas_sv.py:667",
@@ -751,6 +830,7 @@ def main() -> int:
 
   report = phase_kernels(device)
   report["axis2_apply"] = phase_k1(device)
+  report["qubit_transitions"] = phase_k5(device)
   report["circuit_forward"], report["adjoint_sweep"] = (
       phase_single_kernels(device))
   report["stream_scale"] = phase_k6(device)

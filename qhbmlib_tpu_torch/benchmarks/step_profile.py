@@ -45,8 +45,9 @@ def union_us(intervals) -> float:
 def kernel_name(name: str) -> str:
   """A trace's kernel name without return type, anonymous namespace and
   arguments: `(anonymous namespace)::axis_apply_kernel<128>(float const*,
-  ...)` -> `axis_apply_kernel<128>`."""
-  head = name.split("(anonymous namespace)::")[-1].removeprefix("void ")
+  ...)` -> `axis_apply_kernel<128>`, whatever namespace the arguments'
+  types are in."""
+  head = name.replace("(anonymous namespace)::", "").removeprefix("void ")
   m = re.match(r"([\w:]+(?:<[^()]*>)?)", head)
   return m.group(1) if m else head[:60]
 

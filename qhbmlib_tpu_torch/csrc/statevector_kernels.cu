@@ -11,7 +11,7 @@
 //   K4  qhbmlib_tpu/ops/pallas_sv.py:459      apply_circuit_pallas_batched
 //       -> axis_apply, diag_rotate
 //   K5  qhbmlib_tpu/ops/pallas_adjoint.py:540 adjoint_sweep_batched
-//       -> axis_gram, parity_bilinear (and K4's two)
+//       -> qubit_transitions, parity_bilinear (and K1 / K4's applies)
 // A 20-qubit state (8 MB as float32 re/im planes) sat whole in the TPU's
 // VMEM; on the H100 it cannot sit in one SM's 227 KB of shared memory, so
 // the batched engine makes each circuit segment one or two launches over the
@@ -225,18 +225,21 @@ __global__ void __launch_bounds__(kApplyThreads)
 }
 
 // ---------------------------------------------------------------------------
-// axis_gram: G[I, J] = sum_{p, q} conj(l[p, I, q]) a[p, J, q], split complex.
+// axis_gram_tiles: G[I, J] = sum_{p, q} conj(l[p, I, q]) a[p, J, q], split
+// complex.
 // ---------------------------------------------------------------------------
 //
-// Replaces the gradient reductions of K5's 1q segments
+// The row-block and minor transition matrices of K2's kGram stage
 // (pallas_adjoint.py `_block_transition_parts` for row blocks and the
-// `_dot_t` minor cross matrix kmat), summed over the batch.
+// `_dot_t` minor cross matrix kmat): the gradient reads them through the
+// 2x2 partial trace of each qubit.  The batched sweep (K5) computes those
+// traces directly (qubit_transitions, below).
 //
 // Bound: the same 8*N flop per amplitude pair as axis_apply, so fp32 FMA
-// issue.  Pass 1: each persistent block accumulates its share of the
-// columns into a per-thread 4x8 register tile of G and writes its partial
-// [2, N, N] to scratch.  Pass 2 sums the partials in block order.  No float
-// atomics, so gradients are bitwise reproducible run to run.
+// issue.  Each block accumulates its share of the columns into a per-thread
+// TI x TJ register tile of G and writes its partial [2, N, N]; the caller
+// sums the partials in block order.  No float atomics, so gradients are
+// bitwise reproducible run to run.
 constexpr int kGramThreads = 512;
 constexpr int kGramW = 32;  // columns per tile
 
@@ -324,20 +327,6 @@ __device__ void axis_gram_tiles(const float* __restrict__ l_re,
     }
   }
   __syncthreads();
-}
-
-template <int N, int TI, int TJ>
-__global__ void __launch_bounds__(kGramThreads)
-    axis_gram_partial_kernel(const float* __restrict__ l_re,
-                             const float* __restrict__ l_im,
-                             const float* __restrict__ a_re,
-                             const float* __restrict__ a_im,
-                             float* __restrict__ partial, long long cols,
-                             int Q) {
-  extern __shared__ float smem[];
-  axis_gram_tiles<N, TI, TJ>(l_re, l_im, a_re, a_im,
-                             partial + (long long)blockIdx.x * 2 * N * N,
-                             cols, Q, blockIdx.x, gridDim.x, smem);
 }
 
 // Fixed-order sum of per-block partials: out[i] = sum_b partial[b, i] for i
@@ -661,6 +650,11 @@ __device__ __forceinline__ void cp_async_commit() {
 // Waits for every committed copy group but the newest.
 __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Waits for every committed copy group.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Starts copying columns [p0, p0 + width) of the split-complex [N, N]
@@ -1050,6 +1044,385 @@ __global__ void __launch_bounds__(kAxis2Threads)
 }
 
 // ---------------------------------------------------------------------------
+// qubit_transitions: T_q[i, j] = sum_{x: x_q = 0} conj(l[x ^ i e_q])
+//                                 a[x ^ j e_q], summed over the batch
+// ---------------------------------------------------------------------------
+//
+// Replaces the 1q-segment gradient reductions of K5
+// (qhbmlib_tpu/ops/pallas_adjoint.py:540 `adjoint_sweep_batched`: the row
+// block transitions and the minor kmat of `_make_bwd_kernel`'s "bwd1q"
+// stage, which `_assemble_grads` reads only through the 2x2 partial trace of
+// each gradient qubit).  Here the traces are the output: four floats of
+// T_q's upper row and diagonal per qubit, not an [N, N] gram per row block.
+//
+// Bound: about 10 flop per amplitude and qubit (one conj(l) a product per
+// amplitude for the diagonal; two complex multiply-adds per pair along the
+// qubit's bit for the off-diagonals) against 16 bytes read per amplitude:
+// at 24 qubits 240 flop a 16 B, below the fp32 ridge (~20 flop/B), so HBM
+// reads bound it, and each pass reads every amplitude once.  A pair along
+// bit b needs both amplitudes in one thread, and a tile of the state that
+// holds every pair of its bits must span them: a tile is 2^T amplitudes
+// (T <= kTransMaxBits = 13: 128 KB of the four planes) whose index bits
+// are T bits of the state's index, the low `run` of them contiguous for
+// coalesced copies.  Pass 1 tiles the lowest 13 bits (a contiguous 32 KB a
+// plane); each later pass keeps `run` low bits (at least `min_run`) and
+// takes up to 13 - run new ones (`plan_transitions`).  At 24 qubits two
+// passes with run 2 (16-byte runs, half a 32-byte sector; the other half
+// is the neighbouring tile, which the next block reads at the same time),
+// at 20 qubits two passes with run 6.  Each qubit is computed in the pass
+// where its bit is new.
+//
+// A tile streams through shared memory as two half-tiles, split at its top
+// bit, in a ring of three half slots (192 KB, one block per SM): while half
+// h is reduced, half h + 1 is in flight by cp.async, so the copy overlaps
+// the arithmetic (a whole-tile buffer left no room for a second, and the
+// two phases took turns).  Inside a half: each thread takes groups of 16
+// amplitudes, four float4s (tile bits 0-1) at positions f, f ^ b1, f ^ b2,
+// f ^ b1 ^ b2 of the tile's float4 index, and so holds every pair along
+// tile bits 0, 1, j1 and j2 in registers.  A "layout" is one (j1, j2)
+// choice; layouts cover a half's bits two at a time, each reading the half
+// from shared memory once, and the last layout pairs the top bit across
+// the tile's two halves, run when the second has landed (6 layouts at
+// T = 13).  Each layout pairs a float4-index bit below 4 with one above,
+// so the XOR swizzle of bits 0-2 by bit 3 (`trans_swizzle`) keeps every
+// float4 load conflict-free.  Diagonals come from w = conj(l) a, formed
+// once per amplitude in layout 0: T_q[1, 1] is the sum of w over x_q = 1
+// (the "margin" of q's tile bit, `trans_margins`), T_q[0, 0] the total
+// minus that; the other layouts do only the pair products.  The
+// accumulators (T01 and T10 of 14 slots, 13 margins and the total: 84
+// floats) stay in registers across tiles; at the end of a pass the
+// block sums them through shared memory in thread order and writes one
+// partial; transitions_finish_kernel sums the partials in block order.  No
+// float atomics, so gradients are bitwise reproducible run to run.
+constexpr int kTransThreads = 256;
+constexpr int kTransMaxBits = 13;
+constexpr int kTransMaxPasses = 4;
+constexpr int kTransLayouts = (kTransMaxBits - 1) / 2;  // tile bits 2.. in 2s
+constexpr int kTransSlots = 2 + 2 * kTransLayouts;
+// A thread's accumulators, and a block's partial, in this order: T01 and
+// T10 (re, im) of each slot; T11 (re, im) of each tile bit, the top bit's
+// last (its "margin"); the total of w (re, im).
+constexpr int kTransSlotFloats = 4;
+constexpr int kTransMargins = kTransMaxBits;
+constexpr int kTransTop = kTransMargins - 1;  // the top tile bit's margin
+constexpr int kTransMarginAt = kTransSlots * kTransSlotFloats;
+constexpr int kTransTotalAt = kTransMarginAt + 2 * kTransMargins;
+constexpr int kTransPartial = kTransTotalAt + 2;
+constexpr int kTransRedLd = kTransPartial + 1;  // odd: conflict-free rows
+constexpr int kTransHeader = 128;  // ints of the offset tables (64 + 32)
+constexpr int kTransMaxQubits = 32;
+constexpr int kTransMaxStateBits = 30;
+
+// One pass: its tile's bits and the layouts that cover them.
+struct TransPass {
+  int bits;                       // T: the tile holds 2^T amplitudes
+  int tile_bit[kTransMaxBits];    // the state-index bit of each tile bit
+  int rest;                       // the state's other n - T bits ...
+  int rest_bit[kTransMaxStateBits];  // ... ascending: tile u's origin
+  int layouts;
+  int j1[kTransLayouts];          // float4-index bits (tile bit - 2) held
+  int j2[kTransLayouts];          // in registers by each layout
+  long long tiles;                // B * 2^rest
+};
+
+struct TransPlan {
+  int n;
+  int passes;
+  TransPass pass[kTransMaxPasses];
+};
+
+// The qubits to write: each one's pass, slot and margin.
+struct TransPick {
+  int count;
+  int pass[kTransMaxQubits];
+  int slot[kTransMaxQubits];
+  int margin[kTransMaxQubits];
+};
+
+// Shared-memory float4 index of tile float4 f: bits 0-2 XORed with bit 3.
+__device__ __forceinline__ int trans_swizzle(int f) {
+  return f ^ (((f >> 3) & 1) * 7);
+}
+
+// g with a zero bit inserted at bit p.
+__device__ __forceinline__ int insert_zero(int g, int p) {
+  return ((g >> p) << (p + 1)) | (g & ((1 << p) - 1));
+}
+
+// Adds the pair (x, y = x with the qubit's bit set) to a slot:
+// T01 += conj(l_x) a_y, T10 += conj(l_y) a_x.
+__device__ __forceinline__ void trans_pair(float* acc, const float* v, int x,
+                                           int y) {
+  const float lxr = v[x], lxi = v[16 + x], axr = v[32 + x], axi = v[48 + x];
+  const float lyr = v[y], lyi = v[16 + y], ayr = v[32 + y], ayi = v[48 + y];
+  acc[0] = fmaf(lxr, ayr, fmaf(lxi, ayi, acc[0]));
+  acc[1] = fmaf(lxr, ayi, fmaf(-lxi, ayr, acc[1]));
+  acc[2] = fmaf(lyr, axr, fmaf(lyi, axi, acc[2]));
+  acc[3] = fmaf(lyr, axi, fmaf(-lyi, axr, acc[3]));
+}
+
+// Every pair of a 16-amplitude group along its bit k (amplitude index
+// pos * 4 + component: bits 0-1 the float4 component, bit 2 j1, bit 3 j2).
+template <int K>
+__device__ __forceinline__ void trans_bit(float* acc, const float* v) {
+#pragma unroll
+  for (int x = 0; x < 16; ++x) {
+    if (!((x >> K) & 1)) trans_pair(acc, v, x, x | (1 << K));
+  }
+}
+
+// Layout 0's diagonal sums over a group at float4 positions f, f ^ 2^j1,
+// f ^ 2^j2, f ^ 2^j1 ^ 2^j2 of a half-tile: w = conj(l) a per amplitude,
+// added to the total and to the margin (T11) of each tile bit set in the
+// amplitude's index: bits 0-1 by component, the float4-index bits by
+// position, and the top bit when the half is the tile's second.
+__device__ __forceinline__ void trans_margins(float* acc, const float* v,
+                                              int f, int j1, int j2,
+                                              bool second) {
+  float sr[4], si[4];  // w summed over each position's four components
+  float* m = acc + kTransMarginAt;
+#pragma unroll
+  for (int pos = 0; pos < 4; ++pos) {
+    sr[pos] = si[pos] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int x = pos * 4 + c;
+      const float wr = fmaf(v[x], v[32 + x], v[16 + x] * v[48 + x]);
+      const float wi = fmaf(v[x], v[48 + x], -v[16 + x] * v[32 + x]);
+      sr[pos] += wr;
+      si[pos] += wi;
+      if (c & 1) {
+        m[0] += wr;
+        m[1] += wi;
+      }
+      if (c & 2) {
+        m[2] += wr;
+        m[3] += wi;
+      }
+    }
+  }
+  const float tr = (sr[0] + sr[1]) + (sr[2] + sr[3]);
+  const float ti = (si[0] + si[1]) + (si[2] + si[3]);
+#pragma unroll
+  for (int p = 0; p < kTransMaxBits - 3; ++p) {  // tile bit p + 2
+    float ar = (f >> p) & 1 ? tr : 0.f;
+    float ai = (f >> p) & 1 ? ti : 0.f;
+    if (p == j1) {
+      ar = sr[1] + sr[3];
+      ai = si[1] + si[3];
+    } else if (p == j2) {
+      ar = sr[2] + sr[3];
+      ai = si[2] + si[3];
+    }
+    m[2 * p + 4] += ar;
+    m[2 * p + 5] += ai;
+  }
+  if (second) {
+    m[2 * kTransTop] += tr;
+    m[2 * kTransTop + 1] += ti;
+  }
+  acc[kTransTotalAt] += tr;
+  acc[kTransTotalAt + 1] += ti;
+}
+
+// Layout L over half-tiles in shared memory (`lo`, `hi`: 4 planes of 2^log_hv
+// float4s each, l_re, l_im, a_re, a_im): this thread's groups among
+// `groups`, accumulated into slots 2L + 2 (bit j1) and 2L + 3 (bit j2); a
+// float4 index at or above 2^log_hv lies in `hi` (the cross layout's j2).
+// Layout 0 also takes tile bits 0-1 (slots 0, 1) and every margin
+// (`second`: the half is its tile's second).
+template <int L>
+__device__ __forceinline__ void trans_layout(const float* lo, const float* hi,
+                                             int log_hv, int groups, int j1,
+                                             int j2, bool second,
+                                             float* acc) {
+  const int p_lo = j1 < j2 ? j1 : j2;
+  const int p_hi = j1 < j2 ? j2 : j1;
+  const int hv = 1 << log_hv;
+  for (int g = threadIdx.x; g < groups; g += kTransThreads) {
+    const int f = insert_zero(insert_zero(g, p_lo), p_hi);
+    const int at[4] = {f, f | (1 << j1), f | (1 << j2),
+                       f | (1 << j1) | (1 << j2)};
+    float v[64];  // [plane][amplitude]
+#pragma unroll
+    for (int pos = 0; pos < 4; ++pos) {
+      const float4* half =
+          reinterpret_cast<const float4*>(at[pos] >> log_hv ? hi : lo);
+      const int e = trans_swizzle(at[pos] & (hv - 1));
+#pragma unroll
+      for (int pl = 0; pl < 4; ++pl) {
+        const float4 x = half[pl * hv + e];
+        v[pl * 16 + pos * 4 + 0] = x.x;
+        v[pl * 16 + pos * 4 + 1] = x.y;
+        v[pl * 16 + pos * 4 + 2] = x.z;
+        v[pl * 16 + pos * 4 + 3] = x.w;
+      }
+    }
+    if constexpr (L == 0) {
+      trans_margins(acc, v, f, j1, j2, second);
+      trans_bit<0>(acc, v);
+      trans_bit<1>(acc + kTransSlotFloats, v);
+    }
+    trans_bit<2>(acc + (2 * L + 2) * kTransSlotFloats, v);
+    trans_bit<3>(acc + (2 * L + 3) * kTransSlotFloats, v);
+  }
+}
+
+// Starts copying half `h` of this block's stream of half-tiles (tile
+// blockIdx.x + (h / 2) * gridDim.x, its float4s from (h % 2) * 2^log_hv)
+// into `dst`: cp.async from the state, zeros past the state's `loaded`
+// float4s (a tile padded out to 16 amplitudes a half).
+__device__ __forceinline__ void trans_issue(const float* const* src,
+                                            const TransPass& ps, int n,
+                                            long long h, int log_hv,
+                                            int loaded, const int* s_lo,
+                                            const int* s_hi, float* dst) {
+  const long long t = blockIdx.x + (h >> 1) * gridDim.x;
+  const long long u = t & ((1LL << ps.rest) - 1);
+  long long origin = (t >> ps.rest) << n;
+  for (int k = 0; k < ps.rest; ++k) {
+    if ((u >> k) & 1) origin += 1LL << ps.rest_bit[k];
+  }
+  const int hv = 1 << log_hv;
+  for (int e = threadIdx.x; e < hv; e += kTransThreads) {
+    const int f = (int)(h & 1) * hv + e;  // float4 index in the tile
+    float* d = dst + 4 * trans_swizzle(e);
+    if (f < loaded) {
+      const long long off = origin + s_lo[f & 63] + s_hi[f >> 6];
+#pragma unroll
+      for (int pl = 0; pl < 4; ++pl) cp_async_16(d + pl * 4 * hv, src[pl] + off);
+    } else {
+#pragma unroll
+      for (int pl = 0; pl < 4; ++pl) {
+        *reinterpret_cast<float4*>(d + pl * 4 * hv) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  }
+}
+
+// Blocks take tiles blockIdx.x, + gridDim.x, ... of each pass in turn and
+// write one partial per pass: partial[(block * kTransMaxPasses + pass) *
+// kTransPartial + e], e in the accumulators' order (kTransMarginAt).  Planes are [B, 2^n] floats, 16-byte aligned.
+//
+// A tile streams through shared memory as two halves split at its top bit,
+// in a ring of three half-tile slots: while half h is reduced, half h + 1
+// is in flight (cp.async), and the tile's first half stays for the layout
+// across the halves (the last one), run with its second.
+__global__ void __launch_bounds__(kTransThreads)
+    qubit_transitions_kernel(const float* __restrict__ l_re,
+                             const float* __restrict__ l_im,
+                             const float* __restrict__ a_re,
+                             const float* __restrict__ a_im,
+                             const __grid_constant__ TransPlan plan,
+                             float* __restrict__ partial) {
+  extern __shared__ float smem[];
+  int* s_lo = reinterpret_cast<int*>(smem);  // offsets of float4 bits 0-5
+  int* s_hi = s_lo + 64;                     // and of float4 bits 6-10
+  float* ring = smem + kTransHeader;
+  const float* src[4] = {l_re, l_im, a_re, a_im};
+  for (int p = 0; p < plan.passes; ++p) {
+    const TransPass& ps = plan.pass[p];
+    const int bits = ps.bits;
+    const int log_hv = (bits < 5 ? 5 : bits) - 3;  // float4s of a half plane
+    const int slot_floats = 16 << log_hv;           // 4 planes of a half
+    const int loaded = 1 << (bits - 2);
+    const long long halves =
+        ps.tiles > blockIdx.x ? 2 * ((ps.tiles - 1 - blockIdx.x) / gridDim.x + 1)
+                              : 0;
+    __syncthreads();  // the previous pass's reduction has been read
+    if (threadIdx.x < 96) {
+      const bool low = threadIdx.x < 64;
+      const int i = low ? threadIdx.x : threadIdx.x - 64;
+      const int first = low ? 2 : 8;
+      int off = 0;
+      for (int k = 0; k < (low ? 6 : 5); ++k) {
+        if (((i >> k) & 1) && first + k < bits) off += 1 << ps.tile_bit[first + k];
+      }
+      (low ? s_lo : s_hi)[i] = off;
+    }
+    float acc[kTransPartial];
+#pragma unroll
+    for (int e = 0; e < kTransPartial; ++e) acc[e] = 0.f;
+    __syncthreads();  // offsets written
+    if (halves > 0) {
+      trans_issue(src, ps, plan.n, 0, log_hv, loaded, s_lo, s_hi, ring);
+      cp_async_commit();
+    }
+    const int inner = ps.layouts - 1;  // the last layout crosses the halves
+    const int groups = 1 << (log_hv - 2);
+    for (long long h = 0; h < halves; ++h) {
+      if (h + 1 < halves) {
+        trans_issue(src, ps, plan.n, h + 1, log_hv, loaded, s_lo, s_hi,
+                    ring + ((h + 1) % 3) * slot_floats);
+        cp_async_commit();
+        cp_async_wait_prior();
+      } else {
+        cp_async_wait_all();
+      }
+      __syncthreads();  // half h has landed
+      const float* cur = ring + (h % 3) * slot_floats;
+      const bool second = h & 1;
+      if (inner > 0) trans_layout<0>(cur, cur, log_hv, groups, ps.j1[0], ps.j2[0], second, acc);
+      if (inner > 1) trans_layout<1>(cur, cur, log_hv, groups, ps.j1[1], ps.j2[1], second, acc);
+      if (inner > 2) trans_layout<2>(cur, cur, log_hv, groups, ps.j1[2], ps.j2[2], second, acc);
+      if (inner > 3) trans_layout<3>(cur, cur, log_hv, groups, ps.j1[3], ps.j2[3], second, acc);
+      if (inner > 4) trans_layout<4>(cur, cur, log_hv, groups, ps.j1[4], ps.j2[4], second, acc);
+      if (second) {
+        const float* first = ring + ((h - 1) % 3) * slot_floats;
+        const int g2 = 2 * groups;
+        switch (inner) {  // static slots: one call each
+          case 1: trans_layout<1>(first, cur, log_hv, g2, ps.j1[1], ps.j2[1], true, acc); break;
+          case 2: trans_layout<2>(first, cur, log_hv, g2, ps.j1[2], ps.j2[2], true, acc); break;
+          case 3: trans_layout<3>(first, cur, log_hv, g2, ps.j1[3], ps.j2[3], true, acc); break;
+          case 4: trans_layout<4>(first, cur, log_hv, g2, ps.j1[4], ps.j2[4], true, acc); break;
+          default: trans_layout<5>(first, cur, log_hv, g2, ps.j1[5], ps.j2[5], true, acc); break;
+        }
+      }
+      __syncthreads();  // the slot half h + 2 will take is free
+    }
+    // The block's sum, in thread order, through the ring's shared memory.
+    float* row = ring + threadIdx.x * kTransRedLd;
+#pragma unroll
+    for (int e = 0; e < kTransPartial; ++e) row[e] = acc[e];
+    __syncthreads();
+    if (threadIdx.x < kTransPartial) {
+      float sum = 0.f;
+      for (int r = 0; r < kTransThreads; ++r) {
+        sum += ring[r * kTransRedLd + threadIdx.x];
+      }
+      partial[((long long)blockIdx.x * kTransMaxPasses + p) * kTransPartial +
+              threadIdx.x] = sum;
+    }
+  }
+}
+
+// out[i, re/im, r, c] = T[r, c] of picked qubit i: the partials of its
+// pass summed in block order; T00 is the total of w less T11.
+__global__ void transitions_finish_kernel(const float* __restrict__ partial,
+                                          int blocks, TransPick pick,
+                                          float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= pick.count * 8) return;
+  const int q = i >> 3;
+  const int part = (i >> 2) & 1;  // 0: re, 1: im
+  const int r = (i >> 1) & 1;
+  const int c = i & 1;
+  const int t11 = kTransMarginAt + 2 * pick.margin[q] + part;
+  const int at = r == c ? t11
+                        : pick.slot[q] * kTransSlotFloats + 2 * r + part;
+  float sum = 0.f;
+  float total = 0.f;
+  for (int b = 0; b < blocks; ++b) {
+    const float* pb = partial +
+        ((long long)b * kTransMaxPasses + pick.pass[q]) * kTransPartial;
+    sum += pb[at];
+    total += pb[kTransTotalAt + part];
+  }
+  out[i] = (r == 0 && c == 0) ? total - sum : sum;
+}
+
+// ---------------------------------------------------------------------------
 // circuit_forward / adjoint_sweep: every segment of one state's circuit in
 // ONE cooperative launch, stages separated by grid-wide barriers.
 // ---------------------------------------------------------------------------
@@ -1293,34 +1666,81 @@ int launch_axis_apply(const float* x_re, const float* x_im,
   return (int)cudaGetLastError();
 }
 
-template <int N, int TI, int TJ>
-struct GramConfig {
-  static constexpr size_t smem() { return axis_gram_smem<N>(); }
-  static int grid(long long cols) {
-    return persistent_grid(axis_gram_partial_kernel<N, TI, TJ>, kGramThreads,
-                           smem(), (cols + kGramW - 1) / kGramW);
-  }
-  static void launch(const float* l_re, const float* l_im, const float* a_re,
-                     const float* a_im, float* partial, int blocks,
-                     long long cols, int Q, cudaStream_t stream) {
-    axis_gram_partial_kernel<N, TI, TJ>
-        <<<blocks, kGramThreads, smem(), stream>>>(l_re, l_im, a_re, a_im,
-                                                   partial, cols, Q);
-  }
-};
 
-// Thread tiles: (N/TI) x (N/TJ) <= 512 threads, each TI x TJ entries of G.
-#define QHBM_GRAM_SWITCH(N, CALL)                 \
-  switch (N) {                                    \
-    case 2: { using G = GramConfig<2, 1, 1>; CALL; } \
-    case 4: { using G = GramConfig<4, 1, 1>; CALL; } \
-    case 8: { using G = GramConfig<8, 1, 1>; CALL; } \
-    case 16: { using G = GramConfig<16, 1, 1>; CALL; } \
-    case 32: { using G = GramConfig<32, 1, 2>; CALL; } \
-    case 64: { using G = GramConfig<64, 2, 4>; CALL; } \
-    case 128: { using G = GramConfig<128, 4, 8>; CALL; } \
-    default: break;                               \
+// Fills `plan` for B states of n qubits: tiles of at most tile_bits bits,
+// the first the lowest bits, each later one its `run` lowest bits (at
+// least min_run) and up to tile_bits - run bits not yet taken.  For each
+// state-index bit, the pass, the slot and the margin that compute its
+// qubit.  False for arguments out of range.
+bool plan_transitions(int n, long long B, int tile_bits, int min_run,
+                      TransPlan* plan, int* pass_of_bit, int* slot_of_bit,
+                      int* margin_of_bit) {
+  if (n < 2 || n > kTransMaxStateBits || B < 1 || tile_bits < 4 ||
+      tile_bits > kTransMaxBits || min_run < 2 || min_run >= tile_bits) {
+    return false;
   }
+  plan->n = n;
+  plan->passes = 0;
+  for (int covered = 0; covered < n;) {  // bits below `covered` are taken
+    if (plan->passes == kTransMaxPasses) return false;
+    TransPass& ps = plan->pass[plan->passes];
+    const int room = covered == 0 ? tile_bits : tile_bits - min_run;
+    const int fresh = n - covered < room ? n - covered : room;
+    const int run = covered == 0 ? 0 : tile_bits - fresh;
+    ps.bits = run + fresh;
+    for (int t = 0; t < ps.bits; ++t) {
+      ps.tile_bit[t] = t < run ? t : covered + t - run;
+    }
+    ps.rest = 0;
+    for (int b = run; b < n; ++b) {
+      if (b < covered || b >= covered + fresh) ps.rest_bit[ps.rest++] = b;
+    }
+    ps.tiles = B << ps.rest;
+    // Layouts over the float4-index bits of a half-tile, 0 .. eff - 4: each
+    // bit below 4 with one above (conflict-free under trans_swizzle), the
+    // rest in pairs, an odd one out with a bit already covered (its second
+    // slot unread).  Then the top bit, eff - 3, across the halves.
+    const int eff = ps.bits < 5 ? 5 : ps.bits;
+    int low[4], high[kTransMaxBits], left[kTransMaxBits];
+    int nl = 0, nh = 0, nleft = 0;
+    for (int p = 0; p < eff - 3; ++p) {
+      if (p < 4) {
+        low[nl++] = p;
+      } else {
+        high[nh++] = p;
+      }
+    }
+    ps.layouts = 0;
+    auto add = [&ps](int j1, int j2) {
+      ps.j1[ps.layouts] = j1;
+      ps.j2[ps.layouts] = j2;
+      ++ps.layouts;
+    };
+    const int pairs = nl < nh ? nl : nh;
+    for (int i = 0; i < pairs; ++i) add(low[i], high[i]);
+    for (int i = pairs; i < nl; ++i) left[nleft++] = low[i];
+    for (int i = pairs; i < nh; ++i) left[nleft++] = high[i];
+    for (int i = 0; i + 1 < nleft; i += 2) add(left[i], left[i + 1]);
+    if (nleft % 2) {
+      const int p = left[nleft - 1];
+      add(p, nh > 0 && high[0] != p ? high[0] : (p == 0 ? 1 : 0));
+    }
+    add(nh > 0 ? high[0] : 0, eff - 3);
+    for (int t = run; t < ps.bits; ++t) {
+      int slot = t < 2 ? t : -1;  // tile bits 0 and 1: slots 0 and 1
+      for (int l = 0; slot < 0; ++l) {  // the first layout holding the bit
+        if (ps.j1[l] == t - 2) slot = 2 * l + 2;
+        if (ps.j2[l] == t - 2) slot = 2 * l + 3;
+      }
+      pass_of_bit[ps.tile_bit[t]] = plan->passes;
+      slot_of_bit[ps.tile_bit[t]] = slot;
+      margin_of_bit[ps.tile_bit[t]] = t == eff - 1 ? kTransTop : t;
+    }
+    covered += fresh;
+    ++plan->passes;
+  }
+  return true;
+}
 
 }  // namespace
 
@@ -1346,25 +1766,53 @@ int qhbm_axis_apply(const float* x_re, const float* x_im, const float* op_re,
                 static_cast<cudaStream_t>(stream));
 }
 
-// G = sum conj(l)^T a over the N axis of the [P, N, Q] view.  `partial` is
-// scratch of max_blocks * 2 * N * N floats; pass 1 runs on at most
-// max_blocks persistent blocks (4 per SM always suffices: 512 threads each).
-int qhbm_axis_gram(const float* l_re, const float* l_im, const float* a_re,
-                   const float* a_im, float* partial, int max_blocks,
-                   float* g_re, float* g_im, int P, int N, int Q,
-                   void* stream) {
-  const long long cols = (long long)P * Q;
+// Floats of qhbm_qubit_transitions' scratch per block.
+int qhbm_transitions_scratch() { return kTransMaxPasses * kTransPartial; }
+
+// T_q of `count` qubits (`qubits`, in host memory) of B states of n qubits,
+// [B, 2^n] float planes 16-byte aligned: out [count, 2, 2, 2] (qubit,
+// re/im, i, j).  Tiles of at most tile_bits bits; passes after the first
+// keep at least min_run low bits (plan_transitions).  `partial` is scratch
+// of max_blocks * qhbm_transitions_scratch() floats.
+int qhbm_qubit_transitions(const float* l_re, const float* l_im,
+                           const float* a_re, const float* a_im, int B,
+                           int n, const int* qubits, int count,
+                           int tile_bits, int min_run, float* partial,
+                           int max_blocks, float* out, void* stream) {
+  TransPlan plan;
+  int pass_of_bit[kTransMaxStateBits];
+  int slot_of_bit[kTransMaxStateBits];
+  int margin_of_bit[kTransMaxStateBits];
+  if (count < 1 || count > kTransMaxQubits || max_blocks < 1 ||
+      !plan_transitions(n, B, tile_bits, min_run, &plan, pass_of_bit,
+                        slot_of_bit, margin_of_bit)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  TransPick pick;
+  pick.count = count;
+  for (int i = 0; i < count; ++i) {
+    if (qubits[i] < 0 || qubits[i] >= n) return (int)cudaErrorInvalidValue;
+    pick.pass[i] = pass_of_bit[n - 1 - qubits[i]];  // qubit 0: the top bit
+    pick.slot[i] = slot_of_bit[n - 1 - qubits[i]];
+    pick.margin[i] = margin_of_bit[n - 1 - qubits[i]];
+  }
+  size_t ring_floats = kTransThreads * kTransRedLd;  // the block's sum
+  long long most = 0;
+  for (int p = 0; p < plan.passes; ++p) {
+    const int eff = plan.pass[p].bits < 5 ? 5 : plan.pass[p].bits;
+    // Three half-tile slots of 4 planes of 2^(eff - 1) floats.
+    if ((size_t)6 << eff > ring_floats) ring_floats = (size_t)6 << eff;
+    if (plan.pass[p].tiles > most) most = plan.pass[p].tiles;
+  }
+  const size_t smem = (kTransHeader + ring_floats) * sizeof(float);
+  int grid = persistent_grid(qubit_transitions_kernel, kTransThreads, smem,
+                             most);
+  if (grid > max_blocks) grid = max_blocks;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int blocks = 0;
-  QHBM_GRAM_SWITCH(N, blocks = G::grid(cols);
-                   if (blocks > max_blocks) blocks = max_blocks;
-                   G::launch(l_re, l_im, a_re, a_im, partial, blocks, cols, Q,
-                             s);
-                   break)
-  if (blocks == 0) return (int)cudaErrorInvalidValue;
-  const int width = 2 * N * N;
-  sum_partials_kernel<<<(width + 255) / 256, 256, 0, s>>>(
-      partial, blocks, width, g_re, g_im);
+  qubit_transitions_kernel<<<grid, kTransThreads, smem, s>>>(
+      l_re, l_im, a_re, a_im, plan, partial);
+  transitions_finish_kernel<<<1, kTransMaxQubits * 8, 0, s>>>(partial, grid,
+                                                              pick, out);
   return (int)cudaGetLastError();
 }
 

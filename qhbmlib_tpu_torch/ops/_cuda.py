@@ -44,7 +44,9 @@ _I = ctypes.c_int
 # name -> argtypes; every entry point returns an int (a cudaError_t).
 _SIGNATURES = {
     "qhbm_axis_apply": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "qhbm_axis_gram": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P],
+    "qhbm_transitions_scratch": [],
+    "qhbm_qubit_transitions": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P,
+                               _I, _P, _P],
     "qhbm_parity_bilinear": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                              _I, _P],
     "qhbm_diag_rotate": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _P],

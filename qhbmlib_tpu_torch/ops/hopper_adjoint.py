@@ -9,20 +9,22 @@ reverse:
 
   (1) gradient reductions from the current (a, lambda), summed over the
       batch:
-        1q segment   -> `axis_gram` per row block holding a gradient qubit
-                        (block_transition) and once for the minor cross
-                        matrix kmat (cross_gram);
+        1q segment   -> one `qubit_transitions`: the 2x2 transition of each
+                        gradient qubit, the partial trace of the reference's
+                        block_transition / minor cross_gram, without the
+                        [N, N] grams;
         diag segment -> one `parity_bilinear` over all K parity factors;
   (2) un-apply the segment to a and lambda: the inverse operators as K1 /
       `axis_apply` passes (`hopper_sv.plan_passes`), or one `diag_rotate`
       with sign -1 over both.
 
 `adjoint_sweep` (K2, pallas_adjoint.py:480) runs the same stages for ONE
-state of 8 to 20 qubits in one cooperative launch over a stage table.
+state of 8 to 20 qubits in one cooperative launch over a stage table; its
+1q reductions are the [N, N] grams, traced on the host (`sweep_grads`).
 
-The per-gate algebra on the reductions (2x2 partial traces, the
-suffix-conjugated dU contractions, coefficient groupings) runs on the host
-after the sweep, as `_assemble_grads` does outside the Pallas kernels.
+The per-gate algebra on the reductions (the suffix-conjugated dU
+contractions, coefficient groupings) runs on the host after the sweep, as
+`_assemble_grads` does outside the Pallas kernels.
 """
 
 from __future__ import annotations
@@ -55,37 +57,101 @@ def axis_gram_plain(l_re, l_im, a_re, a_im, p: int, n: int, q: int) -> Planes:
   return g_re, g_im
 
 
-def axis_gram(l_re, l_im, a_re, a_im, p: int, n: int, q: int) -> Planes:
-  """Split-complex transition matrix over the middle axis of a [P, N, Q]
-  view, summed over P and Q (the batch included): returns [N, N] planes.
+def _block_of(q: int, nr: int, m: int):
+  """(start, k) of the bit range holding qubit q: its row block, or the
+  minor bits (nr, m)."""
+  if q >= nr:
+    return nr, m
+  return next((s, k) for s, k in sv._row_blocks(nr) if s <= q < s + k)
 
-  Row block (start, k): P = B*2^start, N = 2^k, Q = R*C/2^(start+k)
-  (block_transition).  Minor kmat: P = B*R, N = C, Q = 1 (cross_gram)."""
+
+def gram_blocks(qubits: Sequence[int], nr: int, m: int):
+  """The (start, k) ranges whose transition matrices hold the traces of
+  `qubits`: each row block holding one of them, then the minor bits."""
+  blocks = [(s, k) for s, k in sv._row_blocks(nr)
+            if any(s <= q < s + k for q in qubits)]
+  if any(q >= nr for q in qubits):
+    blocks.append((nr, m))
+  return blocks
+
+
+def traces_of_grams(grams, qubits: Sequence[int], nr: int,
+                    m: int) -> torch.Tensor:
+  """[Q, 2, 2] complex: each qubit's 2x2 partial trace of the complex gram
+  of the bit range holding it (`grams` keyed by `gram_blocks` range)."""
+  out = []
+  for q in qubits:
+    start, k = _block_of(q, nr, m)
+    out.append(sv.partial_trace_1q(grams[(start, k)], k, q - start))
+  return torch.stack(out)
+
+
+def qubit_transitions_plain(l_re, l_im, a_re, a_im,
+                            qubits: Sequence[int]) -> torch.Tensor:
+  """[Q, 2, 2, 2] (qubit, re/im, i, j): the batch-summed 2x2 transition
+  T_q[i, j] = sum_{x: x_q = 0} conj(l[x ^ i e_q]) a[x ^ j e_q] of each
+  qubit of [B, R, C] planes, as the partial trace of the gram over the bit
+  range holding it (`axis_gram_plain`)."""
+  b, r, c = l_re.shape
+  if not qubits:
+    return torch.zeros((0, 2, 2, 2), dtype=torch.float32, device=l_re.device)
+  n = (r * c).bit_length() - 1
+  m = c.bit_length() - 1
+  grams = {(s, k): torch.complex(*axis_gram_plain(
+      l_re, l_im, a_re, a_im, b << s, 2**k, 2**(n - s - k)))
+           for s, k in gram_blocks(qubits, n - m, m)}
+  t = traces_of_grams(grams, qubits, n - m, m)
+  return torch.stack([t.real, t.imag], dim=1)
+
+
+# The kernel's passes (`plan_transitions`): tiles of at most 2^TILE_BITS
+# amplitudes (128 KB of the four planes at 13), and passes after the first
+# keep at least MIN_RUN low bits, runs of 2^MIN_RUN floats.  At 20 and 24
+# qubits: two passes, two reads of the planes.
+TILE_BITS = 13
+MIN_RUN = 2
+
+
+def qubit_transitions(l_re, l_im, a_re, a_im, qubits: Sequence[int],
+                      tile_bits: int = TILE_BITS,
+                      min_run: int = MIN_RUN) -> torch.Tensor:
+  """The batch-summed 2x2 transitions of `qubits` (at most 32) over
+  float32 [B, R, C] planes (l_re, l_im) and (a_re, a_im): [Q, 2, 2, 2]
+  (qubit, re/im, i, j), T_q[i, j] = sum_{x: x_q = 0} conj(l[x ^ i e_q])
+  a[x ^ j e_q].  On the card, every qubit in one launch of 2 to 30 qubit
+  states, each pass of the kernel reading the planes once; `tile_bits` and
+  `min_run` set its passes."""
   if l_re.device.type == "cpu":
-    return axis_gram_plain(l_re, l_im, a_re, a_im, p, n, q)
+    return qubit_transitions_plain(l_re, l_im, a_re, a_im, qubits)
   if l_re.device.type != "cuda":
-    raise ValueError(f"axis_gram: unsupported device {l_re.device}")
-  if n not in (2, 4, 8, 16, 32, 64, 128):
-    raise ValueError(f"axis_gram: N={n} is not a power of two in [2, 128]")
-  _cuda.require([l_re, l_im, a_re, a_im], l_re.device, [l_re.shape] * 4)
-  if l_re.numel() != p * n * q:
-    raise ValueError(f"axis_gram: {l_re.numel()} elements != {p}*{n}*{q}")
+    raise ValueError(f"qubit_transitions: unsupported device {l_re.device}")
+  b, r, c = l_re.shape
+  n = (r * c).bit_length() - 1
+  _cuda.require([l_re, l_im, a_re, a_im], l_re.device, [(b, r, c)] * 4)
+  if not qubits:
+    return torch.zeros((0, 2, 2, 2), dtype=torch.float32, device=l_re.device)
+  if not 2 <= n <= 30 or len(qubits) > 32:
+    raise ValueError(f"qubit_transitions: {len(qubits)} qubits (<= 32) of "
+                     f"{n}-qubit states (2 to 30)")
+  if any(t.data_ptr() % 16 for t in (l_re, l_im, a_re, a_im)):
+    raise ValueError("qubit_transitions: planes must be 16-byte aligned")
   lib = _cuda.library()
-  # Pass-1 partials: at most 4 blocks of 512 threads fit an SM.
-  max_blocks = 4 * _cuda.sm_count(l_re.device)
-  partial = torch.empty((max_blocks, 2, n, n), dtype=torch.float32,
-                        device=l_re.device)
-  g_re = torch.empty((n, n), dtype=torch.float32, device=l_re.device)
-  g_im = torch.empty_like(g_re)
-  _cuda.check(lib.qhbm_axis_gram(
-      l_re.data_ptr(), l_im.data_ptr(), a_re.data_ptr(), a_im.data_ptr(),
-      partial.data_ptr(), max_blocks, g_re.data_ptr(), g_im.data_ptr(), p, n,
-      q, _cuda.stream_of(l_re)), "axis_gram")
-  axis_gram.launches += 1
-  return g_re, g_im
+  dev = l_re.device
+  max_blocks = 2 * _cuda.sm_count(dev)
+  partial = torch.empty((max_blocks, lib.qhbm_transitions_scratch()),
+                        dtype=torch.float32, device=dev)
+  out = torch.empty((len(qubits), 2, 2, 2), dtype=torch.float32, device=dev)
+  picked = np.asarray(qubits, dtype=np.int32)
+  _cuda.check(lib.qhbm_qubit_transitions(
+      l_re.data_ptr(), l_im.data_ptr(), a_re.data_ptr(), a_im.data_ptr(), b,
+      n, picked.ctypes.data, len(picked), tile_bits, min_run,
+      partial.data_ptr(), max_blocks, out.data_ptr(), _cuda.stream_of(l_re)),
+              "qubit_transitions")
+  qubit_transitions.launches += 1
+  return out
 
 
-axis_gram.launches = 0
+qubit_transitions.launches = 0
 
 
 def parity_bilinear_plain(l_re, l_im, a_re, a_im, row_masks: Sequence[int],
@@ -169,33 +235,24 @@ def one_qubit_algebra(seg_gates, seg_angles):
 def _backward_1q(seg_gates, seg_angles, nr: int, m: int):
   """One reversed 1q segment: (host stage, assembly plan entry).
 
-  stage = ("bwd1q", grads, inverse ops): `grads` lists the (start, k) bit
-  ranges whose transition matrix the gradient needs (row blocks holding a
-  gradient qubit, then the minor bits (nr, m) for kmat), the inverse ops
-  are `segment_ops` of the per-qubit inverses."""
+  stage = ("bwd1q", qubits, inverse ops): `qubits` are the segment's
+  gradient qubits, ascending, whose 2x2 transitions the gradient reads;
+  the inverse ops are `segment_ops` of the per-qubit inverses."""
   inverses, mg_entries, grad_qubits = one_qubit_algebra(seg_gates,
                                                         seg_angles)
-  minor_grads = tuple(sorted(q for q in grad_qubits if q >= nr))
-  blocks = []
-  for start, k in sv._row_blocks(nr):
-    needs_grad = any(start <= q < start + k for q in grad_qubits)
-    if needs_grad or sv._fold_block(inverses, start, k) is not None:
-      blocks.append((start, k, needs_grad))
-  grads = [(s, k) for s, k, ng in blocks if ng]
-  if minor_grads:
-    grads.append((nr, m))
+  qubits = tuple(sorted(grad_qubits))
   majors = {q: v for q, v in inverses.items() if q < nr}
   minor_inv = sv._fold_block({q - nr: v for q, v in inverses.items()
                               if q >= nr}, 0, m)
-  stage = ("bwd1q", grads, hopper_sv.segment_ops(majors, minor_inv, nr, m))
-  plan = ("1q", {"blocks": tuple(blocks), "minor_grads": minor_grads,
-                 "mg_entries": mg_entries, "nr": nr, "m": m})
+  stage = ("bwd1q", qubits, hopper_sv.segment_ops(majors, minor_inv, nr, m))
+  plan = ("1q", {"qubits": qubits, "mg_entries": mg_entries, "nr": nr,
+                 "m": m})
   return stage, plan
 
 
 def backward_plan(circuit: ir.Circuit, symbol_values):
   """Host reverse stages, in sweep order, and the assembly plan:
-  ("bwd1q", grads, inverse ops) or ("bwddiag", (weights, row_masks,
+  ("bwd1q", gradient qubits, inverse ops) or ("bwddiag", (weights, row_masks,
   col_masks)) with the FORWARD weights of the segment."""
   n = circuit.num_qubits
   m = sv.minor_bits(n)
@@ -229,7 +286,7 @@ def backward_plan(circuit: ir.Circuit, symbol_values):
 
 def prepare_backward(circuit: ir.Circuit, symbol_values, device):
   """Reverse stages of the batched sweep and the assembly plan:
-  ("bwd1q", grads, passes) with device operators (`plan_passes`), or
+  ("bwd1q", gradient qubits, passes) with device operators (`plan_passes`), or
   ("bwddiag", row_masks, col_masks, (cos, sin)) with the segment's forward
   rotation planes.  Host operators and weights cross in one copy."""
   n = circuit.num_qubits
@@ -258,28 +315,20 @@ def prepare_backward(circuit: ir.Circuit, symbol_values, device):
 def _assemble_grads(plan, outputs: List[torch.Tensor],
                     num_symbols: int) -> torch.Tensor:
   """Host-side per-gate gradient algebra on the sweep's reductions (CPU
-  tensors, in stage order); mirrors pallas_adjoint._assemble_grads."""
+  tensors, in stage order: a [Q, 2, 2] complex transition per gradient
+  qubit of each 1q stage that has any, a [K] bilinear per diagonal stage);
+  mirrors pallas_adjoint._assemble_grads."""
   slots, contribs = [], []
   pos = 0
   for kind, info in plan:
     if kind == "1q":
-      nr, m = info["nr"], info["m"]
-      g_parts = {}
-      for start, k, needs_grad in info["blocks"]:
-        if needs_grad:
-          g_parts[(start, k)] = outputs[pos]
-          pos += 1
-      if info["minor_grads"]:
-        kmat = outputs[pos]
-        pos += 1
+      if not info["qubits"]:
+        continue
+      traces = outputs[pos]
+      pos += 1
+      row = {q: i for i, q in enumerate(info["qubits"])}
       for q, slot, coeff, mg in info["mg_entries"]:
-        if q >= nr:
-          g = sv.partial_trace_1q(kmat, m, q - nr)
-        else:
-          start, k = next((s, kk) for s, kk, ng in info["blocks"]
-                          if ng and s <= q < s + kk)
-          g = sv.partial_trace_1q(g_parts[(start, k)], k, q - start)
-        dangle = 2.0 * float(torch.sum(mg * g).real)
+        dangle = 2.0 * float(torch.sum(mg * traces[row[q]]).real)
         slots.append(slot)
         contribs.append(coeff * dangle)
     else:
@@ -298,14 +347,15 @@ def _assemble_grads(plan, outputs: List[torch.Tensor],
   return grad.to(torch.float32)
 
 
-def _grads_from_flat(flat: torch.Tensor, shapes) -> torch.Tensor:
-  """Splits one host copy of every reduction, in stage order, into complex
-  [N, N] transition matrices ([2, N, N] shapes) and real [K] bilinears."""
+def _grads_from_flat(flat: torch.Tensor, shapes) -> List[torch.Tensor]:
+  """Splits one host copy of every reduction, in stage order: split-complex
+  [Q, 2, 2, 2] transitions and [2, N, N] grams become complex [Q, 2, 2] and
+  [N, N] tensors (re/im is axis -3), [K] bilinears stay real."""
   outputs, pos = [], 0
   for shape in shapes:
     size = int(np.prod(shape))
     part = flat[pos:pos + size].reshape(shape)
-    outputs.append(torch.complex(part[0], part[1]) if len(shape) == 3
+    outputs.append(torch.complex(*part.unbind(-3)) if len(shape) >= 3
                    else part)
     pos += size
   return outputs
@@ -320,21 +370,20 @@ def adjoint_sweep_batched(circuit: ir.Circuit, symbol_values, psi: Planes,
   are folded on the host from it.  The inputs are not modified.
   `plain=True` runs the kernels' plain versions (reference only)."""
   device = psi[0].device
-  b, r, c = psi[0].shape
+  r, c = psi[0].shape[1:]
   n = (r * c).bit_length() - 1
-  gram = axis_gram_plain if plain else axis_gram
+  trans = qubit_transitions_plain if plain else qubit_transitions
   bilin = parity_bilinear_plain if plain else parity_bilinear
   stages, plan = prepare_backward(circuit, symbol_values, device)
   # The diagonal un-applies rotate in place: work on contiguous copies.
   a, lm = [tuple(torch.clone(t, memory_format=torch.contiguous_format)
                  for t in pair) for pair in (psi, lam)]
-  reductions = []  # [2, N, N] (re, im) grams or [K] bilinears, stage order
+  reductions = []  # [Q, 2, 2, 2] transitions or [K] bilinears, stage order
   for stage in stages:
     if stage[0] == "bwd1q":
-      _, grads, passes = stage
-      for start, k in grads:
-        reductions.append(torch.stack(gram(
-            *lm, *a, b << start, 2**k, 2**(n - start - k))))
+      _, qubits, passes = stage
+      if qubits:
+        reductions.append(trans(*lm, *a, qubits))
       a, lm = hopper_sv.apply_passes(passes, [a, lm], n, plain)
     else:
       _, rms, cms, planes = stage
@@ -355,15 +404,17 @@ def adjoint_sweep_batched(circuit: ir.Circuit, symbol_values, psi: Planes,
 
 def sweep_table(circuit: ir.Circuit, symbol_values, device):
   """(stage table, reduction shapes, assembly plan) of `adjoint_sweep`: per
-  reversed segment, the kGram / kBilin reductions from the current states,
-  then the un-apply (kAxis records of the inverse operators, or kDiag with
-  the negated weights)."""
+  reversed segment, the kGram / kBilin reductions from the current states
+  (a gram per `gram_blocks` range of a 1q segment's gradient qubits), then
+  the un-apply (kAxis records of the inverse operators, or kDiag with the
+  negated weights)."""
   host_stages, plan = backward_plan(circuit, symbol_values)
   table = hopper_sv.StageTable(circuit.num_qubits, torch.device(device))
+  nr = table.n - table.m
   shapes = []
   for st in host_stages:
     if st[0] == "bwd1q":
-      for bits in st[1]:
+      for bits in gram_blocks(st[1], nr, table.m):
         table.gram(bits)
         shapes.append((2, 2**bits[1], 2**bits[1]))
       for bits, op in st[2]:
@@ -374,6 +425,25 @@ def sweep_table(circuit: ir.Circuit, symbol_values, device):
       shapes.append((len(rms),))
       table.diag(weights, rms, cms, sign=-1)
   return table, shapes, plan
+
+
+def sweep_grads(plan, flat: torch.Tensor, shapes,
+                num_symbols: int) -> torch.Tensor:
+  """The gradient from K2's reductions (one host copy, stage order, of the
+  `sweep_table` shapes): each 1q stage's grams traced to the 2x2
+  transition of each gradient qubit (`partial_trace_1q`), then
+  `_assemble_grads`."""
+  outputs = iter(_grads_from_flat(flat, shapes))
+  reductions = []
+  for kind, info in plan:
+    if kind != "1q":
+      reductions.append(next(outputs))
+    elif info["qubits"]:
+      nr, m = info["nr"], info["m"]
+      grams = {bits: next(outputs)
+               for bits in gram_blocks(info["qubits"], nr, m)}
+      reductions.append(traces_of_grams(grams, info["qubits"], nr, m))
+  return _assemble_grads(plan, reductions, num_symbols)
 
 
 def adjoint_sweep(circuit: ir.Circuit, symbol_values, psi: Planes,
@@ -387,7 +457,7 @@ def adjoint_sweep(circuit: ir.Circuit, symbol_values, psi: Planes,
   Reductions and un-applies run in stage order as in
   pallas_adjoint._make_bwd_kernel; the inverse operators and the negated
   diagonal weights are folded on the host, and every reduction returns in
-  one device->host copy for `_assemble_grads`."""
+  one device->host copy for `sweep_grads`."""
   dev = psi[0].device
   if plain or dev.type == "cpu":
     from qhbmlib_tpu_torch.ops import adjoint  # the plain sweep lives there
@@ -404,8 +474,8 @@ def adjoint_sweep(circuit: ir.Circuit, symbol_values, psi: Planes,
   out = launch_adjoint_sweep(table, hopper_sv.state_buffer(psi),
                              hopper_sv.state_buffer(lam),
                              hopper_sv.sweep_blocks(dev, 2))
-  outputs = _grads_from_flat(out[:table.out_len].cpu(), shapes)
-  return _assemble_grads(plan, outputs, circuit.num_symbols).to(dev)
+  return sweep_grads(plan, out[:table.out_len].cpu(), shapes,
+                     circuit.num_symbols).to(dev)
 
 
 adjoint_sweep.launches = 0

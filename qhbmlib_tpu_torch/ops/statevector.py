@@ -646,6 +646,9 @@ def expectation_terms(state: torch.Tensor,
   """Per-term real expectations <psi|P_t|psi>, shape [..., num_terms].
 
   Coefficients are NOT applied (the caller dots with `op.coeffs`)."""
+  if op.num_terms == 0:  # e.g. an empty concat_ops; torch.cat([]) raises
+    return torch.zeros(state.shape[:-2] + (0,), dtype=torch.float32,
+                       device=state.device)
   rows = op.code_rows()
   m = int(state.shape[-1]).bit_length() - 1
   nr = op.num_qubits - m

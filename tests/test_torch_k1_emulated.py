@@ -41,6 +41,7 @@ EMU_CUDA_H = r'''// A CPU stand-in for the CUDA runtime, to run a kernel source'
 #define __shared__
 #define __restrict__
 #define __launch_bounds__(...)
+#define __grid_constant__
 
 struct dim3 {
   unsigned x, y, z;
@@ -266,6 +267,7 @@ EMULATED = {
     "cp_async_4": "std::memcpy(dst, src, 4);",
     "cp_async_commit": "",
     "cp_async_wait_prior": "",
+    "cp_async_wait_all": "",
     "mma_tf32": "emu_mma(d, a, b);",
     "mma_tf32_first": "for (int e = 0; e < 4; ++e) d[e] = 0.f;\n"
                       "  emu_mma(d, a, b);",

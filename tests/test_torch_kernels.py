@@ -75,6 +75,61 @@ def test_axis_gram_plain_matches_numpy(p, n, q):
   np.testing.assert_allclose(_c(g), expected, atol=1e-3, rtol=1e-5)
 
 
+@pytest.mark.parametrize("n", [9, 15, 16])
+def test_qubit_transitions_plain_matches_jax(n):
+  """Every qubit's batch-summed 2x2 transition equals the sum over states
+  of the reference's partial_trace_1q of its block_transition (row
+  qubits, row blocks (0, 7) and (7, 1 or 2) at 15 and 16 qubits) or of its
+  cross_gram (minor qubits).  float32 sums of ~10^5 products of unit
+  normals: 1e-3 absolute."""
+  rng = np.random.RandomState(30 + n)
+  shape = (3,) + jsv.state_shape(n)
+  lam, a = _planes(rng, shape), _planes(rng, shape)
+  m = jsv.minor_bits(n)
+  nr = n - m
+  got = hopper_adjoint.qubit_transitions_plain(*lam, *a, list(range(n)))
+  assert got.shape == (n, 2, 2, 2)
+  lam_c, a_c = jnp.asarray(_c(lam)), jnp.asarray(_c(a))
+  for q in range(n):
+    if q >= nr:
+      grams = [jsv.cross_gram(lam_c[b], a_c[b]) for b in range(3)]
+      k, pos = m, q - nr
+    else:
+      start, k = next(blk for blk in jsv._row_blocks(nr)
+                      if blk[0] <= q < blk[0] + blk[1])
+      grams = [jsv.block_transition(lam_c[b], a_c[b], start, k)
+               for b in range(3)]
+      pos = q - start
+    expected = sum(np.asarray(jsv.partial_trace_1q(g, k, pos))
+                   for g in grams)
+    np.testing.assert_allclose(got[q, 0].numpy() + 1j * got[q, 1].numpy(),
+                               expected, atol=1e-3, rtol=1e-5)
+
+
+def test_sweep_takes_one_transition_call_per_1q_segment(monkeypatch):
+  """The batched sweep reduces each 1q segment with ONE qubit_transitions
+  call over its gradient qubits (every qubit of the ansatz), not a gram per
+  row block, and gives the plain sweep's gradient."""
+  n, batch = 9, 3
+  pqc, values, bits, op, g = _problem(n, 2, batch, 31)
+  psis, lams = _psi_lam(pqc, values, bits, op, g)
+  calls = []
+
+  def counted(*args):
+    calls.append(tuple(args[4]))
+    return hopper_adjoint.qubit_transitions_plain(*args)
+
+  monkeypatch.setattr(hopper_adjoint, "qubit_transitions", counted)
+  tpqc = tcu.hardware_efficient_ansatz(n, 2)
+  got = hopper_adjoint.adjoint_sweep_batched(
+      tpqc, torch.tensor(values), _split(psis), _split(lams))
+  segments = [cls for cls, _ in tsv.segment_circuit(tpqc.gates)]
+  assert calls == [tuple(range(n))] * segments.count("1q")
+  expected = hopper_adjoint.adjoint_sweep_batched(
+      tpqc, torch.tensor(values), _split(psis), _split(lams), plain=True)
+  np.testing.assert_array_equal(got.numpy(), expected.numpy())
+
+
 @pytest.mark.parametrize("n", [9, 15])
 def test_parity_bilinear_plain_matches_jax(n):
   """Batch-summed bilinears of Im(conj(lam) a) equal the sum of the
@@ -112,15 +167,16 @@ def test_cpu_tensors_take_plain_versions_without_launches():
   rng = np.random.RandomState(1)
   x, op = _planes(rng, (2 * 4 * 8,)), _planes(rng, (4, 4))
   wrappers = (hopper_sv.axis_apply, hopper_sv.diag_rotate,
-              hopper_adjoint.axis_gram, hopper_adjoint.parity_bilinear)
+              hopper_adjoint.qubit_transitions,
+              hopper_adjoint.parity_bilinear)
   before = [w.launches for w in wrappers]
   y = hopper_sv.axis_apply(*x, *op, 2, 4, 8)
   y_ref = hopper_sv.axis_apply_plain(*x, *op, 2, 4, 8)
   np.testing.assert_array_equal(_c(y), _c(y_ref))
-  g = hopper_adjoint.axis_gram(*x, *x, 2, 4, 8)
-  np.testing.assert_array_equal(_c(g), _c(
-      hopper_adjoint.axis_gram_plain(*x, *x, 2, 4, 8)))
   s = [tuple(t.reshape(2, 4, 8) for t in x)]
+  np.testing.assert_array_equal(
+      hopper_adjoint.qubit_transitions(*s[0], *s[0], [0, 3]),
+      hopper_adjoint.qubit_transitions_plain(*s[0], *s[0], [0, 3]))
   hopper_sv.diag_rotate(s, torch.ones(4, 8), torch.zeros(4, 8), 1)
   hopper_adjoint.parity_bilinear(*s[0], *s[0], [0, 1], [3, 0])
   assert [w.launches for w in wrappers] == before
@@ -134,9 +190,9 @@ def test_wrappers_refuse_other_devices():
   op = torch.zeros(4, 4, device="meta")
   with pytest.raises(ValueError, match="unsupported device"):
     hopper_sv.axis_apply(x, x, op, op, 2, 4, 8)
-  with pytest.raises(ValueError, match="unsupported device"):
-    hopper_adjoint.axis_gram(x, x, x, x, 2, 4, 8)
   s = x.reshape(2, 4, 8)
+  with pytest.raises(ValueError, match="unsupported device"):
+    hopper_adjoint.qubit_transitions(s, s, s, s, [0])
   with pytest.raises(ValueError, match="unsupported device"):
     hopper_sv.diag_rotate([(s, s)], op, op, 1)
   with pytest.raises(ValueError, match="unsupported device"):

@@ -277,9 +277,8 @@ def test_k2_stage_table_model_matches_plain(n, layers):
   table, shapes, plan = hopper_adjoint.sweep_table(tpqc, values, "cpu")
   _, out = _run_table(table, [psi.reshape(-1).astype(np.complex128),
                               lam.reshape(-1).astype(np.complex128)])
-  grad = hopper_adjoint._assemble_grads(
-      plan, hopper_adjoint._grads_from_flat(
-          torch.tensor(out, dtype=torch.float32), shapes), tpqc.num_symbols)
+  grad = hopper_adjoint.sweep_grads(
+      plan, torch.tensor(out, dtype=torch.float32), shapes, tpqc.num_symbols)
   expected = hopper_adjoint.adjoint_sweep(tpqc, values, _planes(psi),
                                           _planes(lam))
   np.testing.assert_allclose(grad.numpy(), expected.numpy(), atol=GRAD_ATOL)
@@ -356,9 +355,8 @@ def test_long_diag_segment_tables_match_plain_and_jax():
   table, shapes, plan = hopper_adjoint.sweep_table(tpqc, values, "cpu")
   _, out = _run_table(table, [psi.reshape(-1).astype(np.complex128),
                               lam.reshape(-1).astype(np.complex128)])
-  grad = hopper_adjoint._assemble_grads(
-      plan, hopper_adjoint._grads_from_flat(
-          torch.tensor(out, dtype=torch.float32), shapes), tpqc.num_symbols)
+  grad = hopper_adjoint.sweep_grads(
+      plan, torch.tensor(out, dtype=torch.float32), shapes, tpqc.num_symbols)
   expected = hopper_adjoint.adjoint_sweep(tpqc, values, _planes(psi),
                                           _planes(lam))
   np.testing.assert_allclose(grad.numpy(), expected.numpy(), atol=GRAD_ATOL)

@@ -17,11 +17,13 @@ import torch
 
 from qhbmlib_tpu import utils as jutils
 from qhbmlib_tpu.models import circuit_utils as jcu
+from qhbmlib_tpu.ops import adjoint as jadjoint
 from qhbmlib_tpu.ops import circuit_ir as jir
 from qhbmlib_tpu.ops import paulis as jp
 from qhbmlib_tpu.ops import statevector as jsv
 from qhbmlib_tpu_torch import utils as tutils
 from qhbmlib_tpu_torch.models import circuit_utils as tcu
+from qhbmlib_tpu_torch.ops import adjoint as tadjoint
 from qhbmlib_tpu_torch.ops import paulis as tp
 from qhbmlib_tpu_torch.ops import statevector as tsv
 
@@ -264,6 +266,48 @@ def test_tfim_target_matches_reference():
     op_j = jp.tfim_1d(n, periodic=periodic)
     assert op_t.code_rows() == op_j.codes
     _close(op_t.coeffs, op_j.coeffs, atol=0)
+
+
+def test_empty_pauli_sum_terms_match_jax():
+  """A PauliSum with no terms at n = 9: expectation_terms gives the
+  reference's empty float32 [0] vector (exact; it raised in torch.cat)."""
+  n = 9
+  expected = np.asarray(jsv.expectation_terms(
+      jsv.zero_state(n), jp.pauli_sum_from_strings(n, [])))
+  got = tsv.expectation_terms(tsv.zero_state(n, device="cpu"),
+                              tp.pauli_sum_from_strings(n, [], device="cpu"))
+  assert got.dtype == torch.float32 and expected.dtype == np.float32
+  assert tuple(got.shape) == expected.shape == (0,)
+
+
+@pytest.mark.parametrize("path", ["single state", "batched"])
+def test_empty_pauli_sum_expectation_and_gradient_match_jax(path):
+  """An empty PauliSum at n = 9 on zero_state: the value is 0 and the
+  gradient zeros, as jax.value_and_grad of the reference's `expectation`,
+  through the single-state path (adjoint.expectation, K3 / K2's plain
+  versions) and the batched one (batched_expectations, K4 / K5's; the
+  reference's batched_expectations divides by the zero term count)."""
+  n = 9
+  jpqc = jcu.hardware_efficient_ansatz(n, 1)
+  values = np.random.RandomState(9).uniform(
+      -1, 1, jpqc.num_symbols).astype(np.float32)
+  val_j, grad_j = jax.value_and_grad(lambda v: jadjoint.expectation(
+      jpqc, v, jsv.zero_state(n), jp.pauli_sum_from_strings(n, [])))(
+          jnp.asarray(values))
+  op = tp.pauli_sum_from_strings(n, [], device="cpu")
+  v = torch.tensor(values, requires_grad=True)
+  if path == "single state":
+    value = tadjoint.expectation(tcu.hardware_efficient_ansatz(n, 1), v,
+                                 tsv.zero_state(n, device="cpu"), op)
+  else:
+    value = tadjoint.batched_expectations(
+        tcu.hardware_efficient_ansatz(n, 1), v,
+        torch.zeros((2, n), dtype=torch.int8), (op,))
+    assert tuple(value.shape) == (2, 1)
+    value = value.sum()
+  value.backward()
+  assert float(value.detach()) == float(val_j) == 0.0
+  np.testing.assert_array_equal(v.grad.numpy(), np.asarray(grad_j))
 
 
 # -- utils (dedup, bit codes) ------------------------------------------------

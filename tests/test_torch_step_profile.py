@@ -24,6 +24,8 @@ def test_union_merges_overlaps_and_gaps():
     ("void at::native::elementwise_kernel<128, 4>(int)",
      "at::native::elementwise_kernel<128, 4>"),
     ("ampere_sgemm_128x64_nn", "ampere_sgemm_128x64_nn"),
+    ("(anonymous namespace)::qubit_transitions_kernel(float const*, "
+     "(anonymous namespace)::TransPlan, float*)", "qubit_transitions_kernel"),
 ])
 def test_kernel_names_lose_namespace_and_arguments(name, short):
   assert sp.kernel_name(name) == short
