@@ -7,9 +7,8 @@ process per source, in parallel) and holds each of the eight against its
 plain PyTorch version: `axis_apply`, `diag_rotate`, `parity_bilinear` at
 the 20-qubit shapes; `axis2_apply` (K1) at the 24- and 20-qubit pass
 shapes; `qubit_transitions` (K5's 1q reductions) at 24 and 20 qubits,
-B = 8, with its other pass plans timed beside the default;
-`circuit_forward` (K3) and `adjoint_sweep` (K2)
-at 20q/4L for one random state; `stream_scale` (K6) on the 24-qubit plane
+B = 8; `circuit_forward` (K3) and `adjoint_sweep` (K2) at 20q/4L for one
+random state; `stream_scale` (K6) on the 24-qubit plane
 at each tile size.  Each kernel is timed beside its plain version, the one
 PyTorch call that computes the same function where there is one
 (`library_ms`), and its bound: the larger of its bytes over 3.35 TB/s and
@@ -241,19 +240,11 @@ def first_segment_qubits(pqc):
                  if pqc.gates[i].slot >= 0})
 
 
-# (tile bits, min run) of qubit_transitions' pass plans timed beside the
-# default (13, 2): runs of 8 floats (three passes at 24q), tiles of 12 bits
-# (three passes at 24q).
-TRANSITION_PLANS = ((13, 3), (12, 2))
-
-
 def check_transitions(label, planes, qubits):
   """qubit_transitions against its plain version on [B, R, C] planes
-  (l_re, l_im, a_re, a_im) for `qubits`, timed beside the plain version,
-  the library's way to the same traces and the other pass plans; returns
-  the record."""
+  (l_re, l_im, a_re, a_im) for `qubits`, timed beside the plain version
+  and the library's way to the same traces; returns the record."""
   from qhbmlib_tpu_torch.ops import hopper_adjoint as ha
-  from qhbmlib_tpu_torch.ops import statevector as sv
   got = ha.qubit_transitions(*planes, qubits)
   ref = ha.qubit_transitions_plain(*planes, qubits)
   err = rel_err(got, ref)
@@ -274,15 +265,12 @@ def check_transitions(label, planes, qubits):
       view = (b << s, 2**k, 2**(n - s - k))
       grams[(s, k)] = torch.einsum("pIq,pJq->IJ", l_c.view(view).conj(),
                                    a_c.view(view))
-    traces = []
-    for q in qubits:
-      s, k = ha._block_of(q, n - m, m)
-      traces.append(sv.partial_trace_1q(grams[(s, k)], k, q - s))
-    return traces
+    return ha.traces_of_grams(grams, qubits, n - m, m)
 
-  lib = torch.stack([torch.stack([t.real, t.imag]) for t in library()])
+  lib = library()
   check(f"qubit_transitions' library traces {label} vs its plain version",
-        rel_err(lib, ref), REDUCTION_TOL)
+        rel_err(torch.stack([lib.real, lib.imag], dim=1), ref),
+        REDUCTION_TOL)
   amps = planes[0].numel()
   rec = dict(err=err, max_abs_err=max_abs(got, ref),
              ms=cuda_ms(lambda: ha.qubit_transitions(*planes, qubits)),
@@ -295,20 +283,12 @@ def check_transitions(label, planes, qubits):
              # floats written.
              **bound((8 + 10 * len(qubits)) * amps,
                      16 * amps + 32 * len(qubits)))
-  plans = {}
-  for tile_bits, min_run in TRANSITION_PLANS:
-    alt = ha.qubit_transitions(*planes, qubits, tile_bits, min_run)
-    check(f"qubit_transitions {label}, tiles of {tile_bits} bits, runs of "
-          f">= {2**min_run} floats", rel_err(alt, ref), REDUCTION_TOL)
-    plans[(tile_bits, min_run)] = cuda_ms(
-        lambda: ha.qubit_transitions(*planes, qubits, tile_bits, min_run))
   log(f"[kernels] qubit_transitions {label} B={b} ({len(qubits)} qubits, "
       f"{len(blocks)} grams' worth): kernel {rec['ms']:.4f} ms, plain "
       f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, bound "
       f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; share "
-      f"{rec['bound_ms'] / rec['ms']:.1%}); other plans (tile bits, min "
-      "run): " + ", ".join(f"{k} {v:.4f} ms" for k, v in plans.items())
-      + f"; max abs err {rec['max_abs_err']:.3e}")
+      f"{rec['bound_ms'] / rec['ms']:.1%}); max abs err "
+      f"{rec['max_abs_err']:.3e}")
   return rec
 
 

@@ -1052,20 +1052,20 @@ __global__ void __launch_bounds__(kAxis2Threads)
 // (qhbmlib_tpu/ops/pallas_adjoint.py:540 `adjoint_sweep_batched`: the row
 // block transitions and the minor kmat of `_make_bwd_kernel`'s "bwd1q"
 // stage, which `_assemble_grads` reads only through the 2x2 partial trace of
-// each gradient qubit).  Here the traces are the output: four floats of
-// T_q's upper row and diagonal per qubit, not an [N, N] gram per row block.
+// each gradient qubit).  Here the traces are the output, [Q, 2, 2] complex,
+// not an [N, N] gram per row block.
 //
 // Bound: about 10 flop per amplitude and qubit (one conj(l) a product per
 // amplitude for the diagonal; two complex multiply-adds per pair along the
 // qubit's bit for the off-diagonals) against 16 bytes read per amplitude:
-// at 24 qubits 240 flop a 16 B, below the fp32 ridge (~20 flop/B), so HBM
-// reads bound it, and each pass reads every amplitude once.  A pair along
+// at 24 qubits 240 flop against 16 B, below the fp32 ridge (~20 flop/B), so
+// HBM reads bound it, and each pass reads every amplitude once.  A pair along
 // bit b needs both amplitudes in one thread, and a tile of the state that
 // holds every pair of its bits must span them: a tile is 2^T amplitudes
 // (T <= kTransMaxBits = 13: 128 KB of the four planes) whose index bits
 // are T bits of the state's index, the low `run` of them contiguous for
 // coalesced copies.  Pass 1 tiles the lowest 13 bits (a contiguous 32 KB a
-// plane); each later pass keeps `run` low bits (at least `min_run`) and
+// plane); each later pass keeps `run` low bits (at least kTransMinRun) and
 // takes up to 13 - run new ones (`plan_transitions`).  At 24 qubits two
 // passes with run 2 (16-byte runs, half a 32-byte sector; the other half
 // is the neighbouring tile, which the next block reads at the same time),
@@ -1083,9 +1083,9 @@ __global__ void __launch_bounds__(kAxis2Threads)
 // choice; layouts cover a half's bits two at a time, each reading the half
 // from shared memory once, and the last layout pairs the top bit across
 // the tile's two halves, run when the second has landed (6 layouts at
-// T = 13).  Each layout pairs a float4-index bit below 4 with one above,
-// so the XOR swizzle of bits 0-2 by bit 3 (`trans_swizzle`) keeps every
-// float4 load conflict-free.  Diagonals come from w = conj(l) a, formed
+// T = 13).  No layout holds two float4-index bits below 4, so the XOR
+// swizzle of bits 0-2 by bit 3 (`trans_swizzle`) keeps every float4 load
+// conflict-free.  Diagonals come from w = conj(l) a, formed
 // once per amplitude in layout 0: T_q[1, 1] is the sum of w over x_q = 1
 // (the "margin" of q's tile bit, `trans_margins`), T_q[0, 0] the total
 // minus that; the other layouts do only the pair products.  The
@@ -1096,6 +1096,7 @@ __global__ void __launch_bounds__(kAxis2Threads)
 // float atomics, so gradients are bitwise reproducible run to run.
 constexpr int kTransThreads = 256;
 constexpr int kTransMaxBits = 13;
+constexpr int kTransMinRun = 2;  // low bits each pass after the first keeps
 constexpr int kTransMaxPasses = 4;
 constexpr int kTransLayouts = (kTransMaxBits - 1) / 2;  // tile bits 2.. in 2s
 constexpr int kTransSlots = 2 + 2 * kTransLayouts;
@@ -1771,21 +1772,20 @@ int qhbm_transitions_scratch() { return kTransMaxPasses * kTransPartial; }
 
 // T_q of `count` qubits (`qubits`, in host memory) of B states of n qubits,
 // [B, 2^n] float planes 16-byte aligned: out [count, 2, 2, 2] (qubit,
-// re/im, i, j).  Tiles of at most tile_bits bits; passes after the first
-// keep at least min_run low bits (plan_transitions).  `partial` is scratch
-// of max_blocks * qhbm_transitions_scratch() floats.
+// re/im, i, j).  `partial` is scratch of max_blocks *
+// qhbm_transitions_scratch() floats.
 int qhbm_qubit_transitions(const float* l_re, const float* l_im,
                            const float* a_re, const float* a_im, int B,
                            int n, const int* qubits, int count,
-                           int tile_bits, int min_run, float* partial,
-                           int max_blocks, float* out, void* stream) {
+                           float* partial, int max_blocks, float* out,
+                           void* stream) {
   TransPlan plan;
   int pass_of_bit[kTransMaxStateBits];
   int slot_of_bit[kTransMaxStateBits];
   int margin_of_bit[kTransMaxStateBits];
   if (count < 1 || count > kTransMaxQubits || max_blocks < 1 ||
-      !plan_transitions(n, B, tile_bits, min_run, &plan, pass_of_bit,
-                        slot_of_bit, margin_of_bit)) {
+      !plan_transitions(n, B, kTransMaxBits, kTransMinRun, &plan,
+                        pass_of_bit, slot_of_bit, margin_of_bit)) {
     return (int)cudaErrorInvalidValue;
   }
   TransPick pick;

@@ -45,8 +45,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "qhbm_axis_apply": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "qhbm_transitions_scratch": [],
-    "qhbm_qubit_transitions": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P,
-                               _I, _P, _P],
+    "qhbm_qubit_transitions": [_P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _P,
+                               _P],
     "qhbm_parity_bilinear": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                              _I, _P],
     "qhbm_diag_rotate": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _P],

@@ -104,23 +104,14 @@ def qubit_transitions_plain(l_re, l_im, a_re, a_im,
   return torch.stack([t.real, t.imag], dim=1)
 
 
-# The kernel's passes (`plan_transitions`): tiles of at most 2^TILE_BITS
-# amplitudes (128 KB of the four planes at 13), and passes after the first
-# keep at least MIN_RUN low bits, runs of 2^MIN_RUN floats.  At 20 and 24
-# qubits: two passes, two reads of the planes.
-TILE_BITS = 13
-MIN_RUN = 2
-
-
-def qubit_transitions(l_re, l_im, a_re, a_im, qubits: Sequence[int],
-                      tile_bits: int = TILE_BITS,
-                      min_run: int = MIN_RUN) -> torch.Tensor:
+def qubit_transitions(l_re, l_im, a_re, a_im,
+                      qubits: Sequence[int]) -> torch.Tensor:
   """The batch-summed 2x2 transitions of `qubits` (at most 32) over
   float32 [B, R, C] planes (l_re, l_im) and (a_re, a_im): [Q, 2, 2, 2]
   (qubit, re/im, i, j), T_q[i, j] = sum_{x: x_q = 0} conj(l[x ^ i e_q])
-  a[x ^ j e_q].  On the card, every qubit in one launch of 2 to 30 qubit
-  states, each pass of the kernel reading the planes once; `tile_bits` and
-  `min_run` set its passes."""
+  a[x ^ j e_q].  On the card, every qubit in one launch for states of 2 to
+  30 qubits; each pass of the kernel reads the planes once, two passes at
+  14 to 24 qubits."""
   if l_re.device.type == "cpu":
     return qubit_transitions_plain(l_re, l_im, a_re, a_im, qubits)
   if l_re.device.type != "cuda":
@@ -144,8 +135,8 @@ def qubit_transitions(l_re, l_im, a_re, a_im, qubits: Sequence[int],
   picked = np.asarray(qubits, dtype=np.int32)
   _cuda.check(lib.qhbm_qubit_transitions(
       l_re.data_ptr(), l_im.data_ptr(), a_re.data_ptr(), a_im.data_ptr(), b,
-      n, picked.ctypes.data, len(picked), tile_bits, min_run,
-      partial.data_ptr(), max_blocks, out.data_ptr(), _cuda.stream_of(l_re)),
+      n, picked.ctypes.data, len(picked), partial.data_ptr(), max_blocks,
+      out.data_ptr(), _cuda.stream_of(l_re)),
               "qubit_transitions")
   qubit_transitions.launches += 1
   return out

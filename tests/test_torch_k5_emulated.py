@@ -199,9 +199,10 @@ def driver(tmp_path_factory):
 
 
 # (n, B, tile bits, min run, tiles a pass (0: all), blocks, passes).  The
-# 24q and 20q views are the main path's (the wrapper's defaults 13, 2), cut
-# to a few tiles; then the planner's other settings, a batch over several
-# tiles a state, a single pass, and a tile padded with zeros.
+# 24q and 20q views are the main path's (tile bits 13, min run 2, as
+# qhbm_qubit_transitions plans), cut to a few tiles; then the planner's
+# other settings (three passes), a batch over several tiles a state, a
+# single pass, and a tile padded with zeros.
 VIEWS = {
     "24q: two passes, the second in 16-byte runs": (24, 1, 13, 2, 3, 2, 2),
     "20q B=2: two passes, the second in 256-byte runs": (20, 2, 13, 2, 3, 2,
