@@ -294,16 +294,27 @@ def check_transitions(label, planes, qubits):
 
 def phase_k5(device):
   """qubit_transitions at 24q B = BATCH over all 24 qubits (the row's
-  headline shape; the 20q check runs in phase_kernels)."""
+  headline shape, returned), and at 20q over the first 1q segment's qubits
+  at the batch of the bench's 20q workload, which the 20q train step gives
+  it (B = 64: 1 GiB of planes).  The 20q B = BATCH check runs in
+  phase_kernels."""
+  from qhbmlib_tpu_torch import bench
+  from qhbmlib_tpu_torch.models import circuit_utils
   from qhbmlib_tpu_torch.ops import statevector as sv
-  r, c = sv.state_shape(N24)
   dgen = torch.Generator(device=device).manual_seed(SEED + 30)
-  planes = tuple(torch.randn((BATCH, r, c), generator=dgen, device=device)
-                 for _ in range(4))
-  rec = check_transitions(f"{N24}q", planes, list(range(N24)))
-  del planes
-  torch.cuda.empty_cache()
-  return rec
+  batch_20q = bench.WORKLOADS["20q"]["max_unique"]
+  pqc = circuit_utils.hardware_efficient_ansatz(N_QUBITS, LAYERS)
+  report = None
+  for n, b, qubits in ((N24, BATCH, list(range(N24))),
+                       (N_QUBITS, batch_20q, first_segment_qubits(pqc))):
+    r, c = sv.state_shape(n)
+    planes = tuple(torch.randn((b, r, c), generator=dgen, device=device)
+                   for _ in range(4))
+    rec = check_transitions(f"{n}q", planes, qubits)
+    del planes
+    torch.cuda.empty_cache()
+    report = report or rec
+  return report
 
 
 def fmt_ms(ms) -> str:

@@ -1097,7 +1097,7 @@ __global__ void __launch_bounds__(kAxis2Threads)
 constexpr int kTransThreads = 256;
 constexpr int kTransMaxBits = 13;
 constexpr int kTransMinRun = 2;  // low bits each pass after the first keeps
-constexpr int kTransMaxPasses = 4;
+constexpr int kTransMaxPasses = 3;  // 13 + 11 + 11 bits cover 30
 constexpr int kTransLayouts = (kTransMaxBits - 1) / 2;  // tile bits 2.. in 2s
 constexpr int kTransSlots = 2 + 2 * kTransLayouts;
 // A thread's accumulators, and a block's partial, in this order: T01 and
@@ -1668,26 +1668,24 @@ int launch_axis_apply(const float* x_re, const float* x_im,
 }
 
 
-// Fills `plan` for B states of n qubits: tiles of at most tile_bits bits,
-// the first the lowest bits, each later one its `run` lowest bits (at
-// least min_run) and up to tile_bits - run bits not yet taken.  For each
-// state-index bit, the pass, the slot and the margin that compute its
-// qubit.  False for arguments out of range.
-bool plan_transitions(int n, long long B, int tile_bits, int min_run,
-                      TransPlan* plan, int* pass_of_bit, int* slot_of_bit,
-                      int* margin_of_bit) {
-  if (n < 2 || n > kTransMaxStateBits || B < 1 || tile_bits < 4 ||
-      tile_bits > kTransMaxBits || min_run < 2 || min_run >= tile_bits) {
-    return false;
-  }
+// Fills `plan` for B states of n qubits: tiles of at most kTransMaxBits
+// bits, the first the lowest bits, each later one its `run` lowest bits (at
+// least kTransMinRun) and up to kTransMaxBits - run bits not yet taken: one
+// pass to 13 qubits, two to 24, three to 30.  For each state-index bit, the
+// pass, the slot and the margin that compute its qubit.  False for
+// arguments out of range.
+bool plan_transitions(int n, long long B, TransPlan* plan, int* pass_of_bit,
+                      int* slot_of_bit, int* margin_of_bit) {
+  if (n < 2 || n > kTransMaxStateBits || B < 1) return false;
   plan->n = n;
   plan->passes = 0;
   for (int covered = 0; covered < n;) {  // bits below `covered` are taken
     if (plan->passes == kTransMaxPasses) return false;
     TransPass& ps = plan->pass[plan->passes];
-    const int room = covered == 0 ? tile_bits : tile_bits - min_run;
+    const int room = covered == 0 ? kTransMaxBits
+                                  : kTransMaxBits - kTransMinRun;
     const int fresh = n - covered < room ? n - covered : room;
-    const int run = covered == 0 ? 0 : tile_bits - fresh;
+    const int run = covered == 0 ? 0 : kTransMaxBits - fresh;
     ps.bits = run + fresh;
     for (int t = 0; t < ps.bits; ++t) {
       ps.tile_bit[t] = t < run ? t : covered + t - run;
@@ -1784,8 +1782,8 @@ int qhbm_qubit_transitions(const float* l_re, const float* l_im,
   int slot_of_bit[kTransMaxStateBits];
   int margin_of_bit[kTransMaxStateBits];
   if (count < 1 || count > kTransMaxQubits || max_blocks < 1 ||
-      !plan_transitions(n, B, kTransMaxBits, kTransMinRun, &plan,
-                        pass_of_bit, slot_of_bit, margin_of_bit)) {
+      !plan_transitions(n, B, &plan, pass_of_bit, slot_of_bit,
+                        margin_of_bit)) {
     return (int)cudaErrorInvalidValue;
   }
   TransPick pick;

@@ -110,8 +110,8 @@ def qubit_transitions(l_re, l_im, a_re, a_im,
   float32 [B, R, C] planes (l_re, l_im) and (a_re, a_im): [Q, 2, 2, 2]
   (qubit, re/im, i, j), T_q[i, j] = sum_{x: x_q = 0} conj(l[x ^ i e_q])
   a[x ^ j e_q].  On the card, every qubit in one launch for states of 2 to
-  30 qubits; each pass of the kernel reads the planes once, two passes at
-  14 to 24 qubits."""
+  30 qubits; each pass of the kernel reads the planes once: one pass to 13
+  qubits, two to 24, three to 30."""
   if l_re.device.type == "cpu":
     return qubit_transitions_plain(l_re, l_im, a_re, a_im, qubits)
   if l_re.device.type != "cuda":

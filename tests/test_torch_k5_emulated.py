@@ -8,11 +8,12 @@ against the stand-in runtime of `test_torch_k1_emulated.py` (a std::thread
 per CUDA thread, `__syncthreads` a barrier, cp.async a copy) and run block
 by block on planes whose values are a hash of (plane, index), so numpy
 computes the same float32 inputs.  Each pass is cut to its first few tiles
-at the 24- and 20-qubit views (every tile at the small ones), and each
-qubit's 2x2 transition is held against float64 numpy over the amplitudes
-of the tiles that its pass ran: that checks the plan (which bits each pass
-tiles, in how many passes), the tiles' origins and offsets, the layouts'
-pairings, the partials and their sum.
+at the 24-, 25- and 20-qubit views (every tile at the small ones), and
+each qubit's 2x2 transition is held against float64 numpy over the
+amplitudes of the tiles that its pass ran: that checks the plan (which bits
+each pass tiles, in how many passes), the tiles' origins and offsets, the
+layouts' pairings, the partials and their sum.  The planner alone is
+checked at every state size it takes.
 """
 
 import json
@@ -27,10 +28,12 @@ from tests.test_torch_k1_emulated import EMU_CUDA_H, SOURCE, emulable
 DRIVER_CC = r'''// Runs qubit_transitions_kernel and transitions_finish_kernel from a
 // preprocessed copy of qhbmlib_tpu_torch/csrc/statevector_kernels.cu
 // (included as KERNEL_SOURCE) on the CPU, block by block, for every qubit
-// of B states of n qubits, each pass cut to its first `cut` tiles (0: all):
-//   k5_driver n B tile_bits min_run cut grid
+// of B states of n qubits, each pass cut to its first `cut` tiles (0: all),
+// on `grid` blocks (0: the plan alone, no kernel run):
+//   k5_driver n B cut grid
 // Prints one JSON line: each pass's tile bits, tiles and layouts, and the
-// transitions [n, 2, 2, 2].
+// transitions [n, 2, 2, 2] (none for the plan alone).  Exits 3 where the
+// planner refuses n.
 #include <barrier>
 #include <cstdint>
 #include <cstdio>
@@ -59,19 +62,12 @@ static float value(uint32_t plane, uint32_t i) {
   return (float)((h >> 8) & 0xffffu) / 32768.0f - 1.0f;
 }
 
-int main(int argc, char** argv) {
-  if (argc != 7) return 2;
-  const int n = atoi(argv[1]), B = atoi(argv[2]);
-  const int tile_bits = atoi(argv[3]), min_run = atoi(argv[4]);
-  const long long cut = atoll(argv[5]);
-  int grid = atoi(argv[6]);
-  TransPlan plan;
-  int pass_of_bit[kTransMaxStateBits], slot_of_bit[kTransMaxStateBits];
-  int margin_of_bit[kTransMaxStateBits];
-  if (!plan_transitions(n, B, tile_bits, min_run, &plan, pass_of_bit,
-                        slot_of_bit, margin_of_bit)) {
-    return 3;
-  }
+// Runs the kernels block by block on `grid` blocks, each pass cut to its
+// first `cut` tiles (0: all); returns the transitions of every qubit.
+static std::vector<float> run(int n, int B, long long cut, int grid,
+                              TransPlan& plan, const int* pass_of_bit,
+                              const int* slot_of_bit,
+                              const int* margin_of_bit) {
   long long most = 0;
   for (int p = 0; p < plan.passes; ++p) {
     if (cut > 0 && plan.pass[p].tiles > cut) plan.pass[p].tiles = cut;
@@ -118,6 +114,25 @@ int main(int argc, char** argv) {
     blockIdx = dim3(0);
     transitions_finish_kernel(partial.data(), grid, pick, out.data());
   }
+  return out;
+}
+
+int main(int argc, char** argv) {
+  if (argc != 5) return 2;
+  const int n = atoi(argv[1]), B = atoi(argv[2]);
+  const long long cut = atoll(argv[3]);
+  const int grid = atoi(argv[4]);
+  TransPlan plan;
+  int pass_of_bit[kTransMaxStateBits], slot_of_bit[kTransMaxStateBits];
+  int margin_of_bit[kTransMaxStateBits];
+  if (!plan_transitions(n, B, &plan, pass_of_bit, slot_of_bit,
+                        margin_of_bit)) {
+    return 3;
+  }
+  std::vector<float> out;
+  if (grid > 0) {
+    out = run(n, B, cut, grid, plan, pass_of_bit, slot_of_bit, margin_of_bit);
+  }
   printf("{\"passes\": [");
   for (int p = 0; p < plan.passes; ++p) {
     const TransPass& ps = plan.pass[p];
@@ -130,7 +145,9 @@ int main(int argc, char** argv) {
     printf("]}");
   }
   printf("], \"out\": [");
-  for (int i = 0; i < 8 * n; ++i) printf("%s%.9e", i ? ", " : "", out[i]);
+  for (size_t i = 0; i < out.size(); ++i) {
+    printf("%s%.9e", i ? ", " : "", out[i]);
+  }
   printf("]}\n");
   return 0;
 }
@@ -198,46 +215,74 @@ def driver(tmp_path_factory):
   return exe
 
 
-# (n, B, tile bits, min run, tiles a pass (0: all), blocks, passes).  The
-# 24q and 20q views are the main path's (tile bits 13, min run 2, as
-# qhbm_qubit_transitions plans), cut to a few tiles; then the planner's
-# other settings (three passes), a batch over several tiles a state, a
-# single pass, and a tile padded with zeros.
+# (n, B, tiles a pass (0: all), blocks, passes).  The 24q and 20q views are
+# the main path's, cut to a few tiles; the 25q view is the three-pass plan
+# of 25 to 30 qubits; then a batch over several tiles a state, a single
+# pass, and a tile padded with zeros.
 VIEWS = {
-    "24q: two passes, the second in 16-byte runs": (24, 1, 13, 2, 3, 2, 2),
-    "20q B=2: two passes, the second in 256-byte runs": (20, 2, 13, 2, 3, 2,
-                                                          2),
-    "24q, tiles of 12 bits: three passes": (24, 1, 12, 2, 2, 2, 3),
-    "24q, runs of at least 8 floats: three passes": (24, 1, 13, 3, 2, 1, 3),
-    "14q B=3, every tile": (14, 3, 13, 2, 0, 4, 2),
-    "9q B=2, one 9-bit pass": (9, 2, 13, 2, 0, 2, 1),
-    "3q B=2, one tile padded with zeros": (3, 2, 13, 2, 0, 1, 1),
+    "24q: two passes, the second in 16-byte runs": (24, 1, 3, 2, 2),
+    "20q B=2: two passes, the second in 256-byte runs": (20, 2, 3, 2, 2),
+    "25q: three passes, the third in 16-KB runs": (25, 1, 2, 2, 3),
+    "14q B=3, every tile": (14, 3, 0, 4, 2),
+    "9q B=2, one 9-bit pass": (9, 2, 0, 2, 1),
+    "3q B=2, one tile padded with zeros": (3, 2, 0, 1, 1),
 }
+TILE_BITS = 13  # kTransMaxBits: 2^13 amplitudes of four planes, 128 KB
+MIN_RUN = 2  # kTransMinRun: low bits each pass after the first keeps
+
+
+def _check_plan(n, passes):
+  """Every bit in some pass's tile, each pass's tile at most TILE_BITS bits
+  with bits 0 and 1 in it, each later pass its lowest MIN_RUN or more bits
+  and then bits no earlier pass took, and layouts that cover the float4
+  index bits of a half-tile, none with two bits below 4 in a full tile
+  (the conflict-free rule of `trans_swizzle`)."""
+  taken = set()
+  for p in passes:
+    bits, width = p["bits"], len(p["bits"])
+    fresh = [b for b in bits if b not in taken]
+    run = width - len(fresh)
+    assert width <= TILE_BITS and bits[:2] == [0, 1]
+    assert bits[:run] == list(range(run)) and (not taken or run >= MIN_RUN)
+    assert fresh == list(range(len(taken), len(taken) + len(fresh)))
+    taken |= set(fresh)
+    covered = {j for pair in p["layouts"] for j in pair}
+    assert covered == set(range(max(width, 5) - 2))
+    if width == TILE_BITS:
+      assert all(min(pair) >= 4 or max(pair) >= 4 for pair in p["layouts"])
+  assert taken == set(range(n))
 
 
 @pytest.mark.parametrize("view", list(VIEWS))
 def test_k5_source_matches_float64(driver, view):
   """Within 1e-6 relative L2 of float64 numpy (the card's gate against the
   plain version is 1e-4; float32 sums of a few thousand products here), in
-  the expected number of passes (HBM reads of the planes), every bit in a
-  pass's tile, and no layout with two float4-index bits below 4 in a full
-  tile (the conflict-free rule of `trans_swizzle`)."""
-  n, b, tile_bits, min_run, cut, grid, passes = VIEWS[view]
-  out = subprocess.run([str(driver), *map(str, (n, b, tile_bits, min_run,
-                                                cut, grid))],
+  the expected number of passes (HBM reads of the planes), on a plan that
+  `_check_plan` accepts."""
+  n, b, cut, grid, passes = VIEWS[view]
+  out = subprocess.run([str(driver), *map(str, (n, b, cut, grid))],
                        capture_output=True, text=True, check=True,
                        timeout=600).stdout
   got = json.loads(out)
   assert len(got["passes"]) == passes
-  assert set().union(*(p["bits"] for p in got["passes"])) == set(range(n))
-  for p in got["passes"]:
-    width = len(p["bits"])
-    assert width <= tile_bits and p["bits"][:2] == [0, 1]
-    covered = {j for pair in p["layouts"] for j in pair}
-    assert covered == set(range(max(width, 5) - 2))
-    if width == 13:
-      assert all(min(pair) >= 4 or max(pair) >= 4 for pair in p["layouts"])
+  _check_plan(n, got["passes"])
   expected = _reference(n, got["passes"])
   result = np.array(got["out"]).reshape(n, 2, 2, 2)
   err = np.linalg.norm(result - expected) / np.linalg.norm(expected)
   assert err < 1e-6, (err, view)
+
+
+def test_k5_plan_at_every_state_size(driver):
+  """The planner alone at 2 to 30 qubits: one pass (one read of the
+  planes) to 13 qubits, two to 24, three to 30, each plan as
+  `_check_plan` wants; 1 and 31 qubits refused."""
+  for n in range(2, 31):
+    out = subprocess.run([str(driver), str(n), "64", "0", "0"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout
+    passes = json.loads(out)["passes"]
+    assert len(passes) == 1 + (n > TILE_BITS) + (n > 24), n
+    _check_plan(n, passes)
+  for n in (1, 31):
+    assert subprocess.run([str(driver), str(n), "1", "0", "0"],
+                          capture_output=True, timeout=60).returncode == 3
