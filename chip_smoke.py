@@ -4,24 +4,27 @@
 
 Builds the CUDA kernels of `qhbmlib_tpu_torch/csrc/` with nvcc (one
 process per source, in parallel) and holds each of the eight against its
-plain PyTorch version: `axis_apply`, `diag_rotate`, `parity_bilinear` at
-the 20-qubit shapes; `axis2_apply` (K1) at the 24- and 20-qubit pass
-shapes; `qubit_transitions` (K5's 1q reductions) at 24 and 20 qubits,
-B = 8; `circuit_forward` (K3) and `adjoint_sweep` (K2) at 20q/4L for one
-random state; `stream_scale` (K6) on the 24-qubit plane
-at each tile size.  Each kernel is timed beside its plain version, the one
-PyTorch call that computes the same function where there is one
-(`library_ms`), and its bound: the larger of its bytes over 3.35 TB/s and
-its float32 operations over 67 TFLOP/s (H100 SXM), counted from the
-shapes it ran on.  Then it holds the batched forward and sweep against
-their plain versions and the 9-qubit VQT loss and single-state
-`adjoint.expectation` against the CPU, and drives the main paths, each
-with every launch count reset just before it and read just after: the
-port's bench (`qhbmlib_tpu_torch.bench`: a warm-up and three timed VQT
-train steps at 24q/2L/100/8 and at 20q/4L/500/64, the precision gate, the
-24q forward <H> against the f64 oracle, PauliSum expectations/s at 20q,
-the HBM stream probe) and three single-state value-and-gradient calls at
-20q/4L.  It fails if the gate's gradient error reaches 1e-2 or the
+plain PyTorch version: `axis_apply` (K4) on the three passes of a 20-qubit
+1q segment, at the 20q train step's own shape (B = 64, the lone row block
+(7,6)), on the minor operator alone and on 16q's lone block (7,2);
+`diag_rotate`, `parity_bilinear` at the 20-qubit shapes; `axis2_apply`
+(K1) at the 24- and 20-qubit pass shapes; `qubit_transitions` (K5's 1q
+reductions) at 24 and 20 qubits, B = 8 and 64; `circuit_forward` (K3) and
+`adjoint_sweep` (K2) at 20q/4L for one random state; `stream_scale` (K6)
+on the 24-qubit plane at each tile size.  Each kernel is timed beside its
+plain version, the one PyTorch call that computes the same function where
+there is one (`library_ms`), and its bound: the larger of its bytes over
+3.35 TB/s and its float32 operations over 67 TFLOP/s (H100 SXM), or three
+times them over 495 TFLOP/s for the contractions on the tensor cores in
+3xTF32, counted from the shapes it ran on.  Then it holds the batched
+forward and sweep against their plain versions and the 9-qubit VQT loss
+and single-state `adjoint.expectation` against the CPU, and drives the
+main paths, each with every launch count reset just before it and read
+just after: the port's bench (`qhbmlib_tpu_torch.bench`: a warm-up and
+three timed VQT train steps at 24q/2L/100/8 and at 20q/4L/500/64, the
+precision gate, the 24q forward <H> against the f64 oracle, PauliSum
+expectations/s at 20q, the HBM stream probe) and three single-state
+value-and-gradient calls at 20q/4L.  It fails if the gate's gradient error reaches 1e-2 or the
 forward <H> is more than 1e-4 from the oracle.  Before the last line it
 prints a JSON line {"kernels": [...]} with each kernel's launches on the
 main paths, its error against the plain version, its times and its bound;
@@ -149,26 +152,10 @@ def phase_kernels(device):
   shapes = [((b << s, 2**k, 2**(N_QUBITS - s - k)), ops)
             for (s, k), ops in ops1q]
   report = {}
-
-  def apply_all(fn):
-    return [fn(x_re, x_im, ops[0], ops[1], *pnq) for pnq, ops in shapes]
-
-  got, ref = apply_all(hs.axis_apply), apply_all(hs.axis_apply_plain)
-  err = max(rel_err(torch.cat([g[0], g[1]]), torch.cat([f[0], f[1]]))
-            for g, f in zip(got, ref))
-  check("axis_apply (rowblock 0:7, rowblock 7:6, minor)", err, STATE_TOL)
-  # Per pass: a complex multiply-add (8 flops) per amplitude per row of the
-  # [N, N] operator; the state read and written once, the operator read.
+  report["axis_apply"] = check_axis_apply(
+      f"{N_QUBITS}q B={b}, three passes (rowblock 0:7, rowblock 7:6, minor)",
+      shapes, (x_re, x_im))
   x_c = torch.complex(x_re, x_im)
-  lib_ops = [(torch.complex(*ops), x_c.view(pnq)) for pnq, ops in shapes]
-  report["axis_apply"] = dict(
-      err=err, max_abs_err=max(max_abs(torch.cat(g), torch.cat(f))
-                               for g, f in zip(got, ref)),
-      ms=cuda_ms(lambda: apply_all(hs.axis_apply)),
-      plain_ms=cuda_ms(lambda: apply_all(hs.axis_apply_plain)),
-      library_ms=cuda_ms(lambda: [torch.matmul(o, v) for o, v in lib_ops]),
-      **bound(sum(8 * p * n * q * n for (p, n, q), _ in shapes),
-              sum(16 * p * n * q + 8 * n * n for (p, n, q), _ in shapes)))
 
   def rot(fn, states):
     fn(states, cos_t, sin_t, -1)
@@ -225,10 +212,89 @@ def phase_kernels(device):
       # (2 flops an entry) and a dot over R; four planes read once.
       **bound(4 * amps + 2 * r * c * k + 2 * r * k, 16 * amps + 4 * k))
   for name, rec in report.items():
+    if name == "axis_apply":
+      continue  # logged by check_axis_apply
     log(f"[kernels] {name}: kernel {rec['ms']:.4f} ms, plain "
         f"{rec['plain_ms']:.4f} ms, library {fmt_ms(rec['library_ms'])}, "
         f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), max abs err "
         f"{rec['max_abs_err']:.3e}")
+  return report
+
+
+def check_axis_apply(label, shapes, planes):
+  """axis_apply against its plain version on the [P, N, Q] views `shapes`
+  [((p, n, q), (op_re, op_im))] of the planes (re, im), one launch a view,
+  timed beside its plain version, one torch.matmul of the complex view a
+  view (`library_ms`) and its bounds; returns the record.  Operators of
+  N >= 16 contract on the tensor cores in 3xTF32, so where every view has
+  N >= 16 the bound is the 3xTF32 tensor bound, max(bytes / 3.35 TB/s,
+  3 * flops / 495 TFLOP/s), else the fp32-core one; the fp32-core bound
+  is logged beside it as `fp32_bound_ms`."""
+  from qhbmlib_tpu_torch.ops import hopper_sv as hs
+  x_re, x_im = planes
+
+  def apply_all(fn):
+    return [fn(x_re, x_im, op[0], op[1], *pnq) for pnq, op in shapes]
+
+  got, ref = apply_all(hs.axis_apply), apply_all(hs.axis_apply_plain)
+  err = max(rel_err(torch.cat(g), torch.cat(f)) for g, f in zip(got, ref))
+  check(f"axis_apply {label}", err, STATE_TOL)
+  abs_err = max(max_abs(torch.cat(g), torch.cat(f)) for g, f in zip(got, ref))
+  del got, ref
+  # Per view: a complex multiply-add (8 flops) per amplitude per row of the
+  # [N, N] operator; the state read and written once, the operator read.
+  flops = sum(8 * p * n * q * n for (p, n, q), _ in shapes)
+  nbytes = sum(16 * p * n * q + 8 * n * n for (p, n, q), _ in shapes)
+  tensor = all(n >= 16 for (_, n, _), _ in shapes)
+  x_c = torch.complex(x_re, x_im)
+  lib_ops = [(torch.complex(*op), x_c.view(pnq)) for pnq, op in shapes]
+  rec = dict(err=err, max_abs_err=abs_err,
+             ms=cuda_ms(lambda: apply_all(hs.axis_apply)),
+             plain_ms=cuda_ms(lambda: apply_all(hs.axis_apply_plain)),
+             library_ms=cuda_ms(lambda: [torch.matmul(o, v)
+                                         for o, v in lib_ops]),
+             **(bound(3 * flops, nbytes, PEAK_TF32_PER_S) if tensor
+                else bound(flops, nbytes)))
+  rec["fp32_bound_ms"] = bound(flops, nbytes)["bound_ms"]
+  log(f"[kernels] axis_apply {label}: kernel {rec['ms']:.4f} ms, plain "
+      f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, "
+      f"{'3xTF32 tensor' if tensor else 'fp32-core'} bound "
+      f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; share "
+      f"{rec['bound_ms'] / rec['ms']:.1%})"
+      + (f", fp32-core bound {rec['fp32_bound_ms']:.4f} ms" if tensor
+         else "") + f", max abs err {abs_err:.3e}")
+  return rec
+
+
+def phase_k4(device):
+  """axis_apply against its plain version at the 20q train step's own shape
+  (B = 64, the row block (7,6) that plan_passes leaves unpaired: P = 8192,
+  N = 64, Q = 128, 1 GiB of planes in and out), on the minor operator alone
+  (20q, B = BATCH: Q = 1, N = 128) and on 16q's lone row block (7,2)
+  (B = BATCH, N = 4: the FMA body); returns the 20q B = 64 record.  The
+  three-pass B = BATCH check runs in phase_kernels."""
+  from qhbmlib_tpu_torch import bench
+  from qhbmlib_tpu_torch.ops import statevector as sv
+  dgen = torch.Generator(device=device).manual_seed(SEED + 40)
+  batch_20q = bench.WORKLOADS["20q"]["max_unique"]
+  report = None
+  for n, b, lone in ((N_QUBITS, batch_20q, True), (N_QUBITS, BATCH, False),
+                     (16, BATCH, True)):
+    passes = first_segment_passes(n, device)
+    if lone:  # the row block plan_passes leaves unpaired
+      (s, k), op = next(p for p in passes if len(p) == 2)
+    else:  # the minor operator of the first pass
+      (s, k), op = next(p[2:] for p in passes if len(p) == 4)
+    r, c = sv.state_shape(n)
+    planes = tuple(torch.randn((b, r, c), generator=dgen, device=device)
+                   for _ in range(2))
+    view = (b << s, 2**k, 2**(n - s - k))
+    rec = check_axis_apply(
+        f"{n}q B={b}, {'lone row block' if lone else 'minor'} ({s},{k}): "
+        f"P={view[0]}, N={view[1]}, Q={view[2]}", [(view, op)], planes)
+    del planes
+    torch.cuda.empty_cache()
+    report = report or rec
   return report
 
 
@@ -774,9 +840,10 @@ def kernel_name(entry: str, source: str) -> str:
   for name in sorted(set(re.findall(r"\b([a-z]\w*_kernel)\b", source))):
     at = mangled.find(f"{len(name)}{name}")
     if at >= 0:
-      tmpl = re.match(r"ILi(\d+)", mangled[at + len(str(len(name))) +
-                                           len(name):])
-      return name + (f"<{tmpl.group(1)}>" if tmpl else "")
+      tmpl = re.match(r"I((?:Li\d+E)+)E", mangled[at + len(str(len(name))) +
+                                                  len(name):])
+      return name + (f"<{', '.join(re.findall(r'Li(\d+)E', tmpl.group(1)))}>"
+                     if tmpl else "")
   return mangled
 
 
@@ -820,6 +887,7 @@ def main() -> int:
         "spill stores")
 
   report = phase_kernels(device)
+  report["axis_apply"] = phase_k4(device)
   report["axis2_apply"] = phase_k1(device)
   report["qubit_transitions"] = phase_k5(device)
   report["circuit_forward"], report["adjoint_sweep"] = (

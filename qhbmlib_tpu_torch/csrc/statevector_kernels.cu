@@ -84,14 +84,15 @@ __device__ __forceinline__ TileIndex tile_index(int i, int N, int Q, int W,
 //
 // Bound: at N = 128 each amplitude costs 8*N = 1024 flop against 16 bytes
 // read and written, about 64 flop/B -- above the H100's fp32 CUDA-core ridge
-// (~67 TFLOP/s over 3.35 TB/s, ~20 flop/B).  So the kernel is bound by fp32
-// FMA issue and shared-memory operand traffic, not by device memory; a
-// TF32/wgmma version is the later fast path.  This one is a plain fp32 FMA
-// kernel: the operator (<= 128 KB as two planes) is staged once per
-// persistent block in shared memory, a tile of W columns is staged beside
-// it, each of 512 threads keeps an (N/16)x2 register tile of outputs,
-// operator reads are 16-byte warp broadcasts, and outputs go back through
-// shared memory so the stores are as coalesced as the loads.  At N = 128 the
+// (~67 TFLOP/s over 3.35 TB/s, ~20 flop/B).  So for N >= 16 axis_apply runs
+// on the tensor cores (axis_apply_mma_kernel, below K1); this fp32 FMA body
+// serves N < 16 (the lone row blocks of 15-17 qubits) and is the axis stage
+// of the cooperative whole-circuit kernels.  The operator (<= 128 KB as two
+// planes) is staged once per persistent block in shared memory, a tile of W
+// columns is staged beside it, each of 512 threads keeps an (N/16)x2
+// register tile of outputs, operator reads are 16-byte warp broadcasts, and
+// outputs go back through shared memory so the stores are as coalesced as
+// the loads.  At N = 128 the
 // shared memory (193 KB) admits one block per SM; 512 threads rather than
 // 256 give each scheduler four warps to hide shared-memory latency.
 constexpr int kApplyThreads = 512;
@@ -561,8 +562,24 @@ constexpr int kAxis2WarpRows = 32;  // a warp's output tile (N >= 32)
 constexpr int kAxis2WarpCols = 32;
 constexpr int kPanel = 32;      // operator columns (k) staged per panel
 constexpr int kPanelLd = kPanel + 4;          // padded panel row
-constexpr int kPanelPlane = 128 * kPanelLd;   // floats of one panel plane
-constexpr size_t kPanelSmem = 2 * 2 * kPanelPlane * sizeof(float);
+
+// A block that runs slab contractions (slab_mma_apply): its threads, its
+// warp tiles' width, and where the operator comes from.  Streamed
+// (RESIDENT false): [ROWS, kPanel] panels of the operator copied by
+// cp.async into two buffers of a re and an im plane, rows kPanelLd floats
+// apart.  Resident: the whole [ROWS, ROWS] operator, split once into four
+// TF32 planes (big re, small re, big im, small im), rows ROWS + 4 apart.
+// Either way four planes of kPlane floats.
+template <int THREADS, int ROWS, int WARP_COLS, bool RESIDENT>
+struct SlabBlock {
+  static constexpr int kThreads = THREADS;
+  static constexpr int kWarpCols = WARP_COLS;
+  static constexpr bool kResident = RESIDENT;
+  static constexpr int kLd = RESIDENT ? ROWS + 4 : kPanelLd;
+  static constexpr int kPlane = ROWS * kLd;
+  static constexpr size_t kPanelSmem = 4 * kPlane * sizeof(float);
+};
+using Axis2Block = SlabBlock<kAxis2Threads, 128, kAxis2WarpCols, false>;
 
 // Bits 2-4 of slab row i's XOR: i's bits 0 and 1 to bits 3 and 4, bit 2
 // kept.  The N1 contraction's fragment (thread g, t: column g, element t)
@@ -658,11 +675,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Starts copying columns [p0, p0 + width) of the split-complex [N, N]
-// operator (N = 2^log_n; width = min(N, kPanel)) into a panel buffer: the
-// re plane, then the im plane kPanelPlane floats on, rows kPanelLd floats
-// apart.  16-byte copies where both planes are 16-byte aligned, else 4-byte
-// ones.  One body for every N (shifts, no template): a call per panel
-// inside the MMA loop stays inline.
+// operator (N = 2^log_n; width = min(N, kPanel)) into a panel buffer of
+// Block: the re plane, then the im plane Block::kPlane floats on, rows
+// kPanelLd floats apart.  16-byte copies where both planes are 16-byte
+// aligned, else 4-byte ones.  One body for every N (shifts, no N
+// template): a call per panel inside the MMA loop stays inline.
+template <class Block = Axis2Block>
 __device__ __forceinline__ void issue_panel(const float* op_re,
                                             const float* op_im, int log_n,
                                             int p0, float* dst) {
@@ -674,12 +692,12 @@ __device__ __forceinline__ void issue_panel(const float* op_re,
   const int log_run = vec ? 2 : 0;         // floats a copy
   const int log_row = log_width - log_run;  // copies a row
   const int copies = 2 << (log_n + log_row);
-  for (int e = threadIdx.x; e < copies; e += kAxis2Threads) {
+  for (int e = threadIdx.x; e < copies; e += Block::kThreads) {
     const int plane = e >> (log_n + log_row);
     const int rem = e & ((1 << (log_n + log_row)) - 1);
     const int m = rem >> log_row;
     const int j = (rem & ((1 << log_row) - 1)) << log_run;
-    float* d = dst + plane * kPanelPlane + m * kPanelLd + j;
+    float* d = dst + plane * Block::kPlane + m * Block::kLd + j;
     const float* src = (plane ? op_im : op_re) + (m << log_n) + p0 + j;
     if (vec) {
       cp_async_16(d, src);
@@ -689,6 +707,12 @@ __device__ __forceinline__ void issue_panel(const float* op_re,
   }
 }
 
+// What slab_mma_apply calls before each step's cp.async commit (step, of
+// steps): nothing, for K1.
+struct NoHook {
+  __device__ __forceinline__ void operator()(int, int) const {}
+};
+
 // The operator whose first panel a contraction copies during its last one
 // (k = log2 N; 0: none).
 struct NextOp {
@@ -697,8 +721,9 @@ struct NextOp {
   const float* im;
 };
 
+template <class Block = Axis2Block>
 __device__ __forceinline__ void issue_next(NextOp next, float* dst) {
-  if (next.k > 0) issue_panel(next.re, next.im, next.k, 0, dst);
+  if (next.k > 0) issue_panel<Block>(next.re, next.im, next.k, 0, dst);
 }
 
 #define QHBM_LOG2_SWITCH(K, FN, ...)       \
@@ -750,29 +775,36 @@ __device__ __forceinline__ void mma_tf32_first(float* d, const unsigned* a,
 }
 
 // In place on the slab, N >= 16: every column v of `cols` is replaced by
-// Op v on the tensor cores (3xTF32).  On entry the operator's first panel
-// is in flight in panel buffer `buf`; on exit `next`'s first panel is, in
-// the buffer returned.  Each k-step of 8 is summed in fresh registers, the
+// Op v on the tensor cores (3xTF32).  Streamed (K1): on entry the
+// operator's first panel is in flight in panel buffer `buf`; on exit
+// `next`'s first panel is, in the buffer returned.  Resident (K4's
+// axis_apply, N <= 64): the split operator is in `panels`, nothing is
+// copied or waited for, `buf` is returned as it came.  `hook(step, steps)`
+// runs before each panel step's commit (streamed) or each chunk's
+// (resident), to put more copies in that group.  Each k-step of 8 is summed
+// in fresh registers, the
 // small cross terms first, and added to the fp32 totals with
 // round-to-nearest adds: the tensor cores truncate as they accumulate, and
 // one accumulator over all 16 k-steps (96 MMAs) was 3.4e-6 off the plain
 // version a pass on the H100, a shrink of the norm that adds up over a
 // circuit's passes (fresh sums: 3.5e-7, below the FMA version's 4.6e-7).
-template <int N, int AXIS>
+template <int N, int AXIS, class Block = Axis2Block, class Hook = NoHook>
 __device__ __forceinline__ int slab_mma_apply(float* s_re, float* s_im,
                                               const float* __restrict__ op_re,
                                               const float* __restrict__ op_im,
                                               int cols, int L, int log_w,
                                               float* panels, int buf,
-                                              NextOp next) {
+                                              NextOp next, Hook hook = {}) {
   constexpr int kLogN = N == 16 ? 4 : N == 32 ? 5 : N == 64 ? 6 : 7;
   constexpr int kMT = (N < kAxis2WarpRows ? N : kAxis2WarpRows) / 16;
-  constexpr int kNT = kAxis2WarpCols / 8;
+  constexpr int kNT = Block::kWarpCols / 8;
   constexpr int kWarpsM = N / (16 * kMT);
-  constexpr int kWarpsN = kAxis2Threads / 32 / kWarpsM;
+  constexpr int kWarpsN = Block::kThreads / 32 / kWarpsM;
   constexpr int kChunk = kWarpsN * kNT * 8;  // columns a block tile
-  constexpr int kWidth = N < kPanel ? N : kPanel;
+  constexpr bool kResident = Block::kResident;
+  constexpr int kWidth = kResident ? N : N < kPanel ? N : kPanel;
   constexpr int kPanels = N / kWidth;
+  constexpr int kUnroll = kResident ? 1 : kWidth / 8;  // k-steps unrolled
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
@@ -797,32 +829,45 @@ __device__ __forceinline__ int slab_mma_apply(float* s_re, float* s_im,
     }
 #pragma unroll 1
     for (int p = 0; p < kPanels; ++p) {
-      float* nxt = panels + (buf ^ 1) * 2 * kPanelPlane;
-      if (p + 1 < kPanels) {
-        issue_panel(op_re, op_im, kLogN, (p + 1) * kWidth, nxt);
-      } else if (ch + 1 < chunks) {
-        issue_panel(op_re, op_im, kLogN, 0, nxt);
-      } else {
-        issue_next(next, nxt);
+      if constexpr (!kResident) {
+        float* nxt = panels + (buf ^ 1) * 2 * Block::kPlane;
+        if (p + 1 < kPanels) {
+          issue_panel<Block>(op_re, op_im, kLogN, (p + 1) * kWidth, nxt);
+        } else if (ch + 1 < chunks) {
+          issue_panel<Block>(op_re, op_im, kLogN, 0, nxt);
+        } else {
+          issue_next<Block>(next, nxt);
+        }
       }
+      hook(ch * kPanels + p, chunks * kPanels);
       cp_async_commit();
-      cp_async_wait_prior();
-      __syncthreads();  // panel p has landed; earlier slab writes are seen
-      const float* pr = panels + buf * 2 * kPanelPlane;
-      const float* pi = pr + kPanelPlane;
-#pragma unroll
+      if constexpr (!kResident) {
+        cp_async_wait_prior();
+        __syncthreads();  // panel p has landed; earlier slab writes are seen
+      }
+      const float* pr = panels + buf * 2 * Block::kPlane;
+      const float* pi = pr + Block::kPlane;
+#pragma unroll (kUnroll)
       for (int ks = 0; ks < kWidth; ks += 8) {
         const int kb = p * kWidth + ks;  // the k-step's first element
         unsigned arb[kMT][4], ars[kMT][4], aib[kMT][4], ais[kMT][4];
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt) {
-          const int a = (row0 + mt * 16 + g) * kPanelLd + ks + t;
-          const int a_off[4] = {a, a + 8 * kPanelLd, a + 4,
-                                a + 8 * kPanelLd + 4};
+          const int a = (row0 + mt * 16 + g) * Block::kLd + ks + t;
+          const int a_off[4] = {a, a + 8 * Block::kLd, a + 4,
+                                a + 8 * Block::kLd + 4};
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
-            split_tf32(pr[a_off[r]], arb[mt][r], ars[mt][r]);
-            split_tf32(pi[a_off[r]], aib[mt][r], ais[mt][r]);
+            if constexpr (kResident) {
+              const unsigned* split = reinterpret_cast<const unsigned*>(panels);
+              arb[mt][r] = split[a_off[r]];
+              ars[mt][r] = split[Block::kPlane + a_off[r]];
+              aib[mt][r] = split[2 * Block::kPlane + a_off[r]];
+              ais[mt][r] = split[3 * Block::kPlane + a_off[r]];
+            } else {
+              split_tf32(pr[a_off[r]], arb[mt][r], ars[mt][r]);
+              split_tf32(pi[a_off[r]], aib[mt][r], ais[mt][r]);
+            }
           }
         }
 #pragma unroll
@@ -866,7 +911,7 @@ __device__ __forceinline__ int slab_mma_apply(float* s_re, float* s_im,
         }
       }
       __syncthreads();  // panel p is read (the last: so are the columns)
-      buf ^= 1;
+      if constexpr (!kResident) buf ^= 1;
     }
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt) {
@@ -896,12 +941,12 @@ __device__ __forceinline__ int slab_fma_apply(float* s_re, float* s_im,
                                               int cols, int L, int log_w,
                                               float* panels, int buf,
                                               NextOp next) {
-  issue_next(next, panels + (buf ^ 1) * 2 * kPanelPlane);
+  issue_next(next, panels + (buf ^ 1) * 2 * Axis2Block::kPlane);
   cp_async_commit();
   cp_async_wait_prior();
   __syncthreads();  // the operator has landed; earlier slab writes are seen
-  const float* pr = panels + buf * 2 * kPanelPlane;
-  const float* pi = pr + kPanelPlane;
+  const float* pr = panels + buf * 2 * Axis2Block::kPlane;
+  const float* pi = pr + Axis2Block::kPlane;
   for (int c = threadIdx.x; c < cols; c += kAxis2Threads) {
     float xr[N], xi[N];
 #pragma unroll
@@ -1029,6 +1074,177 @@ __global__ void __launch_bounds__(kAxis2Threads)
     for (int e = threadIdx.x * step; e < n1 << log_l;
          e += kAxis2Threads * step) {
       const long long off = state_at(e);
+      const int s = slab_of(e);
+      if (vec) {
+        *reinterpret_cast<float4*>(y_re + off) =
+            *reinterpret_cast<const float4*>(s_re + s);
+        *reinterpret_cast<float4*>(y_im + off) =
+            *reinterpret_cast<const float4*>(s_im + s);
+      } else {
+        y_re[off] = s_re[s];
+        y_im[off] = s_im[s];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// axis_apply_mma: axis_apply for N >= 16, on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// Replaces, as axis_apply does for N < 16, the row-block and minor
+// split-complex dots of K4 (qhbmlib_tpu/ops/pallas_sv.py:459
+// `apply_circuit_pallas_batched`: `_apply_rowblock`, called from
+// `_make_batched_kernel`) and K5's un-applies, for operators of N >= 16:
+// at 20 qubits the row block (7,6) that hopper_sv.plan_passes leaves
+// unpaired, in the forward and on both states of every un-apply.
+//
+// Bound: 8 * N flop per amplitude against 16 bytes, 512 at N = 64: past the
+// fp32 ridge (~20 flop/B), where the FMA kernel was bound by operations.  In
+// 3xTF32 on the tensor cores (K1's slab_mma_apply: the same split rule,
+// fresh sums a k-step and swizzle) they take 3 * flops / 495 TFLOP/s, 0.21
+// ms at the 20q step's shape against 0.32 ms of bytes: the bytes bound it,
+// if the state stream does not stop while the tensor cores work, and if
+// the contraction's own overheads shrink.  Hence (the design runs in
+// PERF.md, section 6):
+//   - two slab buffers: slab s + 1 is copied while slab s is contracted;
+//   - for N <= 64 the operator is resident: split once a block into four
+//     TF32 planes (68 KB at N = 64), no panel stream, no barrier inside a
+//     chunk's k-loop and no split of A in the loop.  At N = 128 the split
+//     operator would take 264 KB: it streams in panels as in K1, and the
+//     next slab's copy goes out in parts, one a panel step (a copy issued
+//     ahead of the panel groups would hold up their waits);
+//   - 16 warps in 32 x 16 warp tiles, <= 128 registers a thread.
+// A slab is 2^13 amplitudes, L = 2^13 / N consecutive columns c = p * Q + q
+// of the [P, N, Q] view: a run of one p's q when Q >= L, whole p's when
+// Q < L.  It comes in by cp.async in 16-byte runs and goes back as float4s,
+// in one of K1's two layouts:
+//   AXIS 1 (Q >= 4): row n holds the slab's L columns (the state's q-runs),
+//     contracted at stride L;
+//   AXIS 2 (Q = 1, 2; the minor operator at Q = 1): row i holds p0 + i's
+//     N * Q floats as they lie in the state, contracted at stride Q.
+// Shared memory: two slabs (128 KB) and the operator (68 KB resident at
+// N = 64, 72 KB of panel buffers at N = 128): one block an SM.
+constexpr int kAxisMmaThreads = 512;
+constexpr int kAxisMmaWarpCols = 16;
+constexpr int kLogAxisSlab = 13;  // amplitudes a slab
+
+template <int N>
+struct AxisMma {
+  static constexpr int kLogN = N == 16 ? 4 : N == 32 ? 5 : N == 64 ? 6 : 7;
+  static constexpr int kLogL = kLogAxisSlab - kLogN;  // columns a slab
+  using Block = SlabBlock<kAxisMmaThreads, N, kAxisMmaWarpCols, N <= 64>;
+  static constexpr size_t kSmem =
+      (4 << kLogAxisSlab) * sizeof(float) + Block::kPanelSmem;
+};
+
+template <int N, int AXIS>
+__global__ void __launch_bounds__(kAxisMmaThreads)
+    axis_apply_mma_kernel(const float* __restrict__ x_re,
+                          const float* __restrict__ x_im,
+                          const float* __restrict__ op_re,
+                          const float* __restrict__ op_im,
+                          float* __restrict__ y_re, float* __restrict__ y_im,
+                          long long cols, int log_q) {
+  using A = AxisMma<N>;
+  using Block = typename A::Block;
+  constexpr int L = 1 << A::kLogL;
+  constexpr int S = 1 << kLogAxisSlab;
+  extern __shared__ float smem[];  // slab buffers [2][re, im][S], operator
+  float* panels = smem + 4 * S;
+  // Floats a slab row: AXIS 1, the L columns of one n; AXIS 2, one p.
+  const int log_row = AXIS == 1 ? A::kLogL : A::kLogN + log_q;
+  const long long slabs = (cols + L - 1) >> A::kLogL;
+  const bool vec = ((reinterpret_cast<unsigned long long>(x_re) |
+                     reinterpret_cast<unsigned long long>(x_im) |
+                     reinterpret_cast<unsigned long long>(y_re) |
+                     reinterpret_cast<unsigned long long>(y_im)) &
+                    15) == 0;
+  const int step = vec ? 4 : 1;
+  // Element e of slab `slab` (row e >> log_row): its valid columns, whether
+  // e lies in one, its offset in the state (AXIS 1: e = n * L + c, column
+  // col0 + c = p * Q + q at (p * N + n) * Q + q; AXIS 2: the slab is the
+  // state's run from p0 * N * Q on) and in a slab buffer.
+  auto valid_of = [&](long long slab) {
+    const long long rest = cols - (slab << A::kLogL);
+    return rest < L ? (int)rest : L;
+  };
+  auto in_view = [&](int e, int valid) {
+    return AXIS == 1 ? (e & (L - 1)) < valid : e < valid << A::kLogN;
+  };
+  auto state_at = [&](long long slab, int e) -> long long {
+    const long long col0 = slab << A::kLogL;
+    if constexpr (AXIS == 1) {
+      const long long col = col0 + (e & (L - 1));
+      return ((((col >> log_q) << A::kLogN) + (e >> A::kLogL)) << log_q) |
+             (col & ((1 << log_q) - 1));
+    } else {
+      return (col0 << A::kLogN) + e;
+    }
+  };
+  auto slab_of = [&](int e) {
+    return slab_at<1>(e >> log_row, e & ((1 << log_row) - 1), 1 << log_row,
+                      0);
+  };
+  // Starts copying elements [e0, e1) of slab `slab` into slab buffer b.
+  auto issue_slab = [&](long long slab, int b, int e0, int e1) {
+    const int valid = valid_of(slab);
+    float* d_re = smem + b * 2 * S;
+    float* d_im = d_re + S;
+    for (int e = e0 + threadIdx.x * step; e < e1;
+         e += kAxisMmaThreads * step) {
+      if (!in_view(e, valid)) continue;
+      const long long off = state_at(slab, e);
+      const int s = slab_of(e);
+      if (vec) {
+        cp_async_16(d_re + s, x_re + off);
+        cp_async_16(d_im + s, x_im + off);
+      } else {
+        d_re[s] = x_re[off];
+        d_im[s] = x_im[off];
+      }
+    }
+  };
+  if constexpr (Block::kResident) {
+    unsigned* split = reinterpret_cast<unsigned*>(panels);
+    for (int i = threadIdx.x; i < N * N; i += kAxisMmaThreads) {
+      const int o = (i >> A::kLogN) * Block::kLd + (i & (N - 1));
+      split_tf32(op_re[i], split[o], split[Block::kPlane + o]);
+      split_tf32(op_im[i], split[2 * Block::kPlane + o],
+                 split[3 * Block::kPlane + o]);
+    }
+  } else if (blockIdx.x < slabs) {
+    issue_panel<Block>(op_re, op_im, A::kLogN, 0, panels);
+  }
+  if (blockIdx.x < slabs) {
+    issue_slab(blockIdx.x, 0, 0, S);
+    cp_async_commit();
+  }
+  int buf = 0;
+  int cur = 0;  // the slab buffer of `slab`
+  for (long long slab = blockIdx.x; slab < slabs;
+       slab += gridDim.x, cur ^= 1) {
+    const long long nxt = slab + gridDim.x;
+    cp_async_wait_all();
+    __syncthreads();  // this slab has landed; the slab before is stored
+    // The next slab's copy, in parts, one a step of the contraction.
+    auto hook = [&](int k, int steps) {
+      if (nxt < slabs) {
+        issue_slab(nxt, cur ^ 1, S / 4 * k / steps * 4,
+                   S / 4 * (k + 1) / steps * 4);
+      }
+    };
+    const NextOp next = {nxt < slabs ? A::kLogN : 0, op_re, op_im};
+    const int valid = valid_of(slab);
+    float* s_re = smem + cur * 2 * S;
+    float* s_im = s_re + S;
+    buf = slab_mma_apply<N, AXIS, Block>(s_re, s_im, op_re, op_im, valid,
+                                         1 << log_row, log_q, panels, buf,
+                                         next, hook);
+    __syncthreads();  // every column is written back
+    for (int e = threadIdx.x * step; e < S; e += kAxisMmaThreads * step) {
+      if (!in_view(e, valid)) continue;
+      const long long off = state_at(slab, e);
       const int s = slab_of(e);
       if (vec) {
         *reinterpret_cast<float4*>(y_re + off) =
@@ -1656,14 +1872,34 @@ int persistent_grid(Kernel kernel, int threads, size_t smem, long long work) {
 template <int N>
 int launch_axis_apply(const float* x_re, const float* x_im,
                       const float* op_re, const float* op_im, float* y_re,
-                      float* y_im, long long cols, int Q,
+                      float* y_im, long long cols, int log_q,
                       cudaStream_t stream) {
   const size_t smem = axis_apply_smem<N>();
   auto kernel = axis_apply_kernel<N>;
   const int grid = persistent_grid(kernel, kApplyThreads, smem,
                                    (cols + kApplyW - 1) / kApplyW);
   kernel<<<grid, kApplyThreads, smem, stream>>>(x_re, x_im, op_re, op_im,
-                                                y_re, y_im, cols, Q);
+                                                y_re, y_im, cols, 1 << log_q);
+  return (int)cudaGetLastError();
+}
+
+// One block of up to 200 KB an SM: the shared-memory carveout is asked
+// for in full.
+template <int N>
+int launch_axis_apply_mma(const float* x_re, const float* x_im,
+                          const float* op_re, const float* op_im,
+                          float* y_re, float* y_im, long long cols,
+                          int log_q, cudaStream_t stream) {
+  auto kernel = log_q >= 2 ? axis_apply_mma_kernel<N, 1>
+                           : axis_apply_mma_kernel<N, 2>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxShared);
+  const int grid =
+      persistent_grid(kernel, kAxisMmaThreads, AxisMma<N>::kSmem,
+                      (cols + (1 << AxisMma<N>::kLogL) - 1) >>
+                          AxisMma<N>::kLogL);
+  kernel<<<grid, kAxisMmaThreads, AxisMma<N>::kSmem, stream>>>(
+      x_re, x_im, op_re, op_im, y_re, y_im, cols, log_q);
   return (int)cudaGetLastError();
 }
 
@@ -1745,24 +1981,28 @@ bool plan_transitions(int n, long long B, TransPlan* plan, int* pass_of_bit,
 
 extern "C" {
 
-// y = Op x on the N axis of the [P, N, Q] view (N a power of two, <= 128).
+// y = Op x on the N axis of the [P, N, Q] view (N and Q powers of two,
+// N <= 128): fp32 FMAs below N = 16, the tensor cores from N = 16 on.
 int qhbm_axis_apply(const float* x_re, const float* x_im, const float* op_re,
                     const float* op_im, float* y_re, float* y_im, int P,
                     int N, int Q, void* stream) {
+  if (P < 1 || Q < 1 || (Q & (Q - 1))) return (int)cudaErrorInvalidValue;
+  int log_q = 0;
+  while ((1 << log_q) < Q) ++log_q;
   int (*launch)(const float*, const float*, const float*, const float*,
                 float*, float*, long long, int, cudaStream_t) = nullptr;
   switch (N) {
     case 2: launch = launch_axis_apply<2>; break;
     case 4: launch = launch_axis_apply<4>; break;
     case 8: launch = launch_axis_apply<8>; break;
-    case 16: launch = launch_axis_apply<16>; break;
-    case 32: launch = launch_axis_apply<32>; break;
-    case 64: launch = launch_axis_apply<64>; break;
-    case 128: launch = launch_axis_apply<128>; break;
+    case 16: launch = launch_axis_apply_mma<16>; break;
+    case 32: launch = launch_axis_apply_mma<32>; break;
+    case 64: launch = launch_axis_apply_mma<64>; break;
+    case 128: launch = launch_axis_apply_mma<128>; break;
     default: return (int)cudaErrorInvalidValue;
   }
-  return launch(x_re, x_im, op_re, op_im, y_re, y_im, (long long)P * Q, Q,
-                static_cast<cudaStream_t>(stream));
+  return launch(x_re, x_im, op_re, op_im, y_re, y_im, (long long)P * Q,
+                log_q, static_cast<cudaStream_t>(stream));
 }
 
 // Floats of qhbm_qubit_transitions' scratch per block.
@@ -1863,7 +2103,8 @@ int qhbm_axis2_apply(const float* x_re, const float* x_im, const float* a_re,
   // all of Q.  k1 + k2 <= 14, so W >= 1.
   const int log_w = kLogSlab - k1 - k2 < log_q ? kLogSlab - k1 - k2 : log_q;
   const size_t smem =
-      2 * ((size_t)1 << (k1 + k2 + log_w)) * sizeof(float) + kPanelSmem;
+      2 * ((size_t)1 << (k1 + k2 + log_w)) * sizeof(float) +
+      Axis2Block::kPanelSmem;
   const int grid = persistent_grid(axis2_apply_kernel, kAxis2Threads, smem,
                                    (long long)P * M * (Q >> log_w));
   axis2_apply_kernel<<<grid, kAxis2Threads, smem,

@@ -85,7 +85,9 @@ enum {
   cudaDevAttrCooperativeLaunch = 3,
   cudaDevAttrMultiProcessorCount = 4,
   cudaFuncAttributeMaxDynamicSharedMemorySize = 5,
-  cudaOccupancyDefault = 6
+  cudaOccupancyDefault = 6,
+  cudaFuncAttributePreferredSharedMemoryCarveout = 7,
+  cudaSharedmemCarveoutMaxShared = 100
 };
 inline int cudaGetLastError() { return 0; }
 inline int cudaGetDevice(int*) { return 0; }
@@ -121,25 +123,18 @@ extern bool emu_truncate;
 void emu_mma(float* d, const unsigned* a, const unsigned* b);
 '''
 
-DRIVER_CC = r'''// Runs axis2_apply_kernel from a preprocessed copy of
-// qhbmlib_tpu_torch/csrc/statevector_kernels.cu (included as KERNEL_SOURCE)
-// on the CPU, block by block, and prints its relative L2 error and its norm
-// ratio against a float64 reference:
-//   k1_driver P k1 M k2 Q grid op_offset truncate
+EMU_RUNTIME_CC = r'''// The stand-in runtime's definitions, for a driver to put after the kernel
+// source: block and thread indices, shared memory, the barriers, the
+// emulated mma.sync and a runner of one block.
 #include <barrier>
-#include <complex>
-#include <cstdio>
-#include <cstdlib>
+#include <cstring>
 #include <memory>
-#include <random>
 #include <thread>
 #include <vector>
 
-#include KERNEL_SOURCE
-
 thread_local dim3 threadIdx, blockIdx;
 dim3 gridDim, blockDim;
-float emu_smem[232448 / 4];
+alignas(16) float emu_smem[232448 / 4];
 bool emu_truncate = false;
 static std::unique_ptr<std::barrier<>> block_barrier;
 static std::unique_ptr<std::barrier<>> warp_barrier[32];
@@ -177,6 +172,37 @@ void emu_mma(float* d, const unsigned* a, const unsigned* b) {
   std::memcpy(d, out, sizeof(out));
 }
 
+// Runs body() as block `blk` of `threads` CUDA threads, each a std::thread,
+// on shared memory that reads NaN until written.
+template <class Body>
+void emu_run_block(int blk, int threads, Body body) {
+  block_barrier = std::make_unique<std::barrier<>>(threads);
+  for (auto& b : warp_barrier) b = std::make_unique<std::barrier<>>(32);
+  std::memset(emu_smem, 0xff, sizeof(emu_smem));
+  std::vector<std::thread> pool;
+  for (int t = 0; t < threads; ++t) {
+    pool.emplace_back([&, t] {
+      threadIdx = dim3(t);
+      blockIdx = dim3(blk);
+      body();
+    });
+  }
+  for (auto& th : pool) th.join();
+}
+'''
+
+DRIVER_CC = r'''// Runs axis2_apply_kernel from a preprocessed copy of
+// qhbmlib_tpu_torch/csrc/statevector_kernels.cu (included as KERNEL_SOURCE)
+// on the CPU, block by block, and prints its relative L2 error and its norm
+// ratio against a float64 reference:
+//   k1_driver P k1 M k2 Q grid op_offset truncate
+#include <complex>
+#include <cstdio>
+#include <cstdlib>
+#include <random>
+
+#include KERNEL_SOURCE
+''' + EMU_RUNTIME_CC + r'''
 int main(int argc, char** argv) {
   if (argc != 9) return 2;
   const int P = atoi(argv[1]), k1 = atoi(argv[2]), M = atoi(argv[3]);
@@ -206,19 +232,10 @@ int main(int argc, char** argv) {
   gridDim = dim3(grid);
   blockDim = dim3(kAxis2Threads);
   for (int blk = 0; blk < grid; ++blk) {
-    block_barrier = std::make_unique<std::barrier<>>(kAxis2Threads);
-    for (auto& b : warp_barrier) b = std::make_unique<std::barrier<>>(32);
-    std::memset(emu_smem, 0xff, sizeof(emu_smem));  // NaN until written
-    std::vector<std::thread> threads;
-    for (int t = 0; t < kAxis2Threads; ++t) {
-      threads.emplace_back([&, t, blk] {
-        threadIdx = dim3(t);
-        blockIdx = dim3(blk);
-        axis2_apply_kernel(x_re.data(), x_im.data(), a_re, a_im, b_re, b_im,
-                           y_re.data(), y_im.data(), P, k1, M, k2, Q, log_w);
-      });
-    }
-    for (auto& th : threads) th.join();
+    emu_run_block(blk, kAxis2Threads, [&] {
+      axis2_apply_kernel(x_re.data(), x_im.data(), a_re, a_im, b_re, b_im,
+                         y_re.data(), y_im.data(), P, k1, M, k2, Q, log_w);
+    });
   }
   // float64 reference: A on axis 1, then B on axis 3.
   using C = std::complex<double>;

@@ -23,7 +23,8 @@ import subprocess
 import numpy as np
 import pytest
 
-from tests.test_torch_k1_emulated import EMU_CUDA_H, SOURCE, emulable
+from tests.test_torch_k1_emulated import (EMU_CUDA_H, EMU_RUNTIME_CC,
+                                          SOURCE, emulable)
 
 DRIVER_CC = r'''// Runs qubit_transitions_kernel and transitions_finish_kernel from a
 // preprocessed copy of qhbmlib_tpu_torch/csrc/statevector_kernels.cu
@@ -34,24 +35,12 @@ DRIVER_CC = r'''// Runs qubit_transitions_kernel and transitions_finish_kernel f
 // Prints one JSON line: each pass's tile bits, tiles and layouts, and the
 // transitions [n, 2, 2, 2] (none for the plan alone).  Exits 3 where the
 // planner refuses n.
-#include <barrier>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
-#include <memory>
-#include <thread>
-#include <vector>
 
 #include KERNEL_SOURCE
-
-thread_local dim3 threadIdx, blockIdx;
-dim3 gridDim, blockDim;
-alignas(16) float emu_smem[232448 / 4];
-bool emu_truncate = false;
-static std::unique_ptr<std::barrier<>> block_barrier;
-
-void __syncthreads() { block_barrier->arrive_and_wait(); }
-void emu_mma(float*, const unsigned*, const unsigned*) { std::abort(); }
+''' + EMU_RUNTIME_CC + r'''
 
 // The input planes: a float in [-1, 1) from a hash of (plane, index).
 static float value(uint32_t plane, uint32_t i) {
@@ -85,19 +74,11 @@ static std::vector<float> run(int n, int B, long long cut, int grid,
   gridDim = dim3(grid);
   blockDim = dim3(kTransThreads);
   for (int blk = 0; blk < grid; ++blk) {
-    block_barrier = std::make_unique<std::barrier<>>(kTransThreads);
-    std::memset(emu_smem, 0xff, sizeof(emu_smem));  // NaN until written
-    std::vector<std::thread> threads;
-    for (int t = 0; t < kTransThreads; ++t) {
-      threads.emplace_back([&, t, blk] {
-        threadIdx = dim3(t);
-        blockIdx = dim3(blk);
-        qubit_transitions_kernel(planes[0].data(), planes[1].data(),
-                                 planes[2].data(), planes[3].data(), plan,
-                                 partial.data());
-      });
-    }
-    for (auto& th : threads) th.join();
+    emu_run_block(blk, kTransThreads, [&] {
+      qubit_transitions_kernel(planes[0].data(), planes[1].data(),
+                               planes[2].data(), planes[3].data(), plan,
+                               partial.data());
+    });
   }
   TransPick pick;
   pick.count = n;

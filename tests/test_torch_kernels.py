@@ -477,48 +477,72 @@ def _cmatmul_tf32(o_re, o_im, s_re, s_im, products):
           _matmul_tf32(o_im, s_re, products))
 
 
-@pytest.mark.parametrize("n", [24, 20])
-def test_k1_3xtf32_split_holds_the_state_gate(n):
+@pytest.mark.parametrize("n,lone", [
+    pytest.param(24, False, id="24"), pytest.param(20, False, id="20"),
+    pytest.param(20, True, id="20-lone-block-7-6")])
+def test_k1_3xtf32_split_holds_the_state_gate(n, lone):
   """K1's first pass ((0,7) block x the minor operator) of the n-qubit
   ansatz's first 1q segment, seeded angles and a seeded state cut to
   M = 4, computed with the 3xTF32 split: within 1e-5 relative L2
   (chip_smoke's STATE_TOL for K1 against its plain version) of the float64
   product and within 2x of plain float32's error, where one TF32 product
-  is not within 1e-5."""
+  is not within 1e-5.  With `lone`, the row block (7,6) that plan_passes
+  leaves unpaired at 20q, one axis alone over 4 x 128 columns: the
+  contraction that axis_apply runs on the tensor cores with K1's split."""
   nr = n - tsv.minor_bits(n)
   pqc = tcu.hardware_efficient_ansatz(n, 2)
   values = np.random.RandomState(n).uniform(0, 2, pqc.num_symbols)
   ops = hopper_sv.forward_plan(pqc, values)[0][1]
-  (s1, k1), op_a, (s2, k2), op_b = hopper_sv.plan_passes(ops, nr)[0]
-  assert (s1, k1, s2, k2) == (0, 7, nr, 7)
-  n1, n2, m = 2**k1, 2**k2, 4
+  passes = hopper_sv.plan_passes(ops, nr)
   rng = np.random.RandomState(n + 1)
-  x = [rng.standard_normal((n1, m * n2)).astype(np.float32)
-       for _ in range(2)]
-  a = [t.numpy() for t in hopper_sv.split(op_a)]
-  b = [t.numpy() for t in hopper_sv.split(op_b)]
-  expected = (a[0] + 1j * a[1]).astype(np.complex128) @ (
-      x[0] + 1j * x[1]).astype(np.complex128)
-  expected = (expected.reshape(n1, m, n2) @ (b[0] + 1j * b[1]).T.astype(
-      np.complex128)).reshape(n1, m * n2)
 
-  def pass_(products):
-    # A on the N1 axis, the slab held in float32, then B on the N2 axis.
-    y = _cmatmul_tf32(*a, *x, products)
-    cols = [t.reshape(n1, m, n2).transpose(2, 0, 1).reshape(n2, -1)
-            for t in y]
-    y = _cmatmul_tf32(*b, *cols, products)
-    y = [t.reshape(n2, n1, m).transpose(1, 2, 0).reshape(n1, -1) for t in y]
-    return y[0] + 1j * y[1].astype(np.complex128)
+  def c128(planes):
+    return (planes[0] + 1j * planes[1]).astype(np.complex128)
+
+  def c64(planes):
+    return (planes[0] + 1j * planes[1]).astype(np.complex64)
+
+  if lone:
+    (s, k), op = passes[1]
+    assert (s, k) == (7, 6)
+    a = [t.numpy() for t in hopper_sv.split(op)]
+    x = [rng.standard_normal((2**k, 4 * 128)).astype(np.float32)
+         for _ in range(2)]
+    expected = c128(a) @ c128(x)
+
+    def pass_(products):
+      y = _cmatmul_tf32(*a, *x, products)
+      return y[0] + 1j * y[1].astype(np.complex128)
+
+    fp32 = c64(a) @ c64(x)
+  else:
+    (s1, k1), op_a, (s2, k2), op_b = passes[0]
+    assert (s1, k1, s2, k2) == (0, 7, nr, 7)
+    n1, n2, m = 2**k1, 2**k2, 4
+    x = [rng.standard_normal((n1, m * n2)).astype(np.float32)
+         for _ in range(2)]
+    a = [t.numpy() for t in hopper_sv.split(op_a)]
+    b = [t.numpy() for t in hopper_sv.split(op_b)]
+    expected = (c128(a) @ c128(x)).reshape(n1, m, n2) @ c128(b).T
+    expected = expected.reshape(n1, m * n2)
+
+    def pass_(products):
+      # A on the N1 axis, the slab held in float32, then B on the N2 axis.
+      y = _cmatmul_tf32(*a, *x, products)
+      cols = [t.reshape(n1, m, n2).transpose(2, 0, 1).reshape(n2, -1)
+              for t in y]
+      y = _cmatmul_tf32(*b, *cols, products)
+      y = [t.reshape(n2, n1, m).transpose(1, 2, 0).reshape(n1, -1)
+           for t in y]
+      return y[0] + 1j * y[1].astype(np.complex128)
+
+    # The plain version's float32 complex products, for scale (~3e-7).
+    fp32 = (c64(a) @ c64(x)).reshape(n1, m, n2) @ c64(b).T
 
   def err(y):
     return np.linalg.norm(y - expected) / np.linalg.norm(expected)
 
-  # The plain version's float32 complex products, for scale (~3e-7).
-  fp32 = ((a[0] + 1j * a[1]).astype(np.complex64) @
-          (x[0] + 1j * x[1]).astype(np.complex64)).reshape(n1, m, n2) @ (
-              b[0] + 1j * b[1]).T.astype(np.complex64)
   three = err(pass_(3))
   assert three < 1e-5
-  assert three < 2 * err(fp32.reshape(n1, -1))
+  assert three < 2 * err(fp32.reshape(expected.shape))
   assert err(pass_(1)) > 1e-5  # one TF32 product: ~4e-4
