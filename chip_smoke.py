@@ -10,13 +10,17 @@ plain PyTorch version: `axis_apply` (K4) on the three passes of a 20-qubit
 `diag_rotate`, `parity_bilinear` at the 20-qubit shapes; `axis2_apply`
 (K1) at the 24- and 20-qubit pass shapes; `qubit_transitions` (K5's 1q
 reductions) at 24 and 20 qubits, B = 8 and 64; `circuit_forward` (K3) and
-`adjoint_sweep` (K2) at 20q/4L for one random state; `stream_scale` (K6)
-on the 24-qubit plane at each tile size.  Each kernel is timed beside its
-plain version, the one PyTorch call that computes the same function where
-there is one (`library_ms`), and its bound: the larger of its bytes over
-3.35 TB/s and its float32 operations over 67 TFLOP/s (H100 SXM), or three
-times them over 495 TFLOP/s for the contractions on the tensor cores in
-3xTF32, counted from the shapes it ran on.  Then it holds the batched
+`adjoint_sweep` (K2) at 20q/4L and 16q/4L for one random state, with the
+cost of one near-empty stage of their cooperative launch;
+`parity_bilinear` again at the train steps' own shapes (24q B=8, 20q
+B=64); `stream_scale` (K6) on the 24-qubit plane at each tile size.  Each
+kernel is timed beside its plain version, the one PyTorch call that
+computes the same function where there is one (`library_ms`), and its
+bound: the larger of its bytes over 3.35 TB/s and its float32 operations
+over 67 TFLOP/s (H100 SXM), or three times them over 495 TFLOP/s for the
+contractions on the tensor cores in 3xTF32 (K1, K4 from N = 16, and the
+axis stages of K3 / K2 from N = 16, whose other stages count at the fp32
+rate), counted from the shapes it ran on.  Then it holds the batched
 forward and sweep against their plain versions and the 9-qubit VQT loss
 and single-state `adjoint.expectation` against the CPU, and drives the
 main paths, each with every launch count reset just before it and read
@@ -54,8 +58,8 @@ SEED = 0
 N24 = 24  # the bench's headline workload: 24q/2L/100 samples/8 unique
 SINGLE_CALLS = 3  # single-state value-and-gradient calls at 20q/4L
 # ||kernel - plain||_2 / ||plain||_2 limits.  States: both versions are fp32
-# with the same products in another summation order.  Grams and bilinears
-# sum ~10^5-10^6 products per entry, so their order differs more.
+# with the same products in another summation order.  Transitions and
+# bilinears sum ~10^5-10^6 products per entry, so their order differs more.
 STATE_TOL = 1e-5
 REDUCTION_TOL = 1e-4
 GRAD_TOL = 1e-4
@@ -141,9 +145,7 @@ def main_path_operands(device):
 
 def phase_kernels(device):
   """Each kernel against its plain version at the 20q main-path shapes."""
-  from qhbmlib_tpu_torch.ops import hopper_adjoint as ha
   from qhbmlib_tpu_torch.ops import hopper_sv as hs
-  from qhbmlib_tpu_torch.ops import statevector as sv
   pqc, _, stages, ops1q, (x_re, x_im, l_re, l_im) = main_path_operands(
       device)
   b = x_re.shape[0]
@@ -178,47 +180,93 @@ def phase_kernels(device):
       # One complex multiply (6 flops) per amplitude; the batch read and
       # written once, the [R, C] cos and sin planes read once.
       **bound(6 * amps, 16 * amps + 8 * cos_t.numel()))
+  rec = report["diag_rotate"]
+  log(f"[kernels] diag_rotate: kernel {rec['ms']:.4f} ms, plain "
+      f"{rec['plain_ms']:.4f} ms, library {fmt_ms(rec['library_ms'])}, "
+      f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), max abs err "
+      f"{rec['max_abs_err']:.3e}")
 
   report["qubit_transitions"] = check_transitions(
       f"{N_QUBITS}q", (l_re, l_im, x_re, x_im), first_segment_qubits(pqc))
 
-  nr = N_QUBITS - sv.minor_bits(N_QUBITS)
-  diag_gates = [pqc.gates[i] for cls, idxs in sv.segment_circuit(pqc.gates)
-                if cls == "diag" for i in idxs][:2 * N_QUBITS - 1]
-  _, rms, cms, _ = sv.diag_segment_triples(diag_gates, nr,
-                                           sv.minor_bits(N_QUBITS))
+  rms, cms = first_diag_factors(pqc)
   log(f"[kernels] parity factors of a 20q diag segment: K = {len(rms)}")
-  args = (l_re, l_im, x_re, x_im, rms, cms)
+  report["parity_bilinear"] = check_bilinear(
+      f"{N_QUBITS}q", (l_re, l_im, x_re, x_im), rms, cms, library=True)
+  return report
+
+
+def first_diag_factors(pqc):
+  """(row masks, column masks) of the parity factors of the circuit's first
+  diagonal segment (the ansatz's first Z rotations and CZ entanglers)."""
+  from qhbmlib_tpu_torch.ops import statevector as sv
+  n = pqc.num_qubits
+  m = sv.minor_bits(n)
+  idxs = next(i for cls, i in sv.segment_circuit(pqc.gates) if cls == "diag")
+  _, rms, cms, _ = sv.diag_segment_triples([pqc.gates[i] for i in idxs],
+                                           n - m, m)
+  return rms, cms
+
+
+def check_bilinear(label, planes, rms, cms, library=False):
+  """parity_bilinear against its plain version on [B, R, C] planes
+  (l_re, l_im, a_re, a_im), timed beside the plain version, its bound and,
+  with `library`, one complex64 einsum of the same sums; returns the
+  record."""
+  from qhbmlib_tpu_torch.ops import hopper_adjoint as ha
+  from qhbmlib_tpu_torch.ops import statevector as sv
+  args = (*planes, rms, cms)
   got, ref = ha.parity_bilinear(*args), ha.parity_bilinear_plain(*args)
   err = rel_err(got, ref)
-  check(f"parity_bilinear (K={len(rms)})", err, REDUCTION_TOL)
-  r, c = x_re.shape[1:]
+  b, r, c = planes[0].shape
   k = len(rms)
-  # One einsum: Im of sum_b s_r[k] (conj(lam) a)_b s_c[k] with the sign
-  # matrices in complex64, built outside the timed call.
-  l_c = torch.complex(l_re, l_im)
-  lib_bilinear = ("brc,brc,kr,kc->k", l_c.conj(), x_c,
-                  *(sv.parity_signs(m, size, device).to(torch.complex64)
-                    for m, size in ((rms, r), (cms, c))))
-  check("parity_bilinear's library einsum vs its plain version",
-        rel_err(torch.einsum(*lib_bilinear).imag, ref), REDUCTION_TOL)
-  report["parity_bilinear"] = dict(
-      err=err, max_abs_err=max_abs(got, ref),
-      ms=cuda_ms(lambda: ha.parity_bilinear(*args)),
-      plain_ms=cuda_ms(lambda: ha.parity_bilinear_plain(*args)),
-      library_ms=cuda_ms(lambda: torch.einsum(*lib_bilinear).imag),
-      # Im(conj(lam) a) summed over the batch (4 flops an amplitude), then
-      # each factor's signed sum over [R, C] as a matrix-vector product
-      # (2 flops an entry) and a dot over R; four planes read once.
-      **bound(4 * amps + 2 * r * c * k + 2 * r * k, 16 * amps + 4 * k))
-  for name, rec in report.items():
-    if name == "axis_apply":
-      continue  # logged by check_axis_apply
-    log(f"[kernels] {name}: kernel {rec['ms']:.4f} ms, plain "
-        f"{rec['plain_ms']:.4f} ms, library {fmt_ms(rec['library_ms'])}, "
-        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), max abs err "
-        f"{rec['max_abs_err']:.3e}")
-  return report
+  check(f"parity_bilinear {label} B={b} (K={k})", err, REDUCTION_TOL)
+  amps = planes[0].numel()
+  rec = dict(err=err, max_abs_err=max_abs(got, ref),
+             ms=cuda_ms(lambda: ha.parity_bilinear(*args)),
+             plain_ms=cuda_ms(lambda: ha.parity_bilinear_plain(*args)),
+             library_ms=None,
+             # Im(conj(lam) a) summed over the batch (4 flops an amplitude),
+             # then each factor's signed sum over [R, C] as a matrix-vector
+             # product (2 flops an entry) and a dot over R; four planes read
+             # once.
+             **bound(4 * amps + 2 * r * c * k + 2 * r * k, 16 * amps + 4 * k))
+  if library:
+    # One einsum: Im of sum_b s_r[k] (conj(lam) a)_b s_c[k] with the sign
+    # matrices in complex64, built outside the timed call.
+    l_c = torch.complex(planes[0], planes[1])
+    x_c = torch.complex(planes[2], planes[3])
+    lib = ("brc,brc,kr,kc->k", l_c.conj(), x_c,
+           *(sv.parity_signs(m, size, l_c.device).to(torch.complex64)
+             for m, size in ((rms, r), (cms, c))))
+    check(f"parity_bilinear's library einsum {label} vs its plain version",
+          rel_err(torch.einsum(*lib).imag, ref), REDUCTION_TOL)
+    rec["library_ms"] = cuda_ms(lambda: torch.einsum(*lib).imag)
+  log(f"[kernels] parity_bilinear {label} B={b} (K={k}): kernel "
+      f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
+      f"{fmt_ms(rec['library_ms'])}, bound {rec['bound_ms']:.4f} ms "
+      f"({rec['bound_by']}; share {rec['bound_ms'] / rec['ms']:.1%}), max abs "
+      f"err {rec['max_abs_err']:.3e}")
+  return rec
+
+
+def phase_bilinear_steps(device):
+  """parity_bilinear at the train steps' own shapes, the bench workloads'
+  batches (24q B=8, 20q B=64), over the K factors of each ansatz's first
+  diagonal segment."""
+  from qhbmlib_tpu_torch import bench
+  from qhbmlib_tpu_torch.models import circuit_utils
+  from qhbmlib_tpu_torch.ops import statevector as sv
+  dgen = torch.Generator(device=device).manual_seed(SEED + 50)
+  for name, cfg in bench.WORKLOADS.items():
+    n, b = cfg["n"], cfg["max_unique"]
+    pqc = circuit_utils.hardware_efficient_ansatz(n, cfg["layers"])
+    r, c = sv.state_shape(n)
+    planes = tuple(torch.randn((b, r, c), generator=dgen, device=device)
+                   for _ in range(4))
+    check_bilinear(f"{name} step", planes, *first_diag_factors(pqc))
+    del planes
+    torch.cuda.empty_cache()
 
 
 def check_axis_apply(label, shapes, planes):
@@ -604,20 +652,20 @@ def random_state(n, device, seed):
   return st / torch.linalg.vector_norm(st)
 
 
-def phase_single_kernels(device):
+def check_single(device, n, layers):
   """K3 (circuit_forward) and K2 (adjoint_sweep) against their plain
-  versions at 20q/4L for one random normalized state; returns both
-  records.  A record's `ms` times the cooperative launch alone, on a stage
-  table and state buffers built beforehand; `wrapper_ms` times the whole
-  wrapper (host stage table, copies, and for K2 the device->host copy and
-  the gradient assembly)."""
+  versions at n qubits / `layers` for one random normalized state; returns
+  both records.  A record's `ms` times the cooperative launch alone, on a
+  stage table and state buffers built beforehand; `wrapper_ms` times the
+  whole wrapper (host stage table, copies, and for K2 the device->host
+  copy and the gradient assembly).  Its bound is the 3xTF32 one
+  (`single_bound`), the fp32-core one beside it."""
   from qhbmlib_tpu_torch.models import circuit_utils
   from qhbmlib_tpu_torch.ops import hopper_adjoint as ha
   from qhbmlib_tpu_torch.ops import hopper_sv as hs
   from qhbmlib_tpu_torch.ops import paulis
   from qhbmlib_tpu_torch.ops import statevector as sv
-  n = N_QUBITS
-  pqc = circuit_utils.hardware_efficient_ansatz(n, LAYERS)
+  pqc = circuit_utils.hardware_efficient_ansatz(n, layers)
   gen = torch.Generator().manual_seed(SEED + 4)
   values = torch.rand(pqc.num_symbols, generator=gen) * 2.0
   x = random_state(n, device, SEED + 5)
@@ -625,7 +673,7 @@ def phase_single_kernels(device):
   got = hs.circuit_forward(pqc, values, planes)
   ref = hs.circuit_forward(pqc, values, planes, plain=True)
   err = rel_err(torch.cat(got), torch.cat(ref))
-  check(f"circuit_forward (K3) {n}q/{LAYERS}L", err, STATE_TOL)
+  check(f"circuit_forward (K3) {n}q/{layers}L", err, STATE_TOL)
   k3_table = hs.forward_table(pqc, values, device)
   buf = hs.state_buffer(planes)
   blocks = hs.sweep_blocks(device, 1)
@@ -646,7 +694,7 @@ def phase_single_kernels(device):
   if not bool(torch.isfinite(grad).all()):
     raise AssertionError("K2 gradient is not finite")
   err = rel_err(grad.cpu(), grad_ref.cpu())
-  check(f"adjoint_sweep (K2) {n}q/{LAYERS}L gradient, TFIM", err, GRAD_TOL)
+  check(f"adjoint_sweep (K2) {n}q/{layers}L gradient, TFIM", err, GRAD_TOL)
   table, _, _ = ha.sweep_table(pqc, values, device)
   bufs = hs.state_buffer(ref), hs.state_buffer(lam)
   blocks = hs.sweep_blocks(device, 2)
@@ -656,43 +704,101 @@ def phase_single_kernels(device):
                                                         lam), reps=5),
             plain_ms=cuda_ms(lambda: ha.adjoint_sweep(pqc, values, ref, lam,
                                                       plain=True), reps=5))
-  # No one PyTorch call runs a whole circuit or a whole reverse sweep.
+  # No one PyTorch call runs a whole circuit or a whole reverse sweep.  Each
+  # state is read and written once, the table read once, K2's reductions
+  # written once.
   size = 2**n
-  k3.update(library_ms=None, **bound(
-      table_flops(k3_table, 1), 16 * size + table_bytes(k3_table)))
-  k2.update(library_ms=None, **bound(
-      table_flops(table, 2),
-      16 * size + table_bytes(table) + 4 * table.out_len))
+  k3.update(library_ms=None, **single_bound(
+      k3_table, 1, 16 * size + table_bytes(k3_table)))
+  k2.update(library_ms=None, **single_bound(
+      table, 2, 32 * size + table_bytes(table) + 4 * table.out_len))
   for name, rec in (("circuit_forward", k3), ("adjoint_sweep", k2)):
-    log(f"[kernels] {name} {n}q/{LAYERS}L: kernel {rec['ms']:.4f} ms (the "
+    log(f"[kernels] {name} {n}q/{layers}L: kernel {rec['ms']:.4f} ms (the "
         f"launch alone; the whole wrapper {rec['wrapper_ms']:.4f} ms), plain "
-        f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-        f"({rec['bound_by']}), max abs err {rec['max_abs_err']:.3e}")
+        f"{rec['plain_ms']:.4f} ms, 3xTF32 bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}; share {rec['bound_ms'] / rec['ms']:.1%}), "
+        f"fp32-core bound {rec['fp32_bound_ms']:.4f} ms, max abs err "
+        f"{rec['max_abs_err']:.3e}")
   return k3, k2
 
 
-def table_flops(table, states: int) -> int:
+def stage_ms(device, stages=64, n=8):
+  """The cost of one near-empty stage of the cooperative kernel: K3
+  launches at n qubits on tables of one and of 1 + `stages` kDiag records
+  of one zero-weight factor (a rotation by 1 of 2^n amplitudes, then the
+  grid barrier), timed in turn: (t_many - t_one) / stages."""
+  import numpy as np
+  from qhbmlib_tpu_torch.ops import hopper_sv as hs
+  tables = []
+  for count in (1, 1 + stages):
+    table = hs.StageTable(n, torch.device(device))
+    for _ in range(count):
+      table.diag(np.zeros(1, np.float32), [0], [0])
+    tables.append(table)
+  x = random_state(n, device, SEED + 11)
+  buf = hs.state_buffer((x.real.contiguous(), x.imag.contiguous()))
+  blocks = hs.sweep_blocks(device, 1)
+  one, many = (cuda_ms(lambda t=t: hs.launch_circuit_forward(t, buf, blocks),
+                       reps=20) for t in tables)
+  return (many - one) / stages
+
+
+def phase_single_kernels(device):
+  """K3 and K2 against their plain versions at 20q/4L (the records of the
+  kernels line) and at 16q/4L, whose launches run an N = 128 row block, an
+  N = 4 one on the FMA body and the minor operator; then the cost of one
+  near-empty stage (`stage_ms`).  Returns the 20q records."""
+  k3, k2 = check_single(device, N_QUBITS, LAYERS)
+  check_single(device, 16, LAYERS)
+  log(f"[kernels] one near-empty stage of the cooperative kernel (8q, one "
+      f"zero-weight kDiag factor, then grid.sync): {stage_ms(device):.4f} ms")
+  return k3, k2
+
+
+def table_work(table, states: int):
   """Float operations of one cooperative launch over `table` on `states`
-  states (1: K3; 2: K2's a and lambda): per record, an axis stage's complex
-  multiply-adds (8 flops, 2^k an amplitude) and a diagonal stage's K-term
-  phase sum and complex multiply (K + 6 an amplitude; the kernel sums the
-  phase in float64, counted here at the float32 rate) on each state; a
-  gram's multiply-adds over the pair; a bilinear's Im(conj(lam) a) and K
-  signed sums (4 + K an amplitude)."""
+  states (1: K3; 2: K2's a and lambda), as (on the tensor cores, on the
+  fp32 cores): per record, an axis stage's complex multiply-adds (8 flops,
+  2^k an amplitude; N = 2^k >= 16 contracts on the tensor cores, N < 16 on
+  fp32 FMAs) and a diagonal stage's K-term phase sum and complex multiply
+  (K + 6 an amplitude; the kernel sums the phase in float64, counted here
+  at the float32 rate) on each state; a transition record's four complex
+  multiply-adds a pair along each of its K qubits' bits (16 K an
+  amplitude); a bilinear's Im(conj(lam) a) and K signed sums (4 + K an
+  amplitude)."""
   from qhbmlib_tpu_torch.ops import hopper_sv as hs
   size = 2**table.n
-  flops = 0
+  tensor = fp32 = 0
   records = table.pack()[0].cpu().view(-1, hs.STAGE_INTS).tolist()
   for kind, _, k, count, *_ in records:
     if kind == hs.AXIS:
-      flops += states * 8 * size * 2**k
+      flops = states * 8 * size * 2**k
+      if k >= 4:
+        tensor += flops
+      else:
+        fp32 += flops
     elif kind == hs.DIAG:
-      flops += states * size * (count + 6)
-    elif kind == hs.GRAM:
-      flops += 8 * size * 2**k
+      fp32 += states * size * (count + 6)
+    elif kind == hs.TRANS:
+      fp32 += 16 * size * count
     else:
-      flops += size * (4 + count)
-  return flops
+      fp32 += size * (4 + count)
+  return tensor, fp32
+
+
+def single_bound(table, states: int, nbytes: int) -> dict:
+  """bound() of one cooperative launch over `table`: its tensor-core
+  operations in 3xTF32 (3 x flops / 495 TFLOP/s) plus its fp32-core ones
+  (/ 67 TFLOP/s), stages running one after another, against `nbytes` over
+  3.35 TB/s; `fp32_bound_ms` is the bound with every operation on the fp32
+  cores."""
+  tensor, fp32 = table_work(table, states)
+  t_ops = (3 * tensor / PEAK_TF32_PER_S + fp32 / PEAK_FP32_PER_S) * 1e3
+  t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+  return {"bound_ms": max(t_ops, t_bytes),
+          "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+          "flops": tensor + fp32, "bytes": nbytes,
+          "fp32_bound_ms": bound(tensor + fp32, nbytes)["bound_ms"]}
 
 
 def table_bytes(table) -> int:
@@ -892,6 +998,7 @@ def main() -> int:
   report["qubit_transitions"] = phase_k5(device)
   report["circuit_forward"], report["adjoint_sweep"] = (
       phase_single_kernels(device))
+  phase_bilinear_steps(device)
   report["stream_scale"] = phase_k6(device)
   torch.cuda.empty_cache()
   phase_end_to_end(device)

@@ -86,15 +86,14 @@ __device__ __forceinline__ TileIndex tile_index(int i, int N, int Q, int W,
 // read and written, about 64 flop/B -- above the H100's fp32 CUDA-core ridge
 // (~67 TFLOP/s over 3.35 TB/s, ~20 flop/B).  So for N >= 16 axis_apply runs
 // on the tensor cores (axis_apply_mma_kernel, below K1); this fp32 FMA body
-// serves N < 16 (the lone row blocks of 15-17 qubits) and is the axis stage
-// of the cooperative whole-circuit kernels.  The operator (<= 128 KB as two
-// planes) is staged once per persistent block in shared memory, a tile of W
-// columns is staged beside it, each of 512 threads keeps an (N/16)x2
-// register tile of outputs, operator reads are 16-byte warp broadcasts, and
-// outputs go back through shared memory so the stores are as coalesced as
-// the loads.  At N = 128 the
-// shared memory (193 KB) admits one block per SM; 512 threads rather than
-// 256 give each scheduler four warps to hide shared-memory latency.
+// serves N < 16: the lone row blocks of 15-17 qubits, and the axis stages
+// of N < 16 in the cooperative whole-circuit kernels.  The operator is
+// staged once per persistent block in shared memory, a tile of W columns
+// is staged beside it, each of 512 threads keeps an (N/16)x2 register tile
+// of outputs, operator reads are 16-byte warp broadcasts, and outputs go
+// back through shared memory so the stores are as coalesced as the loads;
+// 512 threads give each scheduler four warps to hide shared-memory
+// latency.
 constexpr int kApplyThreads = 512;
 constexpr int kApplyW = 64;             // columns per tile (2 per lane)
 constexpr int kApplyLd = kApplyW + 1;   // padded row stride of the tile
@@ -225,127 +224,16 @@ __global__ void __launch_bounds__(kApplyThreads)
                       blockIdx.x, gridDim.x, smem);
 }
 
-// ---------------------------------------------------------------------------
-// axis_gram_tiles: G[I, J] = sum_{p, q} conj(l[p, I, q]) a[p, J, q], split
-// complex.
-// ---------------------------------------------------------------------------
-//
-// The row-block and minor transition matrices of K2's kGram stage
-// (pallas_adjoint.py `_block_transition_parts` for row blocks and the
-// `_dot_t` minor cross matrix kmat): the gradient reads them through the
-// 2x2 partial trace of each qubit.  The batched sweep (K5) computes those
-// traces directly (qubit_transitions, below).
-//
-// Bound: the same 8*N flop per amplitude pair as axis_apply, so fp32 FMA
-// issue.  Each block accumulates its share of the columns into a per-thread
-// TI x TJ register tile of G and writes its partial [2, N, N]; the caller
-// sums the partials in block order.  No float atomics, so gradients are
-// bitwise reproducible run to run.
-constexpr int kGramThreads = 512;
-constexpr int kGramW = 32;  // columns per tile
-
-template <int N>
-constexpr size_t axis_gram_smem() {
-  return 4 * kGramW * (N + 1) * sizeof(float);
-}
-
-// This block's partial G over tiles first_tile, first_tile + tile_stride,
-// ... written to out[2 * N * N] (re then im).  Starts and ends with a block
-// barrier, so `smem` may be reused around it.
-template <int N, int TI, int TJ>
-__device__ void axis_gram_tiles(const float* __restrict__ l_re,
-                                const float* __restrict__ l_im,
-                                const float* __restrict__ a_re,
-                                const float* __restrict__ a_im,
-                                float* __restrict__ out, long long cols, int Q,
-                                long long first_tile, long long tile_stride,
-                                float* smem) {
-  constexpr int kLd = N + 1;  // tile stored [w][n], padded
-  float* sl_re = smem;
-  float* sl_im = sl_re + kGramW * kLd;
-  float* sa_re = sl_im + kGramW * kLd;
-  float* sa_im = sa_re + kGramW * kLd;
-  constexpr int NI = N / TI;
-  constexpr int NJ = N / TJ;
-  const bool active = threadIdx.x < NI * NJ;
-  const int ti = threadIdx.x / NJ;
-  const int tj = threadIdx.x - ti * NJ;
-
-  float gr[TI][TJ], gi[TI][TJ];
-#pragma unroll
-  for (int i = 0; i < TI; ++i) {
-#pragma unroll
-    for (int j = 0; j < TJ; ++j) gr[i][j] = gi[i][j] = 0.f;
-  }
-  const long long tiles = (cols + kGramW - 1) / kGramW;
-  for (long long tile = first_tile; tile < tiles; tile += tile_stride) {
-    const long long c0 = tile * kGramW;
-    const long long base = tile_base(c0, N, Q, kGramW);
-    __syncthreads();
-    for (int i = threadIdx.x; i < N * kGramW; i += kGramThreads) {
-      const TileIndex t = tile_index(i, N, Q, kGramW, base);
-      const bool ok = c0 + t.w < cols;
-      const int s = t.w * kLd + t.n;
-      sl_re[s] = ok ? l_re[t.off] : 0.f;
-      sl_im[s] = ok ? l_im[t.off] : 0.f;
-      sa_re[s] = ok ? a_re[t.off] : 0.f;
-      sa_im[s] = ok ? a_im[t.off] : 0.f;
-    }
-    __syncthreads();
-    if (active) {
-      for (int w = 0; w < kGramW; ++w) {
-        float lr[TI], li[TI], xr[TJ], xi[TJ];
-#pragma unroll
-        for (int i = 0; i < TI; ++i) {
-          lr[i] = sl_re[w * kLd + ti + i * NI];
-          li[i] = sl_im[w * kLd + ti + i * NI];
-        }
-#pragma unroll
-        for (int j = 0; j < TJ; ++j) {
-          xr[j] = sa_re[w * kLd + tj + j * NJ];
-          xi[j] = sa_im[w * kLd + tj + j * NJ];
-        }
-#pragma unroll
-        for (int i = 0; i < TI; ++i) {
-#pragma unroll
-          for (int j = 0; j < TJ; ++j) {
-            gr[i][j] = fmaf(lr[i], xr[j], fmaf(li[i], xi[j], gr[i][j]));
-            gi[i][j] = fmaf(lr[i], xi[j], fmaf(-li[i], xr[j], gi[i][j]));
-          }
-        }
-      }
-    }
-  }
-  if (active) {
-#pragma unroll
-    for (int i = 0; i < TI; ++i) {
-#pragma unroll
-      for (int j = 0; j < TJ; ++j) {
-        const int idx = (ti + i * NI) * N + tj + j * NJ;
-        out[idx] = gr[i][j];
-        out[N * N + idx] = gi[i][j];
-      }
-    }
-  }
-  __syncthreads();
-}
-
 // Fixed-order sum of per-block partials: out[i] = sum_b partial[b, i] for i
-// in [0, width); the first half of `width` goes to out0, the rest to out1.
+// in [0, width).
 __global__ void sum_partials_kernel(const float* __restrict__ partial,
                                     int blocks, int width,
-                                    float* __restrict__ out0,
-                                    float* __restrict__ out1) {
-  const int half = width / 2;
+                                    float* __restrict__ out) {
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < width;
        i += gridDim.x * blockDim.x) {
     float s = 0.f;
     for (int b = 0; b < blocks; ++b) s += partial[(long long)b * width + i];
-    if (out1 == nullptr || i < half) {
-      out0[i] = s;
-    } else {
-      out1[i - half] = s;
-    }
+    out[i] = s;
   }
 }
 
@@ -567,17 +455,21 @@ constexpr int kPanelLd = kPanel + 4;          // padded panel row
 // warp tiles' width, and where the operator comes from.  Streamed
 // (RESIDENT false): [ROWS, kPanel] panels of the operator copied by
 // cp.async into two buffers of a re and an im plane, rows kPanelLd floats
-// apart.  Resident: the whole [ROWS, ROWS] operator, split once into four
-// TF32 planes (big re, small re, big im, small im), rows ROWS + 4 apart.
-// Either way four planes of kPlane floats.
-template <int THREADS, int ROWS, int WARP_COLS, bool RESIDENT>
+// apart: four planes of kPlane floats.  Resident: the whole [ROWS, ROWS]
+// operator, rows ROWS + 4 apart, split once into four TF32 planes (big re,
+// small re, big im, small im; PRESPLIT), or as its re and im fp32 planes,
+// split as each fragment is loaded.
+template <int THREADS, int ROWS, int WARP_COLS, bool RESIDENT,
+          bool PRESPLIT = RESIDENT>
 struct SlabBlock {
   static constexpr int kThreads = THREADS;
   static constexpr int kWarpCols = WARP_COLS;
   static constexpr bool kResident = RESIDENT;
+  static constexpr bool kPresplit = PRESPLIT;
   static constexpr int kLd = RESIDENT ? ROWS + 4 : kPanelLd;
   static constexpr int kPlane = ROWS * kLd;
-  static constexpr size_t kPanelSmem = 4 * kPlane * sizeof(float);
+  static constexpr size_t kPanelSmem =
+      (RESIDENT && !PRESPLIT ? 2 : 4) * kPlane * sizeof(float);
 };
 using Axis2Block = SlabBlock<kAxis2Threads, 128, kAxis2WarpCols, false>;
 
@@ -778,16 +670,16 @@ __device__ __forceinline__ void mma_tf32_first(float* d, const unsigned* a,
 // Op v on the tensor cores (3xTF32).  Streamed (K1): on entry the
 // operator's first panel is in flight in panel buffer `buf`; on exit
 // `next`'s first panel is, in the buffer returned.  Resident (K4's
-// axis_apply, N <= 64): the split operator is in `panels`, nothing is
-// copied or waited for, `buf` is returned as it came.  `hook(step, steps)`
-// runs before each panel step's commit (streamed) or each chunk's
-// (resident), to put more copies in that group.  Each k-step of 8 is summed
-// in fresh registers, the
-// small cross terms first, and added to the fp32 totals with
-// round-to-nearest adds: the tensor cores truncate as they accumulate, and
-// one accumulator over all 16 k-steps (96 MMAs) was 3.4e-6 off the plain
-// version a pass on the H100, a shrink of the norm that adds up over a
-// circuit's passes (fresh sums: 3.5e-7, below the FMA version's 4.6e-7).
+// axis_apply at N <= 64, the sweep's axis stages): the operator is in
+// `panels`, nothing is copied or waited for, `buf` is returned as it
+// came.  `hook(step, steps)` runs before each panel step's commit
+// (streamed) or each chunk's (resident), to put more copies in that group.
+// Each k-step of 8 is summed in fresh registers, the small cross terms
+// first, and added to the fp32 totals with round-to-nearest adds: the
+// tensor cores truncate as they accumulate, and one accumulator over all
+// 16 k-steps (96 MMAs) was 3.4e-6 off the plain version a pass on the
+// H100, a shrink of the norm that adds up over a circuit's passes (fresh
+// sums: 3.5e-7, below the FMA version's 4.6e-7).
 template <int N, int AXIS, class Block = Axis2Block, class Hook = NoHook>
 __device__ __forceinline__ int slab_mma_apply(float* s_re, float* s_im,
                                               const float* __restrict__ op_re,
@@ -858,7 +750,7 @@ __device__ __forceinline__ int slab_mma_apply(float* s_re, float* s_im,
                                 a + 8 * Block::kLd + 4};
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
-            if constexpr (kResident) {
+            if constexpr (kResident && Block::kPresplit) {
               const unsigned* split = reinterpret_cast<const unsigned*>(panels);
               arb[mt][r] = split[a_off[r]];
               ars[mt][r] = split[Block::kPlane + a_off[r]];
@@ -1125,33 +1017,42 @@ __global__ void __launch_bounds__(kAxis2Threads)
 //     N * Q floats as they lie in the state, contracted at stride Q.
 // Shared memory: two slabs (128 KB) and the operator (68 KB resident at
 // N = 64, 72 KB of panel buffers at N = 128): one block an SM.
+//
+// BUFS = 1 is the cooperative whole-circuit kernels' variant: one slab
+// buffer and the operator resident at every N (at N = 128 as its two fp32
+// planes, 132 KB, split per fragment), 196 KB at N = 128.  There a state
+// of up to 20 qubits is at most 128 slabs, one a block on the H100's 132
+// SMs, so a second buffer has no next slab to take, and the panel stream's
+// waits and barriers went: 13-22% off an N = 128 stage (PERF.md, section 6).
 constexpr int kAxisMmaThreads = 512;
 constexpr int kAxisMmaWarpCols = 16;
 constexpr int kLogAxisSlab = 13;  // amplitudes a slab
 
-template <int N>
+template <int N, int BUFS = 2>
 struct AxisMma {
   static constexpr int kLogN = N == 16 ? 4 : N == 32 ? 5 : N == 64 ? 6 : 7;
   static constexpr int kLogL = kLogAxisSlab - kLogN;  // columns a slab
-  using Block = SlabBlock<kAxisMmaThreads, N, kAxisMmaWarpCols, N <= 64>;
+  using Block = SlabBlock<kAxisMmaThreads, N, kAxisMmaWarpCols,
+                          BUFS == 1 || N <= 64, N <= 64>;
   static constexpr size_t kSmem =
-      (4 << kLogAxisSlab) * sizeof(float) + Block::kPanelSmem;
+      (2 * BUFS << kLogAxisSlab) * sizeof(float) + Block::kPanelSmem;
 };
 
-template <int N, int AXIS>
-__global__ void __launch_bounds__(kAxisMmaThreads)
-    axis_apply_mma_kernel(const float* __restrict__ x_re,
-                          const float* __restrict__ x_im,
-                          const float* __restrict__ op_re,
-                          const float* __restrict__ op_im,
-                          float* __restrict__ y_re, float* __restrict__ y_im,
-                          long long cols, int log_q) {
-  using A = AxisMma<N>;
+// The body of axis_apply_mma_kernel (BUFS = 2), shared with the cooperative
+// whole-circuit kernels (BUFS = 1): this block takes slabs first,
+// first + stride, ... of the view; `smem` holds AxisMma<N, BUFS>::kSmem
+// bytes.  Ends with a block barrier, so `smem` may be reused after it.
+template <int N, int AXIS, int BUFS = 2>
+__device__ __forceinline__ void axis_mma_slabs(
+    const float* __restrict__ x_re, const float* __restrict__ x_im,
+    const float* __restrict__ op_re, const float* __restrict__ op_im,
+    float* __restrict__ y_re, float* __restrict__ y_im, long long cols,
+    int log_q, long long first, long long stride, float* smem) {
+  using A = AxisMma<N, BUFS>;
   using Block = typename A::Block;
   constexpr int L = 1 << A::kLogL;
   constexpr int S = 1 << kLogAxisSlab;
-  extern __shared__ float smem[];  // slab buffers [2][re, im][S], operator
-  float* panels = smem + 4 * S;
+  float* panels = smem + 2 * BUFS * S;  // after [BUFS][re, im][S] slabs
   // Floats a slab row: AXIS 1, the L columns of one n; AXIS 2, one p.
   const int log_row = AXIS == 1 ? A::kLogL : A::kLogN + log_q;
   const long long slabs = (cols + L - 1) >> A::kLogL;
@@ -1209,27 +1110,33 @@ __global__ void __launch_bounds__(kAxisMmaThreads)
     unsigned* split = reinterpret_cast<unsigned*>(panels);
     for (int i = threadIdx.x; i < N * N; i += kAxisMmaThreads) {
       const int o = (i >> A::kLogN) * Block::kLd + (i & (N - 1));
-      split_tf32(op_re[i], split[o], split[Block::kPlane + o]);
-      split_tf32(op_im[i], split[2 * Block::kPlane + o],
-                 split[3 * Block::kPlane + o]);
+      if constexpr (Block::kPresplit) {
+        split_tf32(op_re[i], split[o], split[Block::kPlane + o]);
+        split_tf32(op_im[i], split[2 * Block::kPlane + o],
+                   split[3 * Block::kPlane + o]);
+      } else {
+        panels[o] = op_re[i];
+        panels[Block::kPlane + o] = op_im[i];
+      }
     }
-  } else if (blockIdx.x < slabs) {
+  } else if (first < slabs) {
     issue_panel<Block>(op_re, op_im, A::kLogN, 0, panels);
   }
-  if (blockIdx.x < slabs) {
-    issue_slab(blockIdx.x, 0, 0, S);
+  if (first < slabs) {
+    issue_slab(first, 0, 0, S);
     cp_async_commit();
   }
   int buf = 0;
   int cur = 0;  // the slab buffer of `slab`
-  for (long long slab = blockIdx.x; slab < slabs;
-       slab += gridDim.x, cur ^= 1) {
-    const long long nxt = slab + gridDim.x;
+  for (long long slab = first; slab < slabs;
+       slab += stride, cur ^= BUFS - 1) {
+    const long long nxt = slab + stride;
     cp_async_wait_all();
     __syncthreads();  // this slab has landed; the slab before is stored
-    // The next slab's copy, in parts, one a step of the contraction.
+    // With two buffers, the next slab's copy, in parts, one a step of the
+    // contraction.
     auto hook = [&](int k, int steps) {
-      if (nxt < slabs) {
+      if (BUFS == 2 && nxt < slabs) {
         issue_slab(nxt, cur ^ 1, S / 4 * k / steps * 4,
                    S / 4 * (k + 1) / steps * 4);
       }
@@ -1256,7 +1163,26 @@ __global__ void __launch_bounds__(kAxisMmaThreads)
         y_im[off] = s_im[s];
       }
     }
+    if (BUFS == 1 && nxt < slabs) {
+      __syncthreads();  // the slab is stored; its buffer takes the next
+      issue_slab(nxt, 0, 0, S);
+      cp_async_commit();
+    }
   }
+  __syncthreads();  // every slab is stored; `smem` is free
+}
+
+template <int N, int AXIS>
+__global__ void __launch_bounds__(kAxisMmaThreads)
+    axis_apply_mma_kernel(const float* __restrict__ x_re,
+                          const float* __restrict__ x_im,
+                          const float* __restrict__ op_re,
+                          const float* __restrict__ op_im,
+                          float* __restrict__ y_re, float* __restrict__ y_im,
+                          long long cols, int log_q) {
+  extern __shared__ float smem[];
+  axis_mma_slabs<N, AXIS>(x_re, x_im, op_re, op_im, y_re, y_im, cols, log_q,
+                          blockIdx.x, gridDim.x, smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -1651,36 +1577,66 @@ __global__ void transitions_finish_kernel(const float* __restrict__ partial,
 //
 // Bound: at 20 qubits a state is two 4 MB planes; with its ping-pong copy
 // (and lambda's, for the sweep) it fits the 50 MB L2, which takes the place
-// of VMEM residency.  Every stage then streams the state from L2, and a
-// stage costs at least one grid barrier, so the design keeps one launch per
-// circuit: one persistent 512-thread block per SM (the N = 128 operator and
-// tile take 193 KB of shared memory), walking a stage table in device memory,
-// one record per stage in order, each with its own data offsets (so the
-// Pallas kernel's loop over repeated layers has no counterpart).  A stage is
+// of VMEM residency, so every stage streams the state from L2 and the axis
+// stages' operations bound the launch: at N = 128 an amplitude costs 1024
+// flop against 16 bytes.  So an axis stage of N >= 16 contracts on the
+// tensor cores in 3xTF32 through K4's body (axis_mma_slabs) in its
+// one-buffer variant: slabs of 2^13 amplitudes, the operator resident in
+// shared memory at every N (split once into TF32 planes for N <= 64, fp32
+// planes split per fragment at N = 128); N < 16 keeps the fp32 FMA body
+// (axis_apply_tiles).  At 20 qubits a state is 128 slabs, one a block, so
+// a stage takes one slab's latency, mostly its contraction: the copies in
+// and out alone took about a quarter of an N = 128 stage on the H100
+// (PERF.md, section 6).  The second state of a sweep's axis stage starts
+// on the blocks the first leaves idle (`sweep_axis`'s rotation), so small
+// states keep twice the blocks busy.  A stage ends in a grid barrier (a
+// near-empty stage took ~2 us), so the design keeps one launch per
+// circuit: one persistent 512-thread block per SM (196 KB of shared
+// memory, the N = 128 axis stage's), walking a stage table in device
+// memory, one record per stage in order, each with its own data offsets
+// (so the Pallas kernel's loop over repeated layers has no counterpart).
+// A stage is
 //   kAxis  -- an [N, N] operator on bits [start, start + k) of every state,
-//             axis_apply's tile code, out of place into the other buffer;
+//             out of place into the other plane pair;
 //   kDiag  -- theta = sum_k w_k s(x & mask_k), summed per amplitude in fp64
 //             from the parity masks with __popc (the Pallas kernel builds
 //             its sign matrices in-kernel too), then one sincosf rotation
 //             of every state in place; no cos/sin planes are read;
-//   kGram  -- (sweep) G over bits [start, start + k) from (lambda, a):
-//             per-block partials, a barrier, then a sum in block order;
-//   kBilin -- (sweep) the parity bilinears of Im(conj(lambda) a), likewise.
-// A kDiag or kBilin record holds at most kBilinMaxK factors (the shared
-// memory its masks and weights are staged in); the host splits a longer
-// diagonal segment into several records.
-// Reductions are summed without float atomics, so gradients are bitwise
-// reproducible.  The inverse operators and negated weights of the sweep are
-// folded on the host.  A launch that cannot be co-resident is refused.
+//   kTrans -- (sweep) the 2x2 transition T_q[i, j] = sum_{x: x_q = 0}
+//             conj(lambda[x ^ i e_q]) a[x ^ j e_q] of each of K qubits
+//             (their state-index bits at the record's mask offset), 8
+//             floats a qubit (re, then im, of T00 T01 T10 T11): all the
+//             gradient reads of the reference's row-block transitions and
+//             minor kmat, without the [N, N] grams (`sweep_transitions`);
+//   kBilin -- (sweep) the parity bilinears of Im(conj(lambda) a).
+// A reduction writes per-block partials, then a barrier, then a sum in
+// block order (sweep_sum_partials): no float atomics, so gradients are
+// bitwise reproducible run to run.  A kDiag or kBilin record holds at most
+// kBilinMaxK factors (the shared memory its masks and weights are staged
+// in); the host splits a longer diagonal segment into several records.  The
+// inverse operators and negated weights of the sweep are folded on the
+// host.  A launch that cannot be co-resident is refused.
 constexpr int kAxis = 0;
 constexpr int kDiag = 1;
-constexpr int kGram = 2;
+constexpr int kTrans = 2;
 constexpr int kBilin = 3;
 constexpr int kStageInts = 8;  // kind, start, k, K, data, masks, out, unused
-constexpr size_t kSweepSmem = axis_apply_smem<128>();
-static_assert(kSweepSmem >= axis_gram_smem<128>() &&
+constexpr int kSweepTileBits = 13;  // a kTrans tile: 2^13 amplitudes
+constexpr int kSweepWarps = kApplyThreads / 32;
+constexpr int kSweepMaxTrans = 32;  // qubits a kTrans record
+constexpr size_t kSweepTransSmem =
+    ((4 << kSweepTileBits) + 8 * kSweepWarps) * sizeof(float) +
+    kSweepMaxTrans * sizeof(int);
+constexpr size_t kSweepSmem = AxisMma<128, 1>::kSmem;
+static_assert(kSweepSmem >= AxisMma<64, 1>::kSmem &&
+                  kSweepSmem >= AxisMma<32, 1>::kSmem &&
+                  kSweepSmem >= AxisMma<16, 1>::kSmem &&
+                  kSweepSmem >= axis_apply_smem<8>() &&
+                  kSweepSmem >= kSweepTransSmem &&
                   kSweepSmem >= (kApplyThreads + 2 * kBilinMaxK) * 4,
               "the sweep's shared memory must hold every stage's");
+static_assert(kAxisMmaThreads == kApplyThreads,
+              "the sweep's blocks run both axis bodies");
 
 __device__ void sweep_diag(float* re0, float* im0, float* re1, float* im1,
                            long long size, const float* __restrict__ w,
@@ -1725,20 +1681,199 @@ __device__ void sweep_sum_partials(const float* __restrict__ partial,
   }
 }
 
-__device__ void sweep_gram(int k, const float* l_re, const float* l_im,
-                           const float* a_re, const float* a_im, float* out,
-                           long long cols, int Q, float* smem) {
-  const long long b = blockIdx.x;
+// One kAxis stage on one state of n qubits: the [N, N] operator on the
+// [P, N, Q = 2^log_q] view, out of place.  Block b takes the work items
+// (slabs, or FMA tiles) b - rot, b - rot + gridDim.x, ... with rot the
+// items of `state` earlier states (mod gridDim.x): a sweep's lambda starts
+// on the blocks that a left idle.
+template <int N>
+__device__ __forceinline__ void sweep_axis(const float* x_re,
+                                           const float* x_im,
+                                           const float* op_re,
+                                           const float* op_im, float* y_re,
+                                           float* y_im, int n, int log_q,
+                                           int state, float* smem) {
+  constexpr int kLogN = N == 2 ? 1 : N == 4 ? 2 : N == 8 ? 3 : N == 16 ? 4
+                        : N == 32 ? 5 : N == 64 ? 6 : 7;
+  const long long cols = 1LL << (n - kLogN);  // P * Q
   const long long g = gridDim.x;
-  switch (k) {
-    case 1: axis_gram_tiles<2, 1, 1>(l_re, l_im, a_re, a_im, out, cols, Q, b, g, smem); break;
-    case 2: axis_gram_tiles<4, 1, 1>(l_re, l_im, a_re, a_im, out, cols, Q, b, g, smem); break;
-    case 3: axis_gram_tiles<8, 1, 1>(l_re, l_im, a_re, a_im, out, cols, Q, b, g, smem); break;
-    case 4: axis_gram_tiles<16, 1, 1>(l_re, l_im, a_re, a_im, out, cols, Q, b, g, smem); break;
-    case 5: axis_gram_tiles<32, 1, 2>(l_re, l_im, a_re, a_im, out, cols, Q, b, g, smem); break;
-    case 6: axis_gram_tiles<64, 2, 4>(l_re, l_im, a_re, a_im, out, cols, Q, b, g, smem); break;
-    case 7: axis_gram_tiles<128, 4, 8>(l_re, l_im, a_re, a_im, out, cols, Q, b, g, smem); break;
-    default: break;
+  auto first = [&](long long items) {
+    return (blockIdx.x + g - (state * items) % g) % g;
+  };
+  if constexpr (N >= 16) {
+    constexpr long long L = 1LL << AxisMma<N, 1>::kLogL;
+    const long long start = first((cols + L - 1) / L);
+    if (log_q >= 2) {
+      axis_mma_slabs<N, 1, 1>(x_re, x_im, op_re, op_im, y_re, y_im, cols,
+                              log_q, start, g, smem);
+    } else {
+      axis_mma_slabs<N, 2, 1>(x_re, x_im, op_re, op_im, y_re, y_im, cols,
+                              log_q, start, g, smem);
+    }
+  } else {
+    axis_apply_tiles<N>(x_re, x_im, op_re, op_im, y_re, y_im, cols,
+                        1 << log_q, first((cols + kApplyW - 1) / kApplyW), g,
+                        smem);
+  }
+}
+
+// Adds the amplitude pair (x, y = x with the qubit's bit set) to
+// acc = (re, then im, of T00 T01 T10 T11): T_ij += conj(l_i) a_j.
+__device__ __forceinline__ void sweep_pair(float* acc, const float* x,
+                                           const float* y, int c, int d) {
+  // x[pl * 4 + c]: planes l_re, l_im, a_re, a_im; component c of x, d of y.
+  const float lxr = x[c], lxi = x[4 + c], axr = x[8 + c], axi = x[12 + c];
+  const float lyr = y[d], lyi = y[4 + d], ayr = y[8 + d], ayi = y[12 + d];
+  acc[0] = fmaf(lxr, axr, fmaf(lxi, axi, acc[0]));
+  acc[4] = fmaf(lxr, axi, fmaf(-lxi, axr, acc[4]));
+  acc[1] = fmaf(lxr, ayr, fmaf(lxi, ayi, acc[1]));
+  acc[5] = fmaf(lxr, ayi, fmaf(-lxi, ayr, acc[5]));
+  acc[2] = fmaf(lyr, axr, fmaf(lyi, axi, acc[2]));
+  acc[6] = fmaf(lyr, axi, fmaf(-lyi, axr, acc[6]));
+  acc[3] = fmaf(lyr, ayr, fmaf(lyi, ayi, acc[3]));
+  acc[7] = fmaf(lyr, ayi, fmaf(-lyi, ayr, acc[7]));
+}
+
+// The four planes' float4 f of a tile in shared memory, into v[pl * 4 + c].
+__device__ __forceinline__ void sweep_load4(const float4* tile, int f,
+                                            float* v) {
+#pragma unroll
+  for (int pl = 0; pl < 4; ++pl) {
+    const float4 q = tile[(pl << (kSweepTileBits - 2)) + f];
+    v[pl * 4 + 0] = q.x;
+    v[pl * 4 + 1] = q.y;
+    v[pl * 4 + 2] = q.z;
+    v[pl * 4 + 3] = q.w;
+  }
+}
+
+// kTrans: this block's partial [K, 8] of the transitions of the state-index
+// bits `bits` of (lambda, a), 2^n amplitudes each.
+//
+// Bound: 16 flop an amplitude pair and qubit against 16 bytes an amplitude
+// read once from L2, so reads bound it, as K5's kernel.  A pair along bit b
+// needs both amplitudes in one block, so the state goes through shared
+// memory in tiles of 2^13 amplitudes of the four planes (128 KB) whose
+// index bits cover b, in two passes as K5's planner makes them at B = 1:
+// pass 1 the low 13 bits (tiles are contiguous runs), pass 2 the state's
+// bits 13 .. n - 1 with its 26 - n lowest (runs of >= 64 floats).  A qubit
+// is computed in the pass where its bit is new.  There each of its warps
+// (16 / the pass's qubits, so most warps work) walks its share of the
+// tile's pairs, four a float4 pair (tile bits >= 2) or two a float4 (bits
+// 0 and 1), into 8 fp32 accumulators a lane held across the block's tiles:
+// 8 registers a qubit where K5's 256-thread kernel holds 84 floats, which a
+// 512-thread block's 128 registers do not leave.  At the pass's end each
+// warp sums its lanes by a fixed shuffle tree and the qubit's warps are
+// added in warp order, so the partials, like their sum in block order, are
+// bitwise reproducible.  The tile has to land before the pairs are read (no
+// second buffer); at 20 qubits a block has one tile a pass.
+__device__ void sweep_transitions(const float* l_re, const float* l_im,
+                                  const float* a_re, const float* a_im,
+                                  int n, const int* __restrict__ bits, int K,
+                                  float* __restrict__ partial, float* smem) {
+  constexpr int T = kSweepTileBits;
+  float* tile = smem;  // [l_re, l_im, a_re, a_im][2^T]
+  float* red = tile + (4 << T);  // [kSweepWarps][8] warp sums
+  int* s_bits = reinterpret_cast<int*>(red + 8 * kSweepWarps);
+  const float* src[4] = {l_re, l_im, a_re, a_im};
+  const float4* t4 = reinterpret_cast<const float4*>(tile);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int tb = n < T ? n : T;  // tile bits
+  for (int i = threadIdx.x; i < K; i += kApplyThreads) s_bits[i] = bits[i];
+  for (int pass = 0; pass < (n > T ? 2 : 1); ++pass) {
+    // Tile bits [0, run) are the state's; in pass 2, tile bits [run, T)
+    // are the state's bits [T, n) and tile u sits at state bits [run, T).
+    const int run = pass == 0 ? tb : 2 * T - n;
+    auto tile_bit = [&](int b) {
+      return pass == 0 ? (b < tb ? b : -1) : (b >= T ? run + b - T : -1);
+    };
+    // The j-th qubit new in this pass: its tile bit and its row of the
+    // partial (-1, -1 past the last).
+    auto pick = [&](int j, int* row) {
+      for (int i = 0; i < K; ++i) {
+        const int t = tile_bit(s_bits[i]);
+        if (t >= 0 && j-- == 0) {
+          *row = i;
+          return t;
+        }
+      }
+      *row = -1;
+      return -1;
+    };
+    __syncthreads();  // s_bits written; the previous pass's sums are read
+    int nb = 0;
+    for (int i = 0; i < K; ++i) nb += tile_bit(s_bits[i]) >= 0;
+    if (nb == 0) continue;
+    const int wpb = kSweepWarps / nb;  // warps a qubit (nb <= T < 16)
+    const int slot = warp / wpb;
+    const int part = warp - slot * wpb;
+    int row;
+    const int t = pick(slot, &row);
+    float acc[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+    const long long tiles = 1LL << (n - tb);
+    for (long long u = blockIdx.x; u < tiles; u += gridDim.x) {
+      __syncthreads();  // the previous tile is read
+      for (int f = threadIdx.x; f < 1 << (tb - 2); f += kApplyThreads) {
+        const int e = 4 * f;
+        const long long at = (e & ((1 << run) - 1)) |
+                             ((long long)(e >> run) << T) | (u << run);
+#pragma unroll
+        for (int pl = 0; pl < 4; ++pl) {
+          cp_async_16(tile + (pl << T) + e, src[pl] + at);
+        }
+      }
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();  // the tile has landed
+      if (t >= 2) {  // float4 f and f with float4 bit t - 2 set
+        const int j = t - 2;
+        const int groups = 1 << (tb - 3);
+        for (int g = part * groups / wpb + lane;
+             g < (part + 1) * groups / wpb; g += 32) {
+          const int f = insert_zero(g, j);
+          float x[16], y[16];
+          sweep_load4(t4, f, x);
+          sweep_load4(t4, f | (1 << j), y);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) sweep_pair(acc, x, y, c, c);
+        }
+      } else if (t >= 0) {  // both members in one float4
+        const int groups = 1 << (tb - 2);
+        for (int g = part * groups / wpb + lane;
+             g < (part + 1) * groups / wpb; g += 32) {
+          float x[16];
+          sweep_load4(t4, g, x);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if (!((c >> t) & 1)) sweep_pair(acc, x, x, c, c | (1 << t));
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1) {
+        acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], m);
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) red[warp * 8 + e] = acc[e];
+    }
+    __syncthreads();
+    if (threadIdx.x < 8 * nb) {
+      const int s = threadIdx.x >> 3;
+      const int e = threadIdx.x & 7;
+      float sum = 0.f;
+      for (int p = 0; p < wpb; ++p) sum += red[(s * wpb + p) * 8 + e];
+      int out_row;
+      pick(s, &out_row);
+      partial[out_row * 8 + e] = sum;
+    }
   }
 }
 
@@ -1765,8 +1900,6 @@ __global__ void __launch_bounds__(kApplyThreads)
     const int K = sd[3];
     const float* d = data + sd[4];
     const int* mk = masks + sd[5];
-    const long long P = 1LL << start;
-    const int Q = 1 << (n - start - k);
     float* a0 = states[0] + cur * 2 * size;
     float* l0 = S == 2 ? states[1] + cur * 2 * size : nullptr;
     if (kind == kAxis) {
@@ -1774,9 +1907,8 @@ __global__ void __launch_bounds__(kApplyThreads)
       for (int s = 0; s < S; ++s) {
         float* src = states[s] + cur * 2 * size;
         float* dst = states[s] + (cur ^ 1) * 2 * size;
-        QHBM_LOG2_SWITCH(k, axis_apply_tiles, src, src + size, d, d + nn,
-                         dst, dst + size, P * Q, Q, blockIdx.x, gridDim.x,
-                         smem)
+        QHBM_LOG2_SWITCH(k, sweep_axis, src, src + size, d, d + nn, dst,
+                         dst + size, n, n - start - k, s, smem)
       }
       cur ^= 1;
       grid.sync();
@@ -1787,10 +1919,10 @@ __global__ void __launch_bounds__(kApplyThreads)
     } else if constexpr (S == 2) {
       float* o = out + sd[6];
       int width;
-      if (kind == kGram) {
-        width = 2 << (2 * k);
-        sweep_gram(k, l0, l0 + size, a0, a0 + size,
-                   partial + (long long)blockIdx.x * width, P * Q, Q, smem);
+      if (kind == kTrans) {
+        width = 8 * K;
+        sweep_transitions(l0, l0 + size, a0, a0 + size, n, mk, K,
+                          partial + (long long)blockIdx.x * width, smem);
       } else {  // kBilin
         width = K;
         int* s_masks = reinterpret_cast<int*>(smem + kApplyThreads);
@@ -1806,7 +1938,7 @@ __global__ void __launch_bounds__(kApplyThreads)
   }
 }
 
-// Co-resident blocks of sweep_kernel<S> (one per SM at the 193 KB of shared
+// Co-resident blocks of sweep_kernel<S> (one per SM at its 196 KB of shared
 // memory); 0 if the device cannot launch it cooperatively.
 template <int S>
 int sweep_blocks() {
@@ -1821,6 +1953,8 @@ int sweep_blocks() {
                            (int)kSweepSmem) != cudaSuccess) {
     return 0;
   }
+  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxShared);
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessorWithFlags(
           &per_sm, kernel, kApplyThreads, kSweepSmem, cudaOccupancyDefault) !=
       cudaSuccess) {
@@ -2066,7 +2200,7 @@ int qhbm_parity_bilinear(const float* l_re, const float* l_im,
   parity_bilinear_partial_kernel<<<blocks, kBilinThreads, 0, s>>>(
       l_re, l_im, a_re, a_im, row_masks, col_masks, K, B, R, C, partial);
   sum_partials_kernel<<<(K + 255) / 256, 256, 0, s>>>(partial, blocks, K,
-                                                      out, nullptr);
+                                                      out);
   return (int)cudaGetLastError();
 }
 

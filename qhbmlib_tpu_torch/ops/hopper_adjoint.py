@@ -20,7 +20,7 @@ reverse:
 
 `adjoint_sweep` (K2, pallas_adjoint.py:480) runs the same stages for ONE
 state of 8 to 20 qubits in one cooperative launch over a stage table; its
-1q reductions are the [N, N] grams, traced on the host (`sweep_grads`).
+1q reductions are the same per-qubit 2x2 transitions (kTrans records).
 
 The per-gate algebra on the reductions (the suffix-conjugated dU
 contractions, coefficient groupings) runs on the host after the sweep, as
@@ -236,8 +236,7 @@ def _backward_1q(seg_gates, seg_angles, nr: int, m: int):
   minor_inv = sv._fold_block({q - nr: v for q, v in inverses.items()
                               if q >= nr}, 0, m)
   stage = ("bwd1q", qubits, hopper_sv.segment_ops(majors, minor_inv, nr, m))
-  plan = ("1q", {"qubits": qubits, "mg_entries": mg_entries, "nr": nr,
-                 "m": m})
+  plan = ("1q", {"qubits": qubits, "mg_entries": mg_entries})
   return stage, plan
 
 
@@ -340,8 +339,8 @@ def _assemble_grads(plan, outputs: List[torch.Tensor],
 
 def _grads_from_flat(flat: torch.Tensor, shapes) -> List[torch.Tensor]:
   """Splits one host copy of every reduction, in stage order: split-complex
-  [Q, 2, 2, 2] transitions and [2, N, N] grams become complex [Q, 2, 2] and
-  [N, N] tensors (re/im is axis -3), [K] bilinears stay real."""
+  [Q, 2, 2, 2] transitions become complex [Q, 2, 2] tensors (re/im is axis
+  -3), [K] bilinears stay real."""
   outputs, pos = [], 0
   for shape in shapes:
     size = int(np.prod(shape))
@@ -395,19 +394,18 @@ def adjoint_sweep_batched(circuit: ir.Circuit, symbol_values, psi: Planes,
 
 def sweep_table(circuit: ir.Circuit, symbol_values, device):
   """(stage table, reduction shapes, assembly plan) of `adjoint_sweep`: per
-  reversed segment, the kGram / kBilin reductions from the current states
-  (a gram per `gram_blocks` range of a 1q segment's gradient qubits), then
-  the un-apply (kAxis records of the inverse operators, or kDiag with the
-  negated weights)."""
+  reversed segment, the kTrans / kBilin reductions from the current states
+  (the 2x2 transitions of a 1q segment's gradient qubits, if it has any),
+  then the un-apply (kAxis records of the inverse operators, or kDiag with
+  the negated weights)."""
   host_stages, plan = backward_plan(circuit, symbol_values)
   table = hopper_sv.StageTable(circuit.num_qubits, torch.device(device))
-  nr = table.n - table.m
   shapes = []
   for st in host_stages:
     if st[0] == "bwd1q":
-      for bits in gram_blocks(st[1], nr, table.m):
-        table.gram(bits)
-        shapes.append((2, 2**bits[1], 2**bits[1]))
+      if st[1]:
+        table.transitions(st[1])
+        shapes.append((len(st[1]), 2, 2, 2))
       for bits, op in st[2]:
         table.axis(bits, op)
     else:
@@ -421,20 +419,9 @@ def sweep_table(circuit: ir.Circuit, symbol_values, device):
 def sweep_grads(plan, flat: torch.Tensor, shapes,
                 num_symbols: int) -> torch.Tensor:
   """The gradient from K2's reductions (one host copy, stage order, of the
-  `sweep_table` shapes): each 1q stage's grams traced to the 2x2
-  transition of each gradient qubit (`partial_trace_1q`), then
-  `_assemble_grads`."""
-  outputs = iter(_grads_from_flat(flat, shapes))
-  reductions = []
-  for kind, info in plan:
-    if kind != "1q":
-      reductions.append(next(outputs))
-    elif info["qubits"]:
-      nr, m = info["nr"], info["m"]
-      grams = {bits: next(outputs)
-               for bits in gram_blocks(info["qubits"], nr, m)}
-      reductions.append(traces_of_grams(grams, info["qubits"], nr, m))
-  return _assemble_grads(plan, reductions, num_symbols)
+  `sweep_table` shapes: [Q, 2, 2, 2] transitions and [K] bilinears), read
+  by `_assemble_grads` as K5's are."""
+  return _assemble_grads(plan, _grads_from_flat(flat, shapes), num_symbols)
 
 
 def adjoint_sweep(circuit: ir.Circuit, symbol_values, psi: Planes,

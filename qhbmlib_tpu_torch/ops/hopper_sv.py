@@ -16,7 +16,8 @@ does not fit one SM, so every segment is one or two launches over the
 
 `circuit_forward` (K3, `apply_circuit_pallas`, pallas_sv.py:667) runs the
 whole circuit on ONE state of 8 to 20 qubits in one cooperative launch that
-walks a stage table (`single_stages`).
+walks a stage table (`single_stages`); its axis stages of N >= 16 contract
+on the tensor cores (3xTF32) as `axis_apply` does.
 
 The kernels live in `csrc/statevector_kernels.cu`.  Each wrapper launches
 its kernel for CUDA tensors (or raises) and runs its plain PyTorch version
@@ -439,12 +440,14 @@ def apply_circuit_batched(circuit: ir.Circuit, symbol_values,
 SINGLE_MIN_QUBITS = 8
 SINGLE_MAX_QUBITS = 20
 
-# Stage kinds, record width and most factors in a kDiag / kBilin record of
-# the kernels' stage table (statevector_kernels.cu: kAxis, kDiag, kGram,
-# kBilin, kStageInts, kBilinMaxK).
-AXIS, DIAG, GRAM, BILIN = 0, 1, 2, 3
+# Stage kinds, record width, most factors in a kDiag / kBilin record and
+# most qubits in a kTrans record of the kernels' stage table
+# (statevector_kernels.cu: kAxis, kDiag, kTrans, kBilin, kStageInts,
+# kBilinMaxK, kSweepMaxTrans).
+AXIS, DIAG, TRANS, BILIN = 0, 1, 2, 3
 STAGE_INTS = 8
 MAX_FACTORS = 1024
+MAX_TRANS = 32
 
 
 def single_admits(n: int) -> bool:
@@ -469,9 +472,10 @@ class StageTable:
   [kind, start, k, K, data offset, mask offset, out offset, 0] (one per
   stage), an int32 mask array and a float32 data array, on `device`.  Diag
   masks are (row_mask << m) | col_mask, the amplitude's flat index bits;
-  bilinear masks are the row masks then the column masks.  A diagonal
-  segment or bilinear of more than MAX_FACTORS factors takes several
-  records (the rotations compose; the bilinears land side by side)."""
+  bilinear masks are the row masks then the column masks; a transition
+  record's masks are its qubits' state-index bits (n - 1 - qubit).  A
+  diagonal segment or bilinear of more than MAX_FACTORS factors takes
+  several records (the rotations compose; the bilinears land side by side)."""
 
   def __init__(self, n: int, device):
     self.n = n
@@ -513,11 +517,17 @@ class StageTable:
                          for rm, cm in zip(rms[lo:hi], cms[lo:hi]))
       self._add(DIAG, count=len(rms[lo:hi]), data=off, masks=moff)
 
-  def gram(self, bits) -> int:
-    """A [2, N, N] transition reduction; returns its out offset."""
+  def transitions(self, qubits) -> int:
+    """The [Q, 2, 2, 2] (qubit, re/im, i, j) 2x2 transitions
+    T_q[i, j] = sum_{x: x_q = 0} conj(lam[x ^ i e_q]) a[x ^ j e_q] of
+    `qubits`; returns their out offset."""
+    if not 0 < len(qubits) <= MAX_TRANS:
+      raise ValueError(f"a transition record takes 1 to {MAX_TRANS} qubits")
     out = self.out_len
-    self.out_len += 2 * 4**bits[1]
-    self._add(GRAM, bits[0], bits[1], out=out)
+    self.out_len += 8 * len(qubits)
+    moff = len(self._masks)
+    self._masks.extend(self.n - 1 - int(q) for q in qubits)
+    self._add(TRANS, count=len(qubits), masks=moff, out=out)
     return out
 
   def bilinear(self, rms, cms) -> int:
@@ -534,8 +544,8 @@ class StageTable:
 
   def widest(self) -> int:
     """Floats in the widest reduction (the per-block partials' width)."""
-    return max([2 * 4**r[2] if r[0] == GRAM else r[3]
-                for r in self._records if r[0] in (GRAM, BILIN)] or [1])
+    return max([8 * r[3] if r[0] == TRANS else r[3]
+                for r in self._records if r[0] in (TRANS, BILIN)] or [1])
 
   def pack(self):
     """(records [num_stages * STAGE_INTS], masks, data) on the device,

@@ -26,8 +26,10 @@ SOURCE = ROOT / "qhbmlib_tpu_torch" / "csrc" / "statevector_kernels.cu"
 
 EMU_CUDA_H = r'''// A CPU stand-in for the CUDA runtime, to run a kernel source's device code
 // on the host: one std::thread per CUDA thread of a block, __syncthreads a
-// std::barrier over the block.  The PTX helpers that the test replaces
-// (cp.async, mma.sync) are emulated below; nothing else of the device is.
+// std::barrier over the block, a cooperative grid's grid.sync() one over
+// every thread of the grid.  The PTX helpers that the test replaces
+// (cp.async, mma.sync) and __shfl_xor_sync are emulated below; nothing else
+// of the device is.
 #pragma once
 #include <barrier>
 #include <cmath>
@@ -49,8 +51,10 @@ struct dim3 {
 };
 extern thread_local dim3 threadIdx, blockIdx;
 extern dim3 gridDim, blockDim;
-extern float emu_smem[];
+float* emu_block_smem();  // the running block's shared memory
+#define emu_smem emu_block_smem()
 void __syncthreads();
+float __shfl_xor_sync(unsigned mask, float v, int lane_mask);
 
 inline float __uint_as_float(unsigned u) {
   float f;
@@ -109,7 +113,7 @@ inline int cudaLaunchCooperativeKernel(const void*, dim3, dim3, void**,
 }
 namespace cooperative_groups {
 struct grid_group {
-  void sync() {}
+  void sync();  // a barrier over every thread of emu_run_grid's grid
 };
 inline grid_group this_grid() { return {}; }
 }  // namespace cooperative_groups
@@ -124,8 +128,9 @@ void emu_mma(float* d, const unsigned* a, const unsigned* b);
 '''
 
 EMU_RUNTIME_CC = r'''// The stand-in runtime's definitions, for a driver to put after the kernel
-// source: block and thread indices, shared memory, the barriers, the
-// emulated mma.sync and a runner of one block.
+// source: block and thread indices, each block's shared memory and
+// barriers, the emulated mma.sync and warp shuffle, and runners of one
+// block or of a whole cooperative grid.
 #include <barrier>
 #include <cstring>
 #include <memory>
@@ -134,22 +139,53 @@ EMU_RUNTIME_CC = r'''// The stand-in runtime's definitions, for a driver to put 
 
 thread_local dim3 threadIdx, blockIdx;
 dim3 gridDim, blockDim;
-alignas(16) float emu_smem[232448 / 4];
 bool emu_truncate = false;
-static std::unique_ptr<std::barrier<>> block_barrier;
-static std::unique_ptr<std::barrier<>> warp_barrier[32];
-static unsigned frag_a[32][32][4], frag_b[32][32][2];
 
-void __syncthreads() { block_barrier->arrive_and_wait(); }
+// One block's shared memory (NaN until written), its barrier, and its
+// warps' barriers and exchange slots.
+struct EmuBlock {
+  std::unique_ptr<std::barrier<>> bar;
+  std::unique_ptr<std::barrier<>> warp[32];
+  unsigned frag_a[32][32][4], frag_b[32][32][2];
+  float xchg[32][32];
+  alignas(16) float smem[232448 / 4];
+
+  explicit EmuBlock(int threads) {
+    bar = std::make_unique<std::barrier<>>(threads);
+    for (auto& w : warp) w = std::make_unique<std::barrier<>>(32);
+    std::memset(smem, 0xff, sizeof(smem));
+  }
+};
+static thread_local EmuBlock* emu_block = nullptr;
+static std::unique_ptr<std::barrier<>> grid_barrier;
+
+float* emu_block_smem() { return emu_block->smem; }
+void __syncthreads() { emu_block->bar->arrive_and_wait(); }
+void cooperative_groups::grid_group::sync() {
+  grid_barrier->arrive_and_wait();
+}
+
+float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+  EmuBlock& b = *emu_block;
+  const int w = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  b.xchg[w][lane] = v;
+  b.warp[w]->arrive_and_wait();
+  const float r = b.xchg[w][lane ^ lane_mask];
+  b.warp[w]->arrive_and_wait();
+  return r;
+}
 
 static float tf32(unsigned u) { return __uint_as_float(u & 0xffffe000u); }
 
 void emu_mma(float* d, const unsigned* a, const unsigned* b) {
   const int w = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  auto& frag_a = emu_block->frag_a;
+  auto& frag_b = emu_block->frag_b;
   std::memcpy(frag_a[w][lane], a, sizeof(frag_a[w][lane]));
   std::memcpy(frag_b[w][lane], b, sizeof(frag_b[w][lane]));
-  warp_barrier[w]->arrive_and_wait();
+  emu_block->warp[w]->arrive_and_wait();
   const int g = lane >> 2;
   const int t = lane & 3;
   float out[4];
@@ -168,24 +204,48 @@ void emu_mma(float* d, const unsigned* a, const unsigned* b) {
     }
     out[e] = r;
   }
-  warp_barrier[w]->arrive_and_wait();
+  emu_block->warp[w]->arrive_and_wait();
   std::memcpy(d, out, sizeof(out));
 }
 
 // Runs body() as block `blk` of `threads` CUDA threads, each a std::thread,
-// on shared memory that reads NaN until written.
+// on fresh shared memory.
 template <class Body>
 void emu_run_block(int blk, int threads, Body body) {
-  block_barrier = std::make_unique<std::barrier<>>(threads);
-  for (auto& b : warp_barrier) b = std::make_unique<std::barrier<>>(32);
-  std::memset(emu_smem, 0xff, sizeof(emu_smem));
+  auto block = std::make_unique<EmuBlock>(threads);
   std::vector<std::thread> pool;
   for (int t = 0; t < threads; ++t) {
     pool.emplace_back([&, t] {
       threadIdx = dim3(t);
       blockIdx = dim3(blk);
+      emu_block = block.get();
       body();
     });
+  }
+  for (auto& th : pool) th.join();
+}
+
+// Runs body() as every block of gridDim.x at once, `threads` threads each,
+// as a cooperative launch runs them: all of the grid's threads live
+// together and grid.sync() waits for all of them.
+template <class Body>
+void emu_run_grid(int threads, Body body) {
+  const int blocks = (int)gridDim.x;
+  grid_barrier = std::make_unique<std::barrier<>>(blocks * threads);
+  std::vector<std::unique_ptr<EmuBlock>> mem;
+  for (int b = 0; b < blocks; ++b) {
+    mem.push_back(std::make_unique<EmuBlock>(threads));
+  }
+  std::vector<std::thread> pool;
+  for (int b = 0; b < blocks; ++b) {
+    for (int t = 0; t < threads; ++t) {
+      pool.emplace_back([&, b, t] {
+        threadIdx = dim3(t);
+        blockIdx = dim3(b);
+        emu_block = mem[b].get();
+        body();
+      });
+    }
   }
   for (auto& th : pool) th.join();
 }

@@ -241,12 +241,15 @@ def _run_table(table, states):
       theta = sum((1 - 2 * _parity(idx, masks[moff + j])) * data[doff + j]
                   for j in range(count))
       states = [s * np.exp(1j * theta) for s in states]
-    elif kind == hopper_sv.GRAM:
+    elif kind == hopper_sv.TRANS:
+      # T[i, j] = sum_{x: x_b = 0} conj(lam[x ^ i 2^b]) a[x ^ j 2^b] per
+      # state-index bit b: 8 floats, re then im of T00 T01 T10 T11.
       a, lam = states
-      g = np.einsum("pIq,pJq->IJ", lam.reshape(p, nn, q).conj(),
-                    a.reshape(p, nn, q))
-      out[ooff:ooff + 2 * nn * nn] = np.concatenate([g.real.ravel(),
-                                                     g.imag.ravel()])
+      for j in range(count):
+        hi = 1 << masks[moff + j]
+        pa, pl = a.reshape(-1, 2, hi), lam.reshape(-1, 2, hi)
+        t = np.einsum("xiy,xjy->ij", pl.conj(), pa).ravel()
+        out[ooff + 8 * j:ooff + 8 * j + 8] = np.concatenate([t.real, t.imag])
     else:
       a, lam = states
       w = (lam.conj() * a).imag.reshape(1 << (n - m), 1 << m)

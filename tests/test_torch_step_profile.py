@@ -58,3 +58,42 @@ def test_breakdown_names_the_top_kernels_and_sums_the_rest():
   assert len(per_step) == sp.TOP + 1
   assert per_step[f"k{sp.TOP + 2}"] == pytest.approx((sp.TOP + 3) / 1e3)
   assert per_step["(other kernels)"] == pytest.approx(6 / 1e3)
+
+
+def test_host_split_sums_spans_runtime_and_the_rest():
+  region = sp.SINGLE_REGION
+  events = [
+      {"name": region, "cat": "user_annotation", "ts": 0, "dur": 1000},
+      {"name": "forward_table", "cat": "user_annotation", "ts": 10,
+       "dur": 100},
+      {"name": "sweep_table", "cat": "user_annotation", "ts": 300, "dur": 200},
+      {"name": "sweep_table", "cat": "user_annotation", "ts": 350, "dur": 50},
+      {"name": "cudaStreamSynchronize", "cat": "cuda_runtime", "ts": 600,
+       "dur": 40},
+      {"name": "forward_table", "cat": "user_annotation", "ts": 2000,
+       "dur": 100},  # outside
+  ]
+  out = sp.host_split(events, calls=2)
+  assert out["call_ms"] == pytest.approx(0.5)
+  assert out["spans_ms"]["forward_table"] == pytest.approx(0.05)
+  assert out["spans_ms"]["sweep_table"] == pytest.approx(0.1)
+  assert out["spans_ms"]["sweep_grads"] == 0.0
+  assert out["runtime_ms"] == {
+      "cudaStreamSynchronize": {"ms": pytest.approx(0.02), "count": 0.5}}
+  assert out["rest_ms"] == pytest.approx((1000 - 300) / 2e3)
+
+
+def test_single_state_region_runs_on_cpu(tmp_path):
+  """The single-state region at 9q/1L on the CPU (the plain versions): it
+  traces its calls, the value-and-gradient parts that the CPU path runs
+  show as spans, and the module functions are restored after."""
+  before = sp.hopper_sv.forward_table
+  out = sp.profile_single(str(tmp_path), device="cpu", n=9, layers=1)
+  assert sp.hopper_sv.forward_table is before
+  assert out["calls"] == sp.SINGLE_CALLS and out["card"] is None
+  assert out["busy_share"] == 0.0  # no device on the CPU
+  spans = out["host"]["spans_ms"]
+  assert set(spans) == {fn for _, fn in sp.SINGLE_SPANS}
+  for fn in ("host_values", "expectation_terms", "apply_pauli_sum"):
+    assert spans[fn] > 0.0, fn
+  assert 0.0 <= out["host"]["rest_ms"] <= out["host"]["call_ms"]
