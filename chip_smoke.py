@@ -6,34 +6,38 @@ Builds the CUDA kernels of `qhbmlib_tpu_torch/csrc/` with nvcc (one
 process per source, in parallel) and holds each of the eight against its
 plain PyTorch version: `axis_apply` (K4) on the three passes of a 20-qubit
 1q segment, at the 20q train step's own shape (B = 64, the lone row block
-(7,6)), on the minor operator alone and on 16q's lone block (7,2);
-`diag_rotate`, `parity_bilinear` at the 20-qubit shapes; `axis2_apply`
-(K1) at the 24- and 20-qubit pass shapes; `qubit_transitions` (K5's 1q
-reductions) at 24 and 20 qubits, B = 8 and 64; `circuit_forward` (K3) and
-`adjoint_sweep` (K2) at 20q/4L and 16q/4L for one random state, with the
-cost of one near-empty stage of their cooperative launch;
-`parity_bilinear` again at the train steps' own shapes (24q B=8, 20q
-B=64); `stream_scale` (K6) on the 24-qubit plane at each tile size.  Each
-kernel is timed beside its plain version, the one PyTorch call that
-computes the same function where there is one (`library_ms`), and its
-bound: the larger of its bytes over 3.35 TB/s and its float32 operations
-over 67 TFLOP/s (H100 SXM), or three times them over 495 TFLOP/s for the
-contractions on the tensor cores in 3xTF32 (K1, K4 from N = 16, and the
-axis stages of K3 / K2 from N = 16, whose other stages count at the fp32
-rate), counted from the shapes it ran on.  Then it holds the batched
-forward and sweep against their plain versions and the 9-qubit VQT loss
-and single-state `adjoint.expectation` against the CPU, and drives the
-main paths, each with every launch count reset just before it and read
+(7,6)), on the minor operator alone and on the lone row blocks (7,1),
+(7,2), (7,3) of 15-17 qubits (N = 2, 4, 8: the register-stream route) at
+B = 64 and on 16q's at B = 8, those also timed as CUDA-graph replays
+(device time); `diag_rotate`, `parity_bilinear` at the 20-qubit shapes;
+`axis2_apply` (K1) at the 24- and 20-qubit pass shapes;
+`qubit_transitions` (K5's 1q reductions) at 24 and 20 qubits, B = 8 and
+64; `circuit_forward` (K3) and `adjoint_sweep` (K2) at 20q/4L and 16q/4L
+for one random state, with the cost of one near-empty stage of their
+cooperative launch; `parity_bilinear` again at the train steps' own shapes
+(24q B=8, 20q B=64); `stream_scale` (K6) on the 24-qubit plane at each
+tile size.  Each kernel is timed beside its plain version, the one PyTorch
+call that computes the same function where there is one (`library_ms`),
+and its bound: the larger of its bytes over 3.35 TB/s and its float32
+operations over 67 TFLOP/s (H100 SXM), or three times them over 495
+TFLOP/s for the contractions on the tensor cores in 3xTF32 (K1, K4 from N
+= 16, and the axis stages of K3 / K2 from N = 16, whose other stages count
+at the fp32 rate), counted from the shapes it ran on.  Then it holds the
+batched forward and sweep against their plain versions and the 9-qubit VQT
+loss and single-state `adjoint.expectation` against the CPU, and drives
+the main paths, each with every launch count reset just before it and read
 just after: the port's bench (`qhbmlib_tpu_torch.bench`: a warm-up and
 three timed VQT train steps at 24q/2L/100/8 and at 20q/4L/500/64, the
 precision gate, the 24q forward <H> against the f64 oracle, PauliSum
-expectations/s at 20q, the HBM stream probe) and three single-state
-value-and-gradient calls at 20q/4L.  It fails if the gate's gradient error reaches 1e-2 or the
-forward <H> is more than 1e-4 from the oracle.  Before the last line it
-prints a JSON line {"kernels": [...]} with each kernel's launches on the
-main paths, its error against the plain version, its times and its bound;
-the last line is {"ok": true, "device": {...}}.  It exits non-zero
-without a CUDA device, and on any failed check.  Imports no jax.
+expectations/s at 20q, the HBM stream probe), the train step at
+16q/4L/500/64 (whose lone row block takes `axis_apply`'s N < 16 route),
+its gradient held against the plain versions, and three single-state
+value-and-gradient calls at 20q/4L.  It fails if the gate's gradient error
+reaches 1e-2 or the forward <H> is more than 1e-4 from the oracle.  Before
+the last line it prints a JSON line {"kernels": [...]} with each kernel's
+launches on the main paths, its error against the plain version, its times
+and its bound; the last line is {"ok": true, "device": {...}}.  It exits
+non-zero without a CUDA device, and on any failed check.  Imports no jax.
 """
 
 from __future__ import annotations
@@ -101,6 +105,36 @@ def cuda_ms(fn, reps: int = 10) -> float:
   end.record()
   torch.cuda.synchronize()
   return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 3) -> float:
+  """Device milliseconds of one fn() call: `reps` calls captured in one CUDA
+  graph, replayed once to warm up, then `replays` times between CUDA
+  events; the mean over the replays' calls.  A replay launches the calls
+  back to back with no host work between them, so this is the card's time
+  where cuda_ms may time the host's launch path."""
+  cur = torch.cuda.current_stream()
+  side = torch.cuda.Stream()
+  side.wait_stream(cur)
+  with torch.cuda.stream(side):
+    fn()  # warm-up off the capture, as torch.cuda.graph asks
+  cur.wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    for _ in range(reps):
+      fn()
+  graph.replay()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  for _ in range(replays):
+    graph.replay()
+  end.record()
+  torch.cuda.synchronize()
+  ms = start.elapsed_time(end) / (replays * reps)
+  del graph
+  torch.cuda.empty_cache()
+  return ms
 
 
 def bound(flops: float, nbytes: float, ops_per_s: float = PEAK_FP32_PER_S
@@ -253,7 +287,8 @@ def check_bilinear(label, planes, rms, cms, library=False):
 def phase_bilinear_steps(device):
   """parity_bilinear at the train steps' own shapes, the bench workloads'
   batches (24q B=8, 20q B=64), over the K factors of each ansatz's first
-  diagonal segment."""
+  diagonal segment, beside its library einsum (at 24q its [K, R] sign
+  matrix is 140 x 2^17 complex64, 147 MB)."""
   from qhbmlib_tpu_torch import bench
   from qhbmlib_tpu_torch.models import circuit_utils
   from qhbmlib_tpu_torch.ops import statevector as sv
@@ -264,16 +299,19 @@ def phase_bilinear_steps(device):
     r, c = sv.state_shape(n)
     planes = tuple(torch.randn((b, r, c), generator=dgen, device=device)
                    for _ in range(4))
-    check_bilinear(f"{name} step", planes, *first_diag_factors(pqc))
+    check_bilinear(f"{name} step", planes, *first_diag_factors(pqc),
+                   library=True)
     del planes
     torch.cuda.empty_cache()
 
 
-def check_axis_apply(label, shapes, planes):
+def check_axis_apply(label, shapes, planes, graph=False):
   """axis_apply against its plain version on the [P, N, Q] views `shapes`
   [((p, n, q), (op_re, op_im))] of the planes (re, im), one launch a view,
   timed beside its plain version, one torch.matmul of the complex view a
-  view (`library_ms`) and its bounds; returns the record.  Operators of
+  view (`library_ms`) and its bounds; returns the record.  With `graph`,
+  the kernel and the library call are also timed as CUDA-graph replays
+  (`graph_ms`, `library_graph_ms`: device time).  Operators of
   N >= 16 contract on the tensor cores in 3xTF32, so where every view has
   N >= 16 the bound is the 3xTF32 tensor bound, max(bytes / 3.35 TB/s,
   3 * flops / 495 TFLOP/s), else the fp32-core one; the fp32-core bound
@@ -304,42 +342,58 @@ def check_axis_apply(label, shapes, planes):
              **(bound(3 * flops, nbytes, PEAK_TF32_PER_S) if tensor
                 else bound(flops, nbytes)))
   rec["fp32_bound_ms"] = bound(flops, nbytes)["bound_ms"]
+  device_time = ""
+  if graph:
+    rec["graph_ms"] = graph_ms(lambda: apply_all(hs.axis_apply))
+    rec["library_graph_ms"] = graph_ms(lambda: [torch.matmul(o, v)
+                                                for o, v in lib_ops])
+    device_time = (f"; device time (graph replay) kernel "
+                   f"{rec['graph_ms']:.4f} ms (share "
+                   f"{rec['bound_ms'] / rec['graph_ms']:.1%}), library "
+                   f"{rec['library_graph_ms']:.4f} ms")
   log(f"[kernels] axis_apply {label}: kernel {rec['ms']:.4f} ms, plain "
       f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, "
       f"{'3xTF32 tensor' if tensor else 'fp32-core'} bound "
       f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; share "
       f"{rec['bound_ms'] / rec['ms']:.1%})"
       + (f", fp32-core bound {rec['fp32_bound_ms']:.4f} ms" if tensor
-         else "") + f", max abs err {abs_err:.3e}")
+         else "") + device_time + f", max abs err {abs_err:.3e}")
   return rec
 
 
+# K4's views timed in phase_k4: (qubits, batch, view).  "lone" is the row
+# block plan_passes leaves unpaired, "minor" the minor operator of the first
+# pass.  The 20q step's lone block (7,6) runs on the tensor cores; the lone
+# blocks (7,1), (7,2), (7,3) of 15-17 qubits (N = 2, 4, 8, Q = 128) take
+# the register stream, at the train steps' batch (64) and at B = BATCH.
+K4_VIEWS = ((N_QUBITS, 64, "lone"), (N_QUBITS, BATCH, "minor"),
+            (15, 64, "lone"), (16, 64, "lone"), (17, 64, "lone"),
+            (16, BATCH, "lone"))
+
+
 def phase_k4(device):
-  """axis_apply against its plain version at the 20q train step's own shape
-  (B = 64, the row block (7,6) that plan_passes leaves unpaired: P = 8192,
-  N = 64, Q = 128, 1 GiB of planes in and out), on the minor operator alone
-  (20q, B = BATCH: Q = 1, N = 128) and on 16q's lone row block (7,2)
-  (B = BATCH, N = 4: the FMA body); returns the 20q B = 64 record.  The
-  three-pass B = BATCH check runs in phase_kernels."""
-  from qhbmlib_tpu_torch import bench
+  """axis_apply against its plain version on K4_VIEWS, each timed by CUDA
+  events over back-to-back wrapper calls (`ms`) and, for N < 16, also as
+  CUDA-graph replays (device time), the library call likewise; returns the
+  20q B = 64 record (P = 8192, N = 64, Q = 128, 1 GiB of planes in and
+  out).  The three-pass B = BATCH check runs in phase_kernels."""
   from qhbmlib_tpu_torch.ops import statevector as sv
   dgen = torch.Generator(device=device).manual_seed(SEED + 40)
-  batch_20q = bench.WORKLOADS["20q"]["max_unique"]
   report = None
-  for n, b, lone in ((N_QUBITS, batch_20q, True), (N_QUBITS, BATCH, False),
-                     (16, BATCH, True)):
+  for n, b, which in K4_VIEWS:
     passes = first_segment_passes(n, device)
-    if lone:  # the row block plan_passes leaves unpaired
+    if which == "lone":
       (s, k), op = next(p for p in passes if len(p) == 2)
-    else:  # the minor operator of the first pass
+    else:
       (s, k), op = next(p[2:] for p in passes if len(p) == 4)
     r, c = sv.state_shape(n)
     planes = tuple(torch.randn((b, r, c), generator=dgen, device=device)
                    for _ in range(2))
     view = (b << s, 2**k, 2**(n - s - k))
     rec = check_axis_apply(
-        f"{n}q B={b}, {'lone row block' if lone else 'minor'} ({s},{k}): "
-        f"P={view[0]}, N={view[1]}, Q={view[2]}", [(view, op)], planes)
+        f"{n}q B={b}, {'lone row block' if which == 'lone' else 'minor'} "
+        f"({s},{k}): P={view[0]}, N={view[1]}, Q={view[2]}", [(view, op)],
+        planes, graph=view[1] < 16)
     del planes
     torch.cuda.empty_cache()
     report = report or rec
@@ -517,6 +571,36 @@ BENCH_PATHS = {
     "pauli 20q": ["axis_apply", "axis2_apply", "diag_rotate"],
     "probe": ["stream_scale"],
 }
+
+
+# Kernels the 16q train step must launch: its lone row block (7,2) takes
+# axis_apply at N = 4, once in the forward and twice in the sweep a layer.
+TRAIN_16Q = ["axis_apply", "axis2_apply", "diag_rotate", "qubit_transitions",
+             "parity_bilinear"]
+
+
+def phase_train_16q(device):
+  """The VQT train step at 16q/4L/500/64 (`step_profile.WORKLOADS["16q"]`,
+  `bench.run_workload`: a warm-up and STEPS steps) with every launch count
+  reset just before and read just after; then, as the bench's gate does
+  (TF32 off), the kernels' loss and gradient against the plain versions at
+  each timed step's parameters and EBM draw, within GRAD_TOL.  Returns the
+  launches."""
+  from qhbmlib_tpu_torch import bench
+  from qhbmlib_tpu_torch.benchmarks import step_profile
+  cfg = step_profile.WORKLOADS["16q"]
+  traj = {}
+  reset_launches()
+  sps = bench.run_workload("16q", cfg, STEPS, device, traj)
+  torch.cuda.synchronize()
+  launches = read_launches("train 16q", TRAIN_16Q)
+  per_step = {k: v / (STEPS + 1) for k, v in launches.items() if v}
+  log(f"[train 16q] {sps:.4f} steps/s; launches per step (warm-up + "
+      f"{STEPS} steps): {per_step}")
+  gate = bench.precision_gate(traj)
+  check(f"train 16q gradient, kernels vs plain at {STEPS} steps",
+        gate["gate_grad_rel_err"], GRAD_TOL)
+  return launches
 
 
 def phase_bench(device):
@@ -946,9 +1030,9 @@ def kernel_name(entry: str, source: str) -> str:
   for name in sorted(set(re.findall(r"\b([a-z]\w*_kernel)\b", source))):
     at = mangled.find(f"{len(name)}{name}")
     if at >= 0:
-      tmpl = re.match(r"I((?:Li\d+E)+)E", mangled[at + len(str(len(name))) +
-                                                  len(name):])
-      return name + (f"<{', '.join(re.findall(r'Li(\d+)E', tmpl.group(1)))}>"
+      tmpl = re.match(r"I((?:L[ib]\d+E)+)E",
+                      mangled[at + len(str(len(name))) + len(name):])
+      return name + (f"<{', '.join(re.findall(r'L[ib](\d+)E', tmpl.group(1)))}>"
                      if tmpl else "")
   return mangled
 
@@ -1007,6 +1091,7 @@ def main() -> int:
   phase_long_diag(device)
   # The main paths, each driven with every count at 0 just before it.
   _, paths = phase_bench(device)
+  paths["train 16q"] = phase_train_16q(device)
   paths["single"] = phase_single_main(device)
   log(f"[done] on {card}, {time.time() - t0:.1f} s since the build started")
   kernels = [{

@@ -2,19 +2,21 @@
 
     python -m qhbmlib_tpu_torch.benchmarks.step_profile [--trace-dir DIR]
 
-For each of the port's bench workloads (`bench.WORKLOADS`) it builds the
-train step (`bench.build_train_step`), takes one warm-up step, then traces
-STEPS steps inside one `record_function` region that ends in a
-synchronize.  From the exported Chrome trace: the busy share, the union of
-the device intervals (kernels, copies, sets) inside the region over the
-region's wall time -- the profiler stretches the wall, so this is a lower
-bound for an untraced step -- and the device milliseconds per step of the
-TOP kernels by name (the rest summed).  Then the same for SINGLE_CALLS
-single-state value-and-gradient calls at 20q/4L (`adjoint.expectation` and
-its backward: K3, then K2), with the call's host time split by its parts
-(`host_split`): each of SINGLE_SPANS traced as a region of its own, and the
-CUDA runtime's copies, synchronizations and launches.  Prints one JSON line
-a workload, with the card's name and power limit.  Needs the CUDA card.
+For each workload of WORKLOADS (the port's bench workloads, 24q and 20q,
+and 16q/4L/500/64, whose lone row block (7,2) takes `axis_apply`'s N < 16
+route) it builds the train step (`bench.build_train_step`), takes one
+warm-up step, then traces STEPS steps inside one `record_function` region
+that ends in a synchronize.  From the exported Chrome trace: the busy
+share, the union of the device intervals (kernels, copies, sets) inside
+the region over the region's wall time -- the profiler stretches the wall,
+so this is a lower bound for an untraced step -- and the device
+milliseconds per step of the TOP kernels by name (the rest summed).  Then
+the same for SINGLE_CALLS single-state value-and-gradient calls at 20q/4L
+(`adjoint.expectation` and its backward: K3, then K2), with the call's host
+time split by its parts (`host_split`): each of SINGLE_SPANS traced as a
+region of its own, and the CUDA runtime's copies, synchronizations and
+launches.  Prints one JSON line a workload, with the card's name and power
+limit.  Needs the CUDA card.
 """
 
 from __future__ import annotations
@@ -46,6 +48,10 @@ RUNTIME_CATS = ("cuda_runtime", "cuda_driver")
 STEPS = 3  # traced steps a workload
 SINGLE_CALLS = 3  # traced single-state calls
 TOP = 12  # kernels reported by name; the rest are summed
+# The profiled train steps: the bench's two, and the 20q workload's depth
+# and draw at 16 qubits.
+WORKLOADS = {**bench.WORKLOADS,
+             "16q": dict(n=16, layers=4, samples=500, max_unique=64)}
 # The single-state call's host parts, in call order: (module, function).
 SINGLE_SPANS = (
     (hopper_sv, "host_values"), (hopper_sv, "forward_table"),
@@ -203,7 +209,7 @@ def profile_single(trace_dir: str, device="cuda", n: int = 20,
 
 def profile_workload(name: str, trace_dir: str) -> dict:
   device = torch.device("cuda")
-  _, _, train_step = bench.build_train_step(bench.WORKLOADS[name], device)
+  _, _, train_step = bench.build_train_step(WORKLOADS[name], device)
   train_step()  # warm-up: builds the kernels
   torch.cuda.synchronize()
   acts = [torch.profiler.ProfilerActivity.CPU,
@@ -230,7 +236,7 @@ def main(argv=None) -> None:
     sys.exit("step_profile: needs the CUDA card")
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
-  for name in bench.WORKLOADS:
+  for name in WORKLOADS:
     print(json.dumps(profile_workload(name, args.trace_dir)), flush=True)
   print(json.dumps(profile_single(args.trace_dir)), flush=True)
 

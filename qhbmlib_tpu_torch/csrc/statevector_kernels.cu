@@ -28,11 +28,18 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <mutex>
+#include <vector>
+
 namespace cg = cooperative_groups;
 
 namespace {
 
 int sm_count();
+int blocks_per_sm(const void* kernel, int threads, size_t smem,
+                  bool max_carveout);
+template <auto kAttr>
+int device_attribute();
 
 // ---------------------------------------------------------------------------
 // Tiles of W columns of a [P, N, Q] view.
@@ -85,15 +92,18 @@ __device__ __forceinline__ TileIndex tile_index(int i, int N, int Q, int W,
 // Bound: at N = 128 each amplitude costs 8*N = 1024 flop against 16 bytes
 // read and written, about 64 flop/B -- above the H100's fp32 CUDA-core ridge
 // (~67 TFLOP/s over 3.35 TB/s, ~20 flop/B).  So for N >= 16 axis_apply runs
-// on the tensor cores (axis_apply_mma_kernel, below K1); this fp32 FMA body
-// serves N < 16: the lone row blocks of 15-17 qubits, and the axis stages
-// of N < 16 in the cooperative whole-circuit kernels.  The operator is
-// staged once per persistent block in shared memory, a tile of W columns
-// is staged beside it, each of 512 threads keeps an (N/16)x2 register tile
-// of outputs, operator reads are 16-byte warp broadcasts, and outputs go
-// back through shared memory so the stores are as coalesced as the loads;
-// 512 threads give each scheduler four warps to hide shared-memory
-// latency.
+// on the tensor cores (axis_apply_mma_kernel, below K1).  Below N = 16 an
+// amplitude costs 8N flop against 16 bytes, at most 4 flop/B: a stream that
+// HBM bounds, which axis_stream_kernel (below) serves -- the lone row blocks
+// of 15-17 and 29-31 qubits and the minor operator of 2-3 qubits.
+//
+// axis_apply_tiles is the fp32 FMA body of the cooperative whole-circuit
+// kernels' axis stages of N < 16.  The operator is staged once per
+// persistent block in shared memory, a tile of W columns is staged beside
+// it, each of 512 threads keeps an (N/16)x2 register tile of outputs,
+// operator reads are 16-byte warp broadcasts, and outputs go back through
+// shared memory so the stores are as coalesced as the loads; 512 threads
+// give each scheduler four warps to hide shared-memory latency.
 constexpr int kApplyThreads = 512;
 constexpr int kApplyW = 64;             // columns per tile (2 per lane)
 constexpr int kApplyLd = kApplyW + 1;   // padded row stride of the tile
@@ -103,8 +113,8 @@ constexpr size_t axis_apply_smem() {
   return (2 * N * N + 2 * N * kApplyLd) * sizeof(float);
 }
 
-// The body of axis_apply, shared with the cooperative whole-circuit kernels:
-// this block takes tiles first_tile, first_tile + tile_stride, ...  It
+// The cooperative kernels' axis stage of N < 16 on one block: this block
+// takes tiles first_tile, first_tile + tile_stride, ...  It
 // starts and ends with a block barrier, so `smem` may be reused around it.
 template <int N>
 __device__ void axis_apply_tiles(const float* __restrict__ x_re,
@@ -211,17 +221,119 @@ __device__ void axis_apply_tiles(const float* __restrict__ x_re,
   __syncthreads();
 }
 
+// axis_stream_kernel<N, W, kVec>: axis_apply for N < 16, streamed through
+// registers.  A thread owns a group of W = min(Q, 4) consecutive q of one p
+// (for Q < 4, whole p's: N * Q contiguous floats a plane): it loads the
+// group's N rows of each plane straight into registers (with kVec, one
+// 16-byte load a row and plane, so a warp reads 512 contiguous bytes a row
+// at Q >= 128), forms the N output rows one at a time and stores each at
+// once.  No shared-memory tile and no barrier in the loop: the operator
+// (2 N^2 <= 128 floats) is staged once a block behind one barrier and read
+// as warp-uniform broadcasts.  Every load of a group is issued before its
+// first FMA, so a thread keeps 2 N W floats in flight.  Groups are taken
+// in a grid-stride loop; the launcher gives one group a thread up to
+// kStreamBlocksPerSm blocks an SM.  Without kVec (W < 4, or a plane not
+// 16-byte aligned) the same loop runs on 4-byte loads and stores.
+constexpr int kStreamThreads = 256;
+constexpr int kStreamBlocksPerSm = 16;
+
+template <int N, int W, bool kVec>
+__global__ void __launch_bounds__(kStreamThreads)
+    axis_stream_kernel(const float* __restrict__ x_re,
+                       const float* __restrict__ x_im,
+                       const float* __restrict__ op_re,
+                       const float* __restrict__ op_im,
+                       float* __restrict__ y_re, float* __restrict__ y_im,
+                       long long groups, int log_q) {
+  static_assert(N >= 2 && N < 16 && (W == 1 || W == 2 || W == 4) &&
+                    (!kVec || W == 4),
+                "axis_stream_kernel: N < 16; W of 1, 2 or 4; kVec at W = 4");
+  extern __shared__ float smem[];  // [N][N] re, then [N][N] im
+  for (int i = threadIdx.x; i < N * N; i += kStreamThreads) {
+    smem[i] = op_re[i];
+    smem[N * N + i] = op_im[i];
+  }
+  __syncthreads();
+  constexpr int kLogW = W == 4 ? 2 : W - 1;
+  const int log_g = log_q - kLogW;  // groups a p
+  const long long q_mask = (1LL << log_g) - 1;
+  const long long stride = (long long)gridDim.x * kStreamThreads;
+  for (long long g = (long long)blockIdx.x * kStreamThreads + threadIdx.x;
+       g < groups; g += stride) {
+    const long long base =
+        (((g >> log_g) * N) << log_q) + ((g & q_mask) << kLogW);
+    float xr[N][W], xi[N][W];
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const long long off = base + ((long long)n << log_q);
+      if constexpr (kVec) {
+        const float4 vr = *reinterpret_cast<const float4*>(x_re + off);
+        const float4 vi = *reinterpret_cast<const float4*>(x_im + off);
+        xr[n][0] = vr.x; xr[n][1] = vr.y; xr[n][2] = vr.z; xr[n][3] = vr.w;
+        xi[n][0] = vi.x; xi[n][1] = vi.y; xi[n][2] = vi.z; xi[n][3] = vi.w;
+      } else {
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          xr[n][w] = x_re[off + w];
+          xi[n][w] = x_im[off + w];
+        }
+      }
+    }
+    // From N = 4 the output rows go one at a time, so one row's operator
+    // is live, not all 2 N^2 floats: unrolled, N = 8 took 255 registers (one
+    // block an SM) and ran 5% slower at 17q; at N = 2 the loop not unrolled
+    // ran 34% slower (PERF.md, section 6).
+#pragma unroll(N >= 4 ? 1 : N)
+    for (int m = 0; m < N; ++m) {
+      float ar[W], ai[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) ar[w] = ai[w] = 0.f;
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        const float wr = smem[m * N + n];
+        const float wi = smem[N * N + m * N + n];
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          ar[w] = fmaf(wr, xr[n][w], fmaf(-wi, xi[n][w], ar[w]));
+          ai[w] = fmaf(wr, xi[n][w], fmaf(wi, xr[n][w], ai[w]));
+        }
+      }
+      const long long off = base + ((long long)m << log_q);
+      if constexpr (kVec) {
+        *reinterpret_cast<float4*>(y_re + off) =
+            make_float4(ar[0], ar[1], ar[2], ar[3]);
+        *reinterpret_cast<float4*>(y_im + off) =
+            make_float4(ai[0], ai[1], ai[2], ai[3]);
+      } else {
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          y_re[off + w] = ar[w];
+          y_im[off + w] = ai[w];
+        }
+      }
+    }
+  }
+}
+
+using AxisStreamKernel = void (*)(const float*, const float*, const float*,
+                                  const float*, float*, float*, long long,
+                                  int);
+
+// The axis_stream_kernel instance for Q = 2^log_q on these planes: 16-byte
+// accesses where Q >= 4 and every plane is 16-byte aligned.
 template <int N>
-__global__ void __launch_bounds__(kApplyThreads)
-    axis_apply_kernel(const float* __restrict__ x_re,
-                      const float* __restrict__ x_im,
-                      const float* __restrict__ op_re,
-                      const float* __restrict__ op_im,
-                      float* __restrict__ y_re, float* __restrict__ y_im,
-                      long long cols, int Q) {
-  extern __shared__ float smem[];
-  axis_apply_tiles<N>(x_re, x_im, op_re, op_im, y_re, y_im, cols, Q,
-                      blockIdx.x, gridDim.x, smem);
+AxisStreamKernel axis_stream_pick(int log_q, const float* x_re,
+                                  const float* x_im, const float* y_re,
+                                  const float* y_im) {
+  const unsigned long long any =
+      (unsigned long long)x_re | (unsigned long long)x_im |
+      (unsigned long long)y_re | (unsigned long long)y_im;
+  if (log_q >= 2) {
+    return any % 16 ? axis_stream_kernel<N, 4, false>
+                    : axis_stream_kernel<N, 4, true>;
+  }
+  return log_q == 1 ? axis_stream_kernel<N, 2, false>
+                    : axis_stream_kernel<N, 1, false>;
 }
 
 // Fixed-order sum of per-block partials: out[i] = sum_b partial[b, i] for i
@@ -1942,25 +2054,10 @@ __global__ void __launch_bounds__(kApplyThreads)
 // memory); 0 if the device cannot launch it cooperatively.
 template <int S>
 int sweep_blocks() {
-  int dev = 0;
-  int coop = 0;
-  int per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return 0;
-  auto kernel = sweep_kernel<S>;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)kSweepSmem) != cudaSuccess) {
-    return 0;
-  }
-  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                       cudaSharedmemCarveoutMaxShared);
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessorWithFlags(
-          &per_sm, kernel, kApplyThreads, kSweepSmem, cudaOccupancyDefault) !=
-      cudaSuccess) {
-    return 0;
-  }
-  return per_sm * sm_count();
+  if (!device_attribute<cudaDevAttrCooperativeLaunch>()) return 0;
+  return blocks_per_sm((const void*)sweep_kernel<S>, kApplyThreads,
+                       kSweepSmem, true) *
+         sm_count();
 }
 
 template <int S>
@@ -1983,37 +2080,127 @@ int launch_sweep(float* a, float* lam, int n, int m, const int* stages,
 // Launch helpers
 // ---------------------------------------------------------------------------
 
-int sm_count() {
+// The launch geometry is asked of the runtime once and then cached, so a
+// launch makes no attribute or occupancy query after its kernel's first
+// launch on a device: asked at every launch, they cost host time that a
+// small launch (a few us on the card) cannot hide.
+
+int current_device() {
   int dev = 0;
-  int sms = 0;
   cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return dev;
+}
+
+// The current device's attribute kAttr, asked once a device.
+template <auto kAttr>
+int device_attribute() {
+  static std::mutex mu;
+  static std::vector<int> value;  // by device; -1: not asked yet
+  const int dev = current_device();
+  std::lock_guard<std::mutex> lock(mu);
+  if ((int)value.size() <= dev) value.resize(dev + 1, -1);
+  if (value[dev] < 0) {
+    int v = 0;
+    cudaDeviceGetAttribute(&v, kAttr, dev);
+    value[dev] = v;
+  }
+  return value[dev];
+}
+
+int sm_count() {
+  const int sms = device_attribute<cudaDevAttrMultiProcessorCount>();
   return sms > 0 ? sms : 1;
 }
 
-template <typename Kernel>
-int persistent_grid(Kernel kernel, int threads, size_t smem, long long work) {
+// Blocks of `kernel` resident on one SM at `threads` threads and `smem`
+// bytes of dynamic shared memory.  The kernel's dynamic shared-memory
+// limit is raised to `smem` where it is lower (never lowered: a launch of
+// less than the limit is valid, so one kernel may launch at several sizes
+// in any order) and, with `max_carveout`, its whole carveout is asked for
+// at its first launch; the occupancy is asked once for each (kernel,
+// threads, smem) on a device, then cached.  0 if the kernel cannot run so.
+int blocks_per_sm(const void* kernel, int threads, size_t smem,
+                  bool max_carveout) {
+  struct Limit {
+    const void* kernel;
+    int dev;
+    size_t smem;  // the dynamic shared-memory limit set so far
+  };
+  struct Fit {
+    const void* kernel;
+    int dev;
+    int threads;
+    size_t smem;
+    int per_sm;
+  };
+  static std::mutex mu;
+  static std::vector<Limit> limits;
+  static std::vector<Fit> fits;
+  const int dev = current_device();
+  std::lock_guard<std::mutex> lock(mu);
+  Limit* limit = nullptr;
+  for (Limit& l : limits) {
+    if (l.kernel == kernel && l.dev == dev) limit = &l;
+  }
+  if (limit == nullptr) {
+    if (max_carveout) {
+      cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+    }
+    limits.push_back({kernel, dev, 0});
+    limit = &limits.back();
+  }
+  if (smem > limit->smem) {
+    if (cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem) != cudaSuccess) {
+      return 0;
+    }
+    limit->smem = smem;
+  }
+  for (const Fit& f : fits) {
+    if (f.kernel == kernel && f.dev == dev && f.threads == threads &&
+        f.smem == smem) {
+      return f.per_sm;
+    }
+  }
   int per_sm = 0;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                smem);
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                    smem) != cudaSuccess) {
+    per_sm = 0;
+  }
+  fits.push_back({kernel, dev, threads, smem, per_sm});
+  return per_sm;
+}
+
+// One persistent block per resident slot, at most `work` blocks.
+template <typename Kernel>
+int persistent_grid(Kernel kernel, int threads, size_t smem, long long work,
+                    bool max_carveout = false) {
+  const int per_sm =
+      blocks_per_sm((const void*)kernel, threads, smem, max_carveout);
   long long grid = (long long)sm_count() * (per_sm > 0 ? per_sm : 1);
   if (work < grid) grid = work;
   return grid > 0 ? (int)grid : 1;
 }
 
+// axis_apply for N < 16: one group of columns a thread, up to
+// kStreamBlocksPerSm blocks an SM (then a grid-stride loop).
 template <int N>
-int launch_axis_apply(const float* x_re, const float* x_im,
-                      const float* op_re, const float* op_im, float* y_re,
-                      float* y_im, long long cols, int log_q,
-                      cudaStream_t stream) {
-  const size_t smem = axis_apply_smem<N>();
-  auto kernel = axis_apply_kernel<N>;
-  const int grid = persistent_grid(kernel, kApplyThreads, smem,
-                                   (cols + kApplyW - 1) / kApplyW);
-  kernel<<<grid, kApplyThreads, smem, stream>>>(x_re, x_im, op_re, op_im,
-                                                y_re, y_im, cols, 1 << log_q);
+int launch_axis_stream(const float* x_re, const float* x_im,
+                       const float* op_re, const float* op_im, float* y_re,
+                       float* y_im, long long cols, int log_q,
+                       cudaStream_t stream) {
+  const int log_w = log_q < 2 ? log_q : 2;
+  const long long groups = cols >> log_w;
+  long long grid = (groups + kStreamThreads - 1) / kStreamThreads;
+  const long long cap = (long long)sm_count() * kStreamBlocksPerSm;
+  if (grid > cap) grid = cap;
+  const AxisStreamKernel kernel =
+      axis_stream_pick<N>(log_q, x_re, x_im, y_re, y_im);
+  kernel<<<(int)grid, kStreamThreads, 2 * N * N * sizeof(float), stream>>>(
+      x_re, x_im, op_re, op_im, y_re, y_im, groups, log_q);
   return (int)cudaGetLastError();
 }
 
@@ -2026,12 +2213,11 @@ int launch_axis_apply_mma(const float* x_re, const float* x_im,
                           int log_q, cudaStream_t stream) {
   auto kernel = log_q >= 2 ? axis_apply_mma_kernel<N, 1>
                            : axis_apply_mma_kernel<N, 2>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                       cudaSharedmemCarveoutMaxShared);
   const int grid =
       persistent_grid(kernel, kAxisMmaThreads, AxisMma<N>::kSmem,
                       (cols + (1 << AxisMma<N>::kLogL) - 1) >>
-                          AxisMma<N>::kLogL);
+                          AxisMma<N>::kLogL,
+                      true);
   kernel<<<grid, kAxisMmaThreads, AxisMma<N>::kSmem, stream>>>(
       x_re, x_im, op_re, op_im, y_re, y_im, cols, log_q);
   return (int)cudaGetLastError();
@@ -2116,7 +2302,8 @@ bool plan_transitions(int n, long long B, TransPlan* plan, int* pass_of_bit,
 extern "C" {
 
 // y = Op x on the N axis of the [P, N, Q] view (N and Q powers of two,
-// N <= 128): fp32 FMAs below N = 16, the tensor cores from N = 16 on.
+// N <= 128): a register stream of fp32 FMAs below N = 16, the tensor cores
+// from N = 16 on.
 int qhbm_axis_apply(const float* x_re, const float* x_im, const float* op_re,
                     const float* op_im, float* y_re, float* y_im, int P,
                     int N, int Q, void* stream) {
@@ -2126,9 +2313,9 @@ int qhbm_axis_apply(const float* x_re, const float* x_im, const float* op_re,
   int (*launch)(const float*, const float*, const float*, const float*,
                 float*, float*, long long, int, cudaStream_t) = nullptr;
   switch (N) {
-    case 2: launch = launch_axis_apply<2>; break;
-    case 4: launch = launch_axis_apply<4>; break;
-    case 8: launch = launch_axis_apply<8>; break;
+    case 2: launch = launch_axis_stream<2>; break;
+    case 4: launch = launch_axis_stream<4>; break;
+    case 8: launch = launch_axis_stream<8>; break;
     case 16: launch = launch_axis_apply_mma<16>; break;
     case 32: launch = launch_axis_apply_mma<32>; break;
     case 64: launch = launch_axis_apply_mma<64>; break;

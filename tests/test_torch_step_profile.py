@@ -97,3 +97,33 @@ def test_single_state_region_runs_on_cpu(tmp_path):
   for fn in ("host_values", "expectation_terms", "apply_pauli_sum"):
     assert spans[fn] > 0.0, fn
   assert 0.0 <= out["host"]["rest_ms"] <= out["host"]["call_ms"]
+
+
+def test_workloads_are_the_bench_s_and_16q():
+  """The profiled steps: the bench's two at their own configurations, and
+  the 20q workload's depth and draw at 16 qubits, whose lone row block
+  (7, 2) is an `axis_apply` pass at N = 4."""
+  assert {k: sp.WORKLOADS[k] for k in sp.bench.WORKLOADS} == \
+      sp.bench.WORKLOADS
+  assert sp.WORKLOADS["16q"] == {**sp.bench.WORKLOADS["20q"], "n": 16}
+  n = sp.WORKLOADS["16q"]["n"]
+  assert sp.sv._row_blocks(n - sp.sv.minor_bits(n)) == [(0, 7), (7, 2)]
+
+
+def test_compare_trees_runs_this_tree_s_phases():
+  """compare_trees runs THIS tree's chip_smoke phases in another tree's
+  working directory, and shows only their check and kernel lines (or the
+  bench's, or the expectations/s run's, last line)."""
+  from qhbmlib_tpu_torch.benchmarks import compare_trees as ct
+  cmd = ct.command("kernels", "phase_k4")
+  assert cmd[1] == "-c" and str(ct.ROOT / "chip_smoke.py") in cmd[2]
+  assert "['phase_k4']" in cmd[2]
+  compile(cmd[2], "<phases>", "exec")
+  assert ct.command("bench")[1:] == ["-m", "qhbmlib_tpu_torch.bench",
+                                     "--steps", "8"]
+  pauli = ct.command("pauli")
+  assert "measure_pauli_expectations" in pauli[2]
+  compile(pauli[2], "<pauli>", "exec")
+  out = "[build] x\n[check] a ok\n[kernels] b\n[bench] c\n{\"value\": 1}"
+  assert ct.shown("kernels", out) == "[check] a ok\n[kernels] b"
+  assert ct.shown("bench", out) == ct.shown("pauli", out) == "{\"value\": 1}"
