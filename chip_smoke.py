@@ -23,17 +23,22 @@ operations over 67 TFLOP/s (H100 SXM), or three times them over 495
 TFLOP/s for the contractions on the tensor cores in 3xTF32 (K1, K4 from N
 = 16, and the axis stages of K3 / K2 from N = 16, whose other stages count
 at the fp32 rate), counted from the shapes it ran on.  Then it holds the
-batched forward and sweep against their plain versions and the 9-qubit VQT
-loss and single-state `adjoint.expectation` against the CPU, and drives
-the main paths, each with every launch count reset just before it and read
-just after: the port's bench (`qhbmlib_tpu_torch.bench`: a warm-up and
-three timed VQT train steps at 24q/2L/100/8 and at 20q/4L/500/64, the
-precision gate, the 24q forward <H> against the f64 oracle, PauliSum
-expectations/s at 20q, the HBM stream probe), the train step at
+batched forward and sweep against their plain versions, the 9-qubit VQT
+and QMHL losses and single-state `adjoint.expectation` against the CPU,
+K3 / K2 and the batched engine on a diagonal segment of 1440 parity
+factors (over one stage record and over one `parity_bilinear` launch),
+and drives the main paths, each with every launch count reset just before
+it and read just after: the port's bench (`qhbmlib_tpu_torch.bench`: a
+warm-up and three timed VQT train steps at 24q/2L/100/8 and at
+20q/4L/500/64, and QMHL ones of that 24q model on the data of a fixed
+random 24q QHBM ("train qmhl 24q"), the precision gates, the 24q forward
+<H> and the QMHL step's forward <Z_i> shards against the f64 oracle,
+PauliSum expectations/s at 20q, the HBM stream probe), the train step at
 16q/4L/500/64 (whose lone row block takes `axis_apply`'s N < 16 route),
 its gradient held against the plain versions, and three single-state
-value-and-gradient calls at 20q/4L.  It fails if the gate's gradient error
-reaches 1e-2 or the forward <H> is more than 1e-4 from the oracle.  Before
+value-and-gradient calls at 20q/4L.  It fails if the VQT gate's gradient
+error reaches 1e-2, the QMHL step's 1e-4, or the oracle checks are more
+than 1e-4 off.  Before
 the last line it prints a JSON line {"kernels": [...]} with each kernel's
 launches on the main paths, its error against the plain version, its times
 and its bound; the last line is {"ok": true, "device": {...}}.  It exits
@@ -568,6 +573,8 @@ BENCH_PATHS = {
                   "parity_bilinear"],
     "train 20q": ["axis_apply", "axis2_apply", "diag_rotate",
                   "qubit_transitions", "parity_bilinear"],
+    "train qmhl 24q": ["axis2_apply", "diag_rotate", "qubit_transitions",
+                       "parity_bilinear"],
     "pauli 20q": ["axis_apply", "axis2_apply", "diag_rotate"],
     "probe": ["stream_scale"],
 }
@@ -622,13 +629,15 @@ def phase_bench(device):
   result = bench.run_bench(device, steps=STEPS, path=path)
   log(f"[bench] {json.dumps(result)}")
   extra = result["extra"]
-  for name in ("train 24q", "train 20q"):
+  for name in ("train 24q", "train 20q", "train qmhl 24q"):
     per_step = {k: v / (STEPS + 1) for k, v in paths[name].items() if v}
     log(f"[bench {name}] launches per step (warm-up + {STEPS} steps): "
         f"{per_step}")
   numbers = [result["value"], extra["steps_per_sec_20q"],
              extra["gate_grad_rel_err"], extra["forward_h_rel_err"],
-             extra["pauli_expectations_per_sec_20q"]]
+             extra["pauli_expectations_per_sec_20q"],
+             extra["qmhl_steps_per_sec_24q"], extra["qmhl_gate_grad_rel_err"],
+             extra["qmhl_shards_rel_err"]]
   numbers += [r["gb_per_s"] for r in extra["hbm_probe"]["results"].values()]
   if not all(x == x and abs(x) != float("inf") for x in numbers):
     raise AssertionError(f"bench: a non-finite number in {numbers}")
@@ -638,9 +647,16 @@ def phase_bench(device):
                          f"{bench.GRAD_REL_GATE}")
   check("bench 24q forward <H> vs f64 oracle", extra["forward_h_rel_err"],
         ORACLE_TOL)
+  check(f"train qmhl 24q gradient, kernels vs plain at {STEPS} steps",
+        extra["qmhl_gate_grad_rel_err"], GRAD_TOL)
+  check("train qmhl 24q forward <Z_i> shards (data circuit + model dagger, "
+        "coeff -1 gates) vs f64 oracle", extra["qmhl_shards_rel_err"],
+        ORACLE_TOL)
   log(f"[bench] 24q {result['value']:.4f} steps/s, 20q "
-      f"{extra['steps_per_sec_20q']:.4f} steps/s, gate grad rel err "
-      f"{extra['gate_grad_rel_err']:.3e}, "
+      f"{extra['steps_per_sec_20q']:.4f} steps/s, qmhl 24q "
+      f"{extra['qmhl_steps_per_sec_24q']:.4f} steps/s, gate grad rel err "
+      f"{extra['gate_grad_rel_err']:.3e} (qmhl "
+      f"{extra['qmhl_gate_grad_rel_err']:.3e}), "
       f"{extra['pauli_expectations_per_sec_20q']:.1f} expectations/s")
   return result, paths
 
@@ -890,15 +906,11 @@ def table_bytes(table) -> int:
   return sum(4 * t.numel() for t in table.pack())
 
 
-def phase_long_diag(device, n=9, reps=10):
-  """K3 and K2 against their plain versions on a diagonal segment of more
-  parity factors than one stage record holds (reps all-to-all symbolic CZ
-  layers: 4 factors a gate), which the stage table splits."""
+def long_diag_circuit(n, reps):
+  """RX on every qubit, `reps` all-to-all symbolic CZ layers (4 parity
+  factors a gate: one diagonal segment of 4 * reps * n(n-1)/2 factors),
+  RY on every qubit."""
   from qhbmlib_tpu_torch.ops import circuit_ir
-  from qhbmlib_tpu_torch.ops import hopper_adjoint as ha
-  from qhbmlib_tpu_torch.ops import hopper_sv as hs
-  from qhbmlib_tpu_torch.ops import paulis
-  from qhbmlib_tpu_torch.ops import statevector as sv
   b = circuit_ir.CircuitBuilder(n)
   for q in range(n):
     b.rx(q, f"x{q}")
@@ -908,7 +920,18 @@ def phase_long_diag(device, n=9, reps=10):
         b.cz(i, j, f"c{r}")
   for q in range(n):
     b.ry(q, f"y{q}")
-  pqc = b.build()
+  return b.build()
+
+
+def phase_long_diag(device, n=9, reps=10):
+  """K3 and K2 against their plain versions on a diagonal segment of more
+  parity factors than one stage record holds (reps all-to-all symbolic CZ
+  layers: 4 factors a gate), which the stage table splits."""
+  from qhbmlib_tpu_torch.ops import hopper_adjoint as ha
+  from qhbmlib_tpu_torch.ops import hopper_sv as hs
+  from qhbmlib_tpu_torch.ops import paulis
+  from qhbmlib_tpu_torch.ops import statevector as sv
+  pqc = long_diag_circuit(n, reps)
   gen = torch.Generator().manual_seed(SEED + 7)
   values = torch.rand(pqc.num_symbols, generator=gen) * 2.0 - 1.0
   x = random_state(n, device, SEED + 8)
@@ -928,6 +951,69 @@ def phase_long_diag(device, n=9, reps=10):
   grad_ref = ha.adjoint_sweep(pqc, values, ref, lam, plain=True)
   check(f"adjoint_sweep (K2) {n}q, K={k} gradient",
         rel_err(grad.cpu(), grad_ref.cpu()), GRAD_TOL)
+
+
+def phase_long_diag_batched(device, n=9, reps=10, batch=4):
+  """The batched engine (`adjoint.batched_expectations`: K4 forward, K5
+  sweep) through one diagonal segment of more parity factors than one
+  `parity_bilinear` launch takes: value and gradient of the TFIM for
+  `batch` basis states, kernels against plain; the sweep must split the
+  segment's bilinears into launches of at most MAX_BILIN_K factors.  Then
+  `parity_bilinear` alone at that K against its plain version."""
+  from qhbmlib_tpu_torch.ops import adjoint
+  from qhbmlib_tpu_torch.ops import hopper_adjoint as ha
+  from qhbmlib_tpu_torch.ops import paulis
+  from qhbmlib_tpu_torch.ops import statevector as sv
+  pqc = long_diag_circuit(n, reps)
+  gen = torch.Generator().manual_seed(SEED + 12)
+  values = (torch.rand(pqc.num_symbols, generator=gen) * 2.0 - 1.0).to(
+      device)
+  bits = torch.randint(0, 2, (batch, n), generator=gen,
+                       dtype=torch.int8).to(device)
+  op = paulis.tfim_1d(n, device=device)
+
+  def value_and_grad(plain):
+    v = values.clone().requires_grad_(True)
+    out = adjoint.batched_expectations(pqc, v, bits, (op,), plain=plain)
+    out.sum().backward()
+    return out.detach(), v.grad
+
+  rms, cms = first_diag_factors(pqc)
+  k = len(rms)
+  before = ha.parity_bilinear.launches
+  val, grad = value_and_grad(False)
+  launched = ha.parity_bilinear.launches - before
+  want = -(-k // ha.MAX_BILIN_K)
+  if launched != want:
+    raise AssertionError(f"batched sweep, K={k}: {launched} parity_bilinear "
+                         f"launches, not {want}")
+  val_ref, grad_ref = value_and_grad(True)
+  check(f"batched_expectations {n}q B={batch}, one diag segment of K={k} > "
+        f"{ha.MAX_BILIN_K}: value", rel_err(val.cpu(), val_ref.cpu()),
+        STATE_TOL)
+  check(f"batched sweep {n}q B={batch}, K={k} ({launched} parity_bilinear "
+        "launches): gradient", rel_err(grad.cpu(), grad_ref.cpu()),
+        REDUCTION_TOL)
+  r, c = sv.state_shape(n)
+  dgen = torch.Generator(device=device).manual_seed(SEED + 13)
+  planes = tuple(torch.randn((batch, r, c), generator=dgen, device=device)
+                 for _ in range(4))
+  check_bilinear(f"{n}q, one diag segment", planes, rms, cms)
+
+
+def phase_small_qmhl(device):
+  """The bench's QMHL train step (`bench.build_qmhl_step`: the 24q
+  workload's model and r5's data, seeded) at 9q on the card against the
+  same step on the CPU (plain versions), both EBMs on their exact support:
+  loss and the model's gradient before the update."""
+  from qhbmlib_tpu_torch import bench
+  cfg = dict(n=9, layers=2, samples=SAMPLES, max_unique=None,
+             **bench.QMHL_DATA)
+  l_dev, g_dev = bench.build_qmhl_step(cfg, device, exact=True)[2]()
+  l_cpu, g_cpu = bench.build_qmhl_step(cfg, "cpu", exact=True)[2]()
+  check("9q QMHL loss, card vs CPU", rel_err(l_dev.cpu(), l_cpu), 1e-5)
+  check("9q QMHL gradient, card vs CPU", rel_err(g_dev.cpu(), g_cpu),
+        GRAD_TOL)
 
 
 def single_value_and_grad(device, n, layers, seed):
@@ -1087,8 +1173,10 @@ def main() -> int:
   torch.cuda.empty_cache()
   phase_end_to_end(device)
   phase_small_reference(device)
+  phase_small_qmhl(device)
   phase_single_small(device)
   phase_long_diag(device)
+  phase_long_diag_batched(device)
   # The main paths, each driven with every count at 0 just before it.
   _, paths = phase_bench(device)
   paths["train 16q"] = phase_train_16q(device)

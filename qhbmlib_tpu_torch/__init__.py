@@ -6,10 +6,12 @@ against.  It imports torch and never jax:
   * ops/        circuit IR copy, Pauli sums, the statevector engine and the
                 hand-written Hopper kernels (csrc/) of the batched and
                 single-state forward and adjoint sweep
-  * models/     energy functions and parameterized circuits (nn.Modules)
-  * inference/  EBM and QNN inference, the eq. A5/C2 estimators, QHBM and
-                the VQT loss
-  * convert.py  carries JAX QHBM parameters into the port's modules
+  * models/     energy functions, parameterized circuits (nn.Modules) and
+                Hamiltonians
+  * inference/  EBM and QNN inference, the eq. A5/C2 estimators, QHBM, the
+                VQT and QMHL losses and their metrics
+  * data/       quantum data (QHBM data) for the QMHL loss
+  * convert.py  carries JAX parameter trees into the port's modules
 """
 
 __version__ = "0.1.0"

@@ -5,7 +5,9 @@ workloads (bench.py:49-52) at full width and depth:
 
   * 24q: 1D TFIM, Bernoulli EBM (100 samples, 8 unique states), 2-layer
     hardware-efficient ansatz -- the headline;
-  * 20q: the same at 500 samples, 64 unique states, 4 layers.
+  * 20q: the same at 500 samples, 64 unique states, 4 layers;
+  * qmhl 24q: the 24q model trained by the QMHL loss on the data of a fixed
+    random 24q QHBM (the JAX ladder's r5 structure, `QMHL_DATA`).
 
 A train step is what bench.py:134-176 builds (EBM sampling, VQT loss with
 the eq. A5 score-function and adjoint gradients, Adam 1e-2), with seeded
@@ -19,6 +21,9 @@ after one warm-up, ending in a synchronize.  Then, as bench.py does:
     `highest` matmul precision; the port has one precision);
   * the 24q forward <H> of one basis state against the float64 C++ oracle
     (`native/qsim_oracle.cc`);
+  * the QMHL step's gate (its data QNN's plain arm, both EBM generators
+    restored) and its forward <Z_i> shards of one basis state through the
+    data circuit + model dagger against the oracle (`qmhl_*` keys);
   * PauliSum expectations/s at 20q: 16 chained forwards of 64 states;
   * the HBM stream probe (`benchmarks/hbm_probe.py`, with its kernel K6);
   * with `--independent`, the 24q step of the independent single-core C++
@@ -47,9 +52,11 @@ from qhbmlib_tpu_torch import device as device_lib
 from qhbmlib_tpu_torch import models
 from qhbmlib_tpu_torch import nn
 from qhbmlib_tpu_torch.benchmarks import hbm_probe
-from qhbmlib_tpu_torch.inference import ebm, qhbm, qnn, vqt_loss
+from qhbmlib_tpu_torch.data import qhbm_data
+from qhbmlib_tpu_torch.inference import ebm, qhbm, qmhl_loss, qnn, vqt_loss
 from qhbmlib_tpu_torch.ops import _cuda
 from qhbmlib_tpu_torch.ops import adjoint
+from qhbmlib_tpu_torch.ops import hopper_sv
 from qhbmlib_tpu_torch.ops import native_fast
 from qhbmlib_tpu_torch.ops import native_oracle
 from qhbmlib_tpu_torch.ops import paulis
@@ -60,6 +67,12 @@ WORKLOADS = {
     "24q": dict(n=24, layers=2, samples=100, max_unique=8),
     "20q": dict(n=20, layers=4, samples=500, max_unique=64),
 }
+# The QMHL workload's data: the JAX ladder's r5 structure (benchmarks/
+# ladder.py:187-235: a fixed random Bernoulli QHBM, HEA 1L "data_p", 32
+# samples, 4 unique states), learned by the 24q workload's model (a
+# Bernoulli energy and its exact sampler in r5's KOBE-2 / GWG place).
+QMHL_DATA = dict(data_layers=1, data_samples=32, data_max_unique=4)
+QMHL_WORKLOAD = {**WORKLOADS["24q"], **QMHL_DATA}
 INDEPENDENT_CACHE = _cuda.BUILD_DIR / "independent_anchor.json"
 
 
@@ -76,16 +89,10 @@ def flat_grads(h: qhbm.QHBM) -> torch.Tensor:
   return torch.cat([p.grad.reshape(-1) for p in h.parameters()])
 
 
-def build_train_step(cfg, device, exact: bool = False):
-  """The bench's VQT train step (bench.py:134-176) in the port, with
-  seeded random weights.
-
-  Returns (h, target, train_step): train_step() takes one Adam step on h's
-  parameters and returns the loss and the flat gradient [theta, phi] from
-  before the update, both on the device.  `exact` uses the full 2^n EBM
-  support with expected counts (n <= 16) instead of sampling."""
+def _bench_model(cfg, device, exact: bool) -> qhbm.QHBM:
+  """The bench's model QHBM at cfg's shape: Bernoulli energy (seed 2), its
+  EBM (seed 11), the hardware-efficient ansatz (seed 3)."""
   n = cfg["n"]
-  target = paulis.tfim_1d(n, device=device)  # open chain, as bench.py
   energy = models.BernoulliEnergy(
       list(range(n)), initializer=nn.RandomUniform(seed=2),
       device=device)
@@ -96,7 +103,19 @@ def build_train_step(cfg, device, exact: bool = False):
   circuit = models.DirectQuantumCircuit(
       models.hardware_efficient_ansatz(n, cfg["layers"]),
       initializer=nn.RandomUniform(0, 2, seed=3), device=device)
-  h = qhbm.QHBM(e_inf, qnn.AnalyticQuantumInference(circuit))
+  return qhbm.QHBM(e_inf, qnn.AnalyticQuantumInference(circuit))
+
+
+def build_train_step(cfg, device, exact: bool = False):
+  """The bench's VQT train step (bench.py:134-176) in the port, with
+  seeded random weights (`_bench_model`).
+
+  Returns (h, target, train_step): train_step() takes one Adam step on h's
+  parameters and returns the loss and the flat gradient [theta, phi] from
+  before the update, both on the device.  `exact` uses the full 2^n EBM
+  support with expected counts (n <= 16) instead of sampling."""
+  target = paulis.tfim_1d(cfg["n"], device=device)  # open chain, as bench.py
+  h = _bench_model(cfg, device, exact)
   loss_fn = vqt_loss.make_vqt(h, target)
   opt = torch.optim.Adam(h.parameters(), lr=1e-2)
 
@@ -111,26 +130,75 @@ def build_train_step(cfg, device, exact: bool = False):
   return h, target, train_step
 
 
-def run_workload(name: str, cfg, steps: int, device, traj=None) -> float:
-  """Steps/s of `steps` train steps after one warm-up, host clock ending in
-  a synchronize.
+def build_qmhl_step(cfg, device, exact: bool = False):
+  """The QMHL train step of QMHL_WORKLOAD in the port, with seeded random
+  weights: the model is `build_train_step`'s (same seeds), the data a fixed
+  QHBM of r5's (`RandomNormal(0, 0.3, seed=11)` energy, a "data_p" ansatz
+  of cfg["data_layers"] layers, its EBM seeded 6).
+
+  Returns (h, data, train_step): train_step() takes one Adam step on the
+  model's parameters alone and returns the loss and the model's flat
+  gradient [theta, phi] from before the update; the data's gradients are
+  dropped.  `exact` uses both EBMs' full 2^n support (n <= 16)."""
+  n = cfg["n"]
+  d_energy = models.BernoulliEnergy(
+      list(range(n)), initializer=nn.RandomNormal(0.0, 0.3, seed=11),
+      device=device)
+  d_e_inf = ebm.BernoulliEnergyInference(
+      d_energy, cfg["data_samples"], initial_seed=6, exact=exact,
+      max_unique_samples=cfg["data_max_unique"], device=device)
+  d_circuit = models.DirectQuantumCircuit(
+      models.hardware_efficient_ansatz(n, cfg["data_layers"], name="data_p"),
+      initializer=nn.RandomUniform(0, 2, seed=12), device=device)
+  data = qhbm_data.QHBMData(qhbm.QHBM(d_e_inf,
+                                      qnn.AnalyticQuantumInference(d_circuit)))
+  h = _bench_model(cfg, device, exact)
+  loss_fn = qmhl_loss.make_qmhl(data, h)
+  opt = torch.optim.Adam(h.parameters(), lr=1e-2)
+
+  def train_step():
+    opt.zero_grad(set_to_none=True)
+    loss = loss_fn()
+    loss.backward()
+    grads = flat_grads(h)
+    opt.step()
+    for p in data.qhbm.parameters():
+      p.grad = None
+    return loss.detach(), grads
+
+  return h, data, train_step
+
+
+def generators(h: qhbm.QHBM, other):
+  """The EBM generators a step draws from: the model's, then the data's
+  for a QMHL step (`other` a QHBMData)."""
+  gens = [h.e_inference.generator]
+  if isinstance(other, qhbm_data.QHBMData):
+    gens.append(other.qhbm.e_inference.generator)
+  return gens
+
+
+def run_workload(name: str, cfg, steps: int, device, traj=None,
+                 build=build_train_step) -> float:
+  """Steps/s of `steps` train steps (`build`: `build_train_step` or
+  `build_qmhl_step`) after one warm-up, host clock ending in a synchronize.
 
   With `traj` (a dict) it records the gate's trajectory: the model and
-  target, and for every timed step its input (parameters, the EBM
-  generator's state) and its output (loss, flat gradient), copied to the
-  host after the timing."""
-  h, target, train_step = build_train_step(cfg, device)
+  its target or data, and for every timed step its input (parameters, the
+  states of the EBM generators it draws from) and its output (loss, flat
+  gradient), copied to the host after the timing."""
+  h, other, train_step = build(cfg, device)
   t0 = time.perf_counter()
   loss, _ = train_step()
   log(f"[bench:{name}] warm-up step (builds the kernels if unbuilt): "
       f"{time.perf_counter() - t0:.2f} s, loss {float(loss):.6f}")
-  gen = h.e_inference.generator
+  gens = generators(h, other)
   snaps, losses, grads = [], [], []
   t0 = time.perf_counter()
   for _ in range(steps):
     if traj is not None:
       snaps.append(([p.detach().clone() for p in h.parameters()],
-                    gen.get_state()))
+                    [g.get_state() for g in gens]))
     loss, g = train_step()
     if traj is not None:
       losses.append(loss)
@@ -138,7 +206,7 @@ def run_workload(name: str, cfg, steps: int, device, traj=None) -> float:
   _sync(device)
   dt = time.perf_counter() - t0
   if traj is not None:
-    traj.update(model=h, target=target, snaps=snaps,
+    traj.update(model=h, other=other, snaps=snaps,
                 losses=[float(x) for x in losses],
                 grads=[g.cpu() for g in grads])
   log(f"[bench:{name}] {steps} steps in {dt:.3f} s -> {steps / dt:.4f} "
@@ -146,28 +214,44 @@ def run_workload(name: str, cfg, steps: int, device, traj=None) -> float:
   return steps / dt
 
 
+def plain_loss(h: qhbm.QHBM, other):
+  """The step's loss through the kernels' plain versions: the QNN that
+  evaluates the circuits rebuilt with `plain=True` -- the model's for VQT
+  (`other` the target), the data's for QMHL (`other` a QHBMData)."""
+  if isinstance(other, qhbm_data.QHBMData):
+    d = other.qhbm
+    data = qhbm_data.QHBMData(qhbm.QHBM(d.e_inference,
+                                        qnn.AnalyticQuantumInference(
+                                            d.q_inference.circuit,
+                                            plain=True)))
+    return qmhl_loss.make_qmhl(data, h)
+  plain = qhbm.QHBM(h.e_inference, qnn.AnalyticQuantumInference(
+      h.q_inference.circuit, plain=True))
+  loss_fn = vqt_loss.make_vqt(plain, other)
+  return lambda: loss_fn(BETA)
+
+
 def precision_gate(traj) -> dict:
   """Kernels against plain versions at the trajectory's recorded points.
 
-  Each point's (parameters, generator state) is restored and the step's
+  Each point's (parameters, generator states) is restored and the step's
   loss and gradient recomputed with `plain=True`: both arms see the same
-  parameters and the same EBM support, so every difference is the kernels'
-  rounding against the plain PyTorch ops."""
+  parameters and the same EBM supports, so every difference is the
+  kernels' rounding against the plain PyTorch ops."""
   h = traj["model"]
-  plain = qhbm.QHBM(h.e_inference, qnn.AnalyticQuantumInference(
-      h.q_inference.circuit, plain=True))
-  loss_fn = vqt_loss.make_vqt(plain, traj["target"])
-  gen = h.e_inference.generator
+  loss_fn = plain_loss(h, traj["other"])
+  gens = generators(h, traj["other"])
   loss_err = grad_rel = 0.0
-  for (params, state), loss_k, grad_k in zip(traj["snaps"], traj["losses"],
-                                             traj["grads"]):
+  for (params, states), loss_k, grad_k in zip(traj["snaps"], traj["losses"],
+                                              traj["grads"]):
     with torch.no_grad():
       for p, v in zip(h.parameters(), params):
         p.copy_(v)
-    gen.set_state(state)
+    for gen, state in zip(gens, states):
+      gen.set_state(state)
     for p in h.parameters():
       p.grad = None
-    loss = loss_fn(BETA)
+    loss = loss_fn()
     loss.backward()
     grad_p = flat_grads(h).cpu().double()
     loss_err = max(loss_err, abs(loss_k - float(loss.detach())))
@@ -209,6 +293,35 @@ def measure_oracle_forward_err(cfg, device) -> dict:
           "forward_h_rel_err": err / max(abs(want), 1e-12)}
 
 
+def measure_qmhl_oracle_err(cfg, device) -> dict:
+  """The QMHL step's forward shard expectations <Z_i> of one basis state
+  through the data circuit + the model's dagger (every gate of the dagger
+  at coeff -1) against the float64 C++ oracle, at cfg's shape with the
+  seeded initial weights: relative L2 and max abs error over the shards."""
+  n = cfg["n"]
+  h, data, _ = build_qmhl_step(cfg, device)
+  k = h.modular_hamiltonian
+  total = data.qhbm.q_inference.circuit + k.circuit_dagger
+  bits = np.random.RandomState(5).randint(0, 2, size=(1, n)).astype(np.int8)
+  with torch.no_grad():
+    values = total.resolved_values()
+    got = adjoint.batched_expectations(
+        total.pqc, values, torch.from_numpy(bits).to(device),
+        k.operator_shards)[0].cpu().double()
+  psi = native_oracle.simulate(total.pqc, hopper_sv.host_values(values)
+                               .astype(np.float64), bits=bits[0])
+  want = torch.tensor([native_oracle.expectation_f64(psi, op)
+                       for op in k.operator_shards], dtype=torch.float64)
+  rel = float(torch.linalg.vector_norm(got - want) /
+              torch.linalg.vector_norm(want))
+  out = {"qmhl_shards_rel_err": rel,
+         "qmhl_shards_max_abs_err": float((got - want).abs().max())}
+  log(f"[bench:accuracy] qmhl {n}q forward <Z_i> ({len(want)} shards, "
+      f"{total.pqc.num_gates} gates) vs f64 oracle: rel err {rel:.3e}, max "
+      f"abs err {out['qmhl_shards_max_abs_err']:.3e}")
+  return out
+
+
 def measure_pauli_expectations(cfg, device, iters: int = 16) -> float:
   """PauliSum expectations/s (bench.py:288-331): one expectation is <H>
   of the TFIM for one basis-state-prepared, circuit-evolved state; `iters`
@@ -229,7 +342,7 @@ def measure_pauli_expectations(cfg, device, iters: int = 16) -> float:
     circuit.values.copy_(phi)
     outs = []
     for _ in range(iters):
-      mean = q_inf.expectation(bits, target).mean()
+      mean = q_inf.expectation(bits, target, dedup=False).mean()
       circuit.values.add_(mean * 1e-9)
       outs.append(mean)
     return torch.stack(outs)
@@ -298,8 +411,8 @@ def run_bench(device, steps: int = 8, independent: bool = False,
   """Every measurement of the bench; returns its JSON object.
 
   `path(name)` is a context manager entered around each main path ("train
-  24q", "train 20q", "pauli 20q", "probe"); `chip_smoke.py` counts the
-  kernels' launches with it."""
+  24q", "train 20q", "train qmhl 24q", "pauli 20q", "probe");
+  `chip_smoke.py` counts the kernels' launches with it."""
   if steps < 1:
     raise ValueError(f"steps must be >= 1, not {steps}")
   device = torch.device(device)
@@ -311,9 +424,17 @@ def run_bench(device, steps: int = 8, independent: bool = False,
     sps24 = run_workload("24q", w24, steps, device, traj)
   with path("train 20q"):
     sps20 = run_workload("20q", w20, steps, device)
+  # QMHL: the 24q workload's model learning r5's data.
+  w_qmhl, traj_qmhl = {**w24, **QMHL_DATA}, {}
+  with path("train qmhl 24q"):
+    sps_qmhl = run_workload("qmhl 24q", w_qmhl, steps, device, traj_qmhl,
+                            build=build_qmhl_step)
   extra = {"steps_per_sec_20q": sps20}
   extra.update(precision_gate(traj))
   extra.update(measure_oracle_forward_err(w24, device))
+  extra["qmhl_steps_per_sec_24q"] = sps_qmhl
+  extra.update({f"qmhl_{k}": v for k, v in precision_gate(traj_qmhl).items()})
+  extra.update(measure_qmhl_oracle_err(w_qmhl, device))
   with path("pauli 20q"):
     extra["pauli_expectations_per_sec_20q"] = measure_pauli_expectations(
         w20, device)
@@ -324,7 +445,7 @@ def run_bench(device, steps: int = 8, independent: bool = False,
     extra["cpu_independent_steps_per_sec"] = indep
     extra["vs_independent"] = sps24 / indep
   extra.update(
-      steps=steps, workload=w24, workload_20q=w20,
+      steps=steps, workload=w24, workload_20q=w20, workload_qmhl=w_qmhl,
       device=(torch.cuda.get_device_name(device) if device.type == "cuda"
               else str(device)),
       card=card(device))

@@ -4,8 +4,9 @@
 
 For each workload of WORKLOADS (the port's bench workloads, 24q and 20q,
 and 16q/4L/500/64, whose lone row block (7,2) takes `axis_apply`'s N < 16
-route) it builds the train step (`bench.build_train_step`), takes one
-warm-up step, then traces STEPS steps inside one `record_function` region
+route) it builds the train step (`bench.build_train_step`), and for the
+QMHL step of QMHL_WORKLOADS ("qmhl 24q", `bench.build_qmhl_step`), takes
+one warm-up step, then traces STEPS steps inside one `record_function` region
 that ends in a synchronize.  From the exported Chrome trace: the busy
 share, the union of the device intervals (kernels, copies, sets) inside
 the region over the region's wall time -- the profiler stretches the wall,
@@ -52,6 +53,8 @@ TOP = 12  # kernels reported by name; the rest are summed
 # and draw at 16 qubits.
 WORKLOADS = {**bench.WORKLOADS,
              "16q": dict(n=16, layers=4, samples=500, max_unique=64)}
+# The profiled QMHL step: the bench's (`bench.build_qmhl_step`).
+QMHL_WORKLOADS = {"qmhl 24q": bench.QMHL_WORKLOAD}
 # The single-state call's host parts, in call order: (module, function).
 SINGLE_SPANS = (
     (hopper_sv, "host_values"), (hopper_sv, "forward_table"),
@@ -208,8 +211,14 @@ def profile_single(trace_dir: str, device="cuda", n: int = 20,
 
 
 def profile_workload(name: str, trace_dir: str) -> dict:
+  """A warm-up step, then STEPS traced steps of the VQT workload `name` of
+  WORKLOADS or the QMHL workload of QMHL_WORKLOADS: the region's
+  breakdown."""
   device = torch.device("cuda")
-  _, _, train_step = bench.build_train_step(WORKLOADS[name], device)
+  if name in QMHL_WORKLOADS:
+    _, _, train_step = bench.build_qmhl_step(QMHL_WORKLOADS[name], device)
+  else:
+    _, _, train_step = bench.build_train_step(WORKLOADS[name], device)
   train_step()  # warm-up: builds the kernels
   torch.cuda.synchronize()
   acts = [torch.profiler.ProfilerActivity.CPU,
@@ -220,7 +229,8 @@ def profile_workload(name: str, trace_dir: str) -> dict:
         train_step()
       torch.cuda.synchronize()
   os.makedirs(trace_dir, exist_ok=True)
-  path = os.path.join(trace_dir, f"step_profile_{name}.json")
+  path = os.path.join(trace_dir,
+                      f"step_profile_{name.replace(' ', '_')}.json")
   prof.export_chrome_trace(path)
   with open(path) as f:
     events = json.load(f)["traceEvents"]
@@ -236,7 +246,7 @@ def main(argv=None) -> None:
     sys.exit("step_profile: needs the CUDA card")
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
-  for name in WORKLOADS:
+  for name in [*WORKLOADS, *QMHL_WORKLOADS]:
     print(json.dumps(profile_workload(name, args.trace_dir)), flush=True)
   print(json.dumps(profile_single(args.trace_dir)), flush=True)
 

@@ -1,16 +1,24 @@
-"""Carries JAX QHBM parameters into the port's modules.
+"""Carries JAX parameter trees into the port's modules.
 
-`from_jax_params` takes the JAX package's `QHBM.params`
-(``{'theta': [array], 'phi': [array]}``, numpy or jax arrays) and returns
-float32 torch tensors keyed the same way; `QHBM.set_params` of the port
-copies them into its energy and circuit.  Both use the same parameter order:
-the energy's kernel per bit, and the circuit's symbols sorted by name.
-Nothing here imports jax: the arrays are read through numpy.
+`from_jax_params` takes a parameter tree of the JAX package (numpy or jax
+arrays) and returns the same tree of float32 torch tensors, each group of
+one array becoming one tensor:
+
+  * a QHBM's ``{'theta': [array], 'phi': [array]}`` for `QHBM.set_params`;
+  * a Hamiltonian's ``{'energy': [array], 'circuit': [array]}`` for
+    `Hamiltonian.set_params`;
+  * nested trees of those, e.g. a QMHL's ``{'model': {...}, 'data': {...}}``
+    or a Hamiltonian VQT target's ``{'target_energy': [...],
+    'target_circuit': [...]}`` beside ``theta`` and ``phi``.
+
+Both packages use the same parameter order: the energy's kernel per bit,
+and the circuit's symbols sorted by name.  Nothing here imports jax: the
+arrays are read through numpy.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Mapping
 
 import numpy as np
 import torch
@@ -18,20 +26,23 @@ import torch
 from qhbmlib_tpu_torch import device as device_lib
 
 
-def from_jax_params(params: Mapping[str, Sequence],
-                    device=None) -> Dict[str, torch.Tensor]:
-  """{'theta': [array], 'phi': [array]} -> {'theta': tensor, 'phi': tensor}.
+def from_jax_params(params: Mapping, device=None):
+  """A tree of mappings and groups -> the same tree of tensors.
 
-  The tensors land on `device` (None means the CUDA card,
-  `device.resolve`).  Raises if a group holds other than exactly one array
-  (the port's BernoulliEnergy and DirectQuantumCircuit each have one
-  parameter)."""
+  A mapping maps each value; a list or tuple is a group and must hold
+  exactly one array (the port's BernoulliEnergy and DirectQuantumCircuit
+  each have one parameter); a bare array is taken as it is.  The tensors
+  land on `device` (None means the CUDA card, `device.resolve`)."""
   device = device_lib.resolve(device)
-  out = {}
-  for key in ("theta", "phi"):
-    group = list(params[key])
-    if len(group) != 1:
-      raise ValueError(f"params[{key!r}] holds {len(group)} arrays; the port's "
-                       "models take exactly one")
-    out[key] = torch.tensor(np.asarray(group[0], np.float32), device=device)
-  return out
+
+  def convert(key, value):
+    if isinstance(value, Mapping):
+      return {k: convert(k, v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+      if len(value) != 1:
+        raise ValueError(f"params[{key!r}] holds {len(value)} arrays; the "
+                         "port's models take exactly one")
+      value = value[0]
+    return torch.tensor(np.asarray(value, np.float32), device=device)
+
+  return {k: convert(k, v) for k, v in params.items()}

@@ -1,0 +1,4 @@
+"""Quantum data sources (port of `qhbmlib_tpu/data/`, QHBM data)."""
+
+from qhbmlib_tpu_torch.data.qhbm_data import QHBMData
+from qhbmlib_tpu_torch.data.quantum_data import QuantumData

@@ -1,8 +1,9 @@
-"""Inference engines and the VQT loss."""
+"""Inference engines, the VQT and QMHL losses and their metrics."""
 
 from qhbmlib_tpu_torch.inference.ebm import BernoulliEnergyInference
 from qhbmlib_tpu_torch.inference.ebm import EnergyInference
 from qhbmlib_tpu_torch.inference.qhbm import QHBM
+from qhbmlib_tpu_torch.inference.qmhl_loss import make_qmhl
 from qhbmlib_tpu_torch.inference.qnn import AnalyticQuantumInference
 from qhbmlib_tpu_torch.inference.qnn import QuantumInference
 from qhbmlib_tpu_torch.inference.vqt_loss import make_vqt

@@ -67,7 +67,8 @@ class EnergyInference(abc.ABC):
     """log Z (value only)."""
 
   def expectation(self, values_fn, generator=None) -> torch.Tensor:
-    """<f>_p with eq. A5 gradients; values_fn: int8 bits [U, n] -> [U]."""
+    """<f>_p with eq. A5 gradients; values_fn: int8 bits [U, n] -> [U] or
+    [U, k]."""
     support, counts = self.support_and_counts(generator)
     values = values_fn(support.to(torch.int8))
     return estimators.sampled_expectation(self._energy, self.theta, values,

@@ -37,8 +37,9 @@ def _energy_vjp(energy: Callable, theta: Sequence[torch.Tensor],
 
 
 class _AvgWithScore(torch.autograd.Function):
-  """Count-weighted average of `values` [U]; backward gives `values` the
-  pathwise cotangent counts/total and `theta` the eq. A5 score term."""
+  """Count-weighted average of `values` [U] or [U, k]; backward gives
+  `values` the pathwise cotangent counts/total and `theta` the eq. A5 score
+  term."""
 
   @staticmethod
   def forward(ctx, energy, support, counts, values, *theta):
@@ -53,9 +54,9 @@ class _AvgWithScore(torch.autograd.Function):
     theta = ctx.theta
     total = torch.sum(counts)
     weights = counts / total
-    values_bar = weights * g
-    # <grad E><w.f> - <(w.f) grad E>, with w.f = g * f per sample.
-    combined = g * values
+    values_bar = weights.reshape((-1,) + (1,) * (values.dim() - 1)) * g
+    # <grad E><w.f> - <(w.f) grad E>, with w.f = g . f per sample.
+    combined = (g * values).reshape(values.shape[0], -1).sum(dim=1)
     avg_combined = torch.sum(counts * combined) / total
     mean_grad_e, mean_combined_grad_e = _energy_vjp(
         ctx.energy, theta, support, [weights, counts * combined / total])
@@ -72,8 +73,8 @@ def sampled_expectation(energy: Callable, theta: Sequence[torch.Tensor],
   Args:
     energy: callable support [U, n] -> energies [U], differentiable in theta.
     theta: the energy's parameters; they receive the score-function term.
-    values: [U] per-sample values of f (pathwise gradients flow through
-      ordinary autograd to whatever they depend on).
+    values: [U] or [U, k] per-sample values of f (pathwise gradients flow
+      through ordinary autograd to whatever they depend on).
     support: [U, n] sampled bitstrings (no grad).
     counts: [U] float occurrence counts (no grad).
   """

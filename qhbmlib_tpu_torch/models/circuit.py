@@ -60,6 +60,23 @@ class QuantumCircuit(nn.Module):
     """Symbol values in the IR's slot order."""
     return self.symbol_values()[self._perm]
 
+  def __add__(self, other: "QuantumCircuit") -> "QuantumCircuit":
+    """This circuit, then `other`; their symbols must be disjoint (as the
+    reference's `__add__`, `models/circuit.py:172-192`).  The sum holds
+    both summands, not copies: it trains their parameters."""
+    if not isinstance(other, QuantumCircuit):
+      raise TypeError("can only add QuantumCircuit to QuantumCircuit")
+    if set(self.symbol_names) & set(other.symbol_names):
+      raise ValueError("Circuits to be summed must not have symbols in common.")
+    return SumCircuit(self, other)
+
+  def __pow__(self, exponent: int) -> "QuantumCircuit":
+    """The inverse circuit, on this circuit's own parameters (as the
+    reference's `__pow__`, `models/circuit.py:194-207`)."""
+    if exponent != -1:
+      raise ValueError("Only the inverse (exponent == -1) is supported.")
+    return InverseCircuit(self)
+
 
 class DirectQuantumCircuit(QuantumCircuit):
   """One trainable value per symbol, symbols sorted by name (as the
@@ -76,3 +93,30 @@ class DirectQuantumCircuit(QuantumCircuit):
 
   def symbol_values(self) -> torch.Tensor:
     return self.values
+
+
+class SumCircuit(QuantumCircuit):
+  """`first + second`: the concatenated IR, whose symbol values are the
+  summands' `symbol_values()` in turn (both modules held as submodules)."""
+
+  def __init__(self, first: QuantumCircuit, second: QuantumCircuit):
+    super().__init__(first.pqc.append(second.pqc),
+                     tuple(first.symbol_names) + tuple(second.symbol_names),
+                     f"{first.name}_{second.name}", first._perm.device)
+    self.summands = nn.ModuleList([first, second])
+
+  def symbol_values(self) -> torch.Tensor:
+    return torch.cat([c.symbol_values() for c in self.summands])
+
+
+class InverseCircuit(QuantumCircuit):
+  """`circuit**-1`: the reversed IR of inverted gates (`Circuit.inverse`)
+  on the original module's symbol values."""
+
+  def __init__(self, circuit: QuantumCircuit):
+    super().__init__(circuit.pqc.inverse(), circuit.symbol_names,
+                     f"{circuit.name}_inverse", circuit._perm.device)
+    self.original = circuit
+
+  def symbol_values(self) -> torch.Tensor:
+    return self.original.symbol_values()

@@ -7,6 +7,7 @@ its trainable weights as `nn.Parameter`s.
 
 from __future__ import annotations
 
+import abc
 from typing import List, Optional, Sequence
 
 import torch
@@ -14,6 +15,7 @@ from torch import nn
 
 from qhbmlib_tpu_torch import nn as qnn_init
 from qhbmlib_tpu_torch.models import energy_utils
+from qhbmlib_tpu_torch.ops import paulis
 
 
 class BitstringEnergy(nn.Module):
@@ -42,9 +44,32 @@ class BitstringEnergy(nn.Module):
     return x
 
 
-class BernoulliEnergy(BitstringEnergy):
+class PauliMixin(abc.ABC):
+  """A Pauli-Z operator form of an energy (reference `PauliMixin`,
+  `models/energy.py:88-117`): E as `post_process` applied to the
+  expectations of parameter-free Z-string shards."""
+
+  @property
+  @abc.abstractmethod
+  def post_process(self) -> List[nn.Module]:
+    """Layers mapping shard expectations [..., S] to the energy [...]."""
+
+  @abc.abstractmethod
+  def operator_shards(self, num_qubits: int) -> Sequence[paulis.PauliSum]:
+    """The Z strings to measure, one single-term PauliSum a shard."""
+
+  def operator_expectation(self, expectation_shards: torch.Tensor):
+    """The average energy from shard expectations [..., S]."""
+    x = expectation_shards
+    for layer in self.post_process:
+      x = layer(x)
+    return x
+
+
+class BernoulliEnergy(BitstringEnergy, PauliMixin):
   """Independent spins in magnetic fields: E(x) = sum_i theta_i s_i.  Its
-  kernel lives on `device` (None means the CUDA card, `device.resolve`)."""
+  kernel lives on `device` (None means the CUDA card, `device.resolve`).
+  Its operator form measures Z_i on each bit, then its `VariableDot`."""
 
   def __init__(self, bits: List[int],
                initializer: Optional[qnn_init.Initializer] = None,
@@ -60,3 +85,13 @@ class BernoulliEnergy(BitstringEnergy):
   def logits(self) -> torch.Tensor:
     """p(bit=1) = e^theta/(e^theta + e^-theta)  =>  logit = 2*theta."""
     return 2.0 * self.kernel
+
+  @property
+  def post_process(self) -> List[nn.Module]:
+    return [self.energy_layers[-1]]
+
+  def operator_shards(self, num_qubits: int) -> Sequence[paulis.PauliSum]:
+    """Z_i on each qubit i, coeffs on the kernel's device."""
+    return paulis.z_strings_from_masks(
+        [[1 if q == i else 0 for q in range(num_qubits)]
+         for i in range(num_qubits)], num_qubits, self.kernel.device)

@@ -52,6 +52,22 @@ class RandomUniform(Initializer):
         device_lib.resolve(device))
 
 
+class RandomNormal(Initializer):
+  """N(mean, stddev^2), drawn on the generator's device (the CPU unless a
+  CUDA generator is passed) and moved to `device`."""
+
+  def __init__(self, mean=0.0, stddev=0.05, seed: Optional[int] = None,
+               generator: Optional[torch.Generator] = None):
+    self.mean = mean
+    self.stddev = stddev
+    self.generator = _generator(generator, seed)
+
+  def __call__(self, shape, device=None):
+    z = torch.randn(tuple(shape), generator=self.generator,
+                    device=self.generator.device, dtype=torch.float32)
+    return (self.mean + self.stddev * z).to(device_lib.resolve(device))
+
+
 class Constant(Initializer):
 
   def __init__(self, value=0.0):

@@ -13,7 +13,8 @@ reverse:
                         gradient qubit, the partial trace of the reference's
                         block_transition / minor cross_gram, without the
                         [N, N] grams;
-        diag segment -> one `parity_bilinear` over all K parity factors;
+        diag segment -> `parity_bilinear` over all K parity factors (one
+                        launch for each MAX_BILIN_K of them);
   (2) un-apply the segment to a and lambda: the inverse operators as K1 /
       `axis_apply` passes (`hopper_sv.plan_passes`), or one `diag_rotate`
       with sign -1 over both.
@@ -159,10 +160,18 @@ def _device_masks(row_masks, col_masks, device: str):
                for m in (row_masks, col_masks))
 
 
+# Parity factors one `parity_bilinear` launch takes (the kernel's
+# kBilinMaxK: its masks are staged in shared memory).
+MAX_BILIN_K = 1024
+
+
 def parity_bilinear(l_re, l_im, a_re, a_im, row_masks: Sequence[int],
                     col_masks: Sequence[int]) -> torch.Tensor:
   """Batch-summed parity bilinears of P = l_re*a_im - l_im*a_re over
-  [B, R, C] planes, one per (row_mask, col_mask) factor: returns [K]."""
+  [B, R, C] planes, one per (row_mask, col_mask) factor: returns [K].  On
+  the card, one launch for each run of at most MAX_BILIN_K factors, each
+  writing its slice of the output, as the stage tables split bilinear
+  records."""
   if l_re.device.type == "cpu":
     return parity_bilinear_plain(l_re, l_im, a_re, a_im, row_masks,
                                  col_masks)
@@ -170,21 +179,26 @@ def parity_bilinear(l_re, l_im, a_re, a_im, row_masks: Sequence[int],
     raise ValueError(f"parity_bilinear: unsupported device {l_re.device}")
   b, r, c = l_re.shape
   k = len(row_masks)
-  if c > 256 or k > 1024 or len(col_masks) != k:
-    raise ValueError(f"parity_bilinear: C={c} (<= 256) / K={k} (<= 1024)")
+  if c > 256 or len(col_masks) != k:
+    raise ValueError(f"parity_bilinear: C={c} (<= 256), {k} row masks and "
+                     f"{len(col_masks)} column masks")
   _cuda.require([l_re, l_im, a_re, a_im], l_re.device, [(b, r, c)] * 4)
   dev = l_re.device
   rm, cm = _device_masks(tuple(row_masks), tuple(col_masks), str(dev))
   lib = _cuda.library()
   rows_per_block = 256 // c  # the kernel's 256 threads cover whole rows
   blocks = min(-(-r // rows_per_block), 4 * _cuda.sm_count(dev))
-  partial = torch.empty((blocks, k), dtype=torch.float32, device=dev)
+  partial = torch.empty((blocks, min(k, MAX_BILIN_K)), dtype=torch.float32,
+                        device=dev)
   out = torch.empty((k,), dtype=torch.float32, device=dev)
-  _cuda.check(lib.qhbm_parity_bilinear(
-      l_re.data_ptr(), l_im.data_ptr(), a_re.data_ptr(), a_im.data_ptr(),
-      rm.data_ptr(), cm.data_ptr(), k, b, r, c, partial.data_ptr(),
-      out.data_ptr(), blocks, _cuda.stream_of(l_re)), "parity_bilinear")
-  parity_bilinear.launches += 1
+  for lo in range(0, k, MAX_BILIN_K):
+    part = min(k - lo, MAX_BILIN_K)
+    _cuda.check(lib.qhbm_parity_bilinear(
+        l_re.data_ptr(), l_im.data_ptr(), a_re.data_ptr(), a_im.data_ptr(),
+        rm[lo:].data_ptr(), cm[lo:].data_ptr(), part, b, r, c,
+        partial.data_ptr(), out[lo:].data_ptr(), blocks,
+        _cuda.stream_of(l_re)), "parity_bilinear")
+    parity_bilinear.launches += 1
   return out
 
 

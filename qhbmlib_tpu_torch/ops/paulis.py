@@ -53,6 +53,37 @@ class PauliSum:
   def to(self, device) -> "PauliSum":
     return PauliSum(self.codes, self.coeffs.to(device), self.num_qubits)
 
+  def __add__(self, other: "PauliSum") -> "PauliSum":
+    if self.num_qubits != other.num_qubits:
+      raise ValueError("PauliSums must act on the same number of qubits.")
+    return PauliSum(torch.cat([self.codes, other.codes]),
+                    torch.cat([self.coeffs,
+                               other.coeffs.to(self.coeffs.device)]),
+                    self.num_qubits)
+
+  def __mul__(self, scalar) -> "PauliSum":
+    return PauliSum(self.codes, self.coeffs * scalar, self.num_qubits)
+
+  __rmul__ = __mul__
+
+  def __neg__(self) -> "PauliSum":
+    return self * -1.0
+
+  def __sub__(self, other: "PauliSum") -> "PauliSum":
+    return self + (-other)
+
+  def dense(self) -> np.ndarray:
+    """Dense (2^n, 2^n) complex64 matrix on the host; small n only."""
+    dim = 2**self.num_qubits
+    out = np.zeros((dim, dim), dtype=np.complex64)
+    coeffs = self.coeffs.detach().cpu().numpy()
+    for coeff, row in zip(coeffs, self.code_rows()):
+      mat = np.eye(1, dtype=np.complex64)
+      for code in row:
+        mat = np.kron(mat, PAULI_MATS[code])
+      out = out + coeff * mat
+    return out
+
   def __repr__(self):
     terms = []
     for row in self.code_rows():
@@ -89,6 +120,23 @@ def pauli_sum_from_strings(
                   num_qubits=num_qubits)
 
 
+def from_arrays(codes, coeffs, num_qubits: int, device=None) -> PauliSum:
+  """A PauliSum from host arrays: codes [num_terms, num_qubits] in
+  {0:I, 1:X, 2:Y, 3:Z} and coeffs [num_terms] (e.g. the `codes` and
+  `coeffs` of a reference PauliSum, read through numpy), its coeffs on
+  `device` (None means the CUDA card, `device.resolve`)."""
+  return PauliSum(codes=_codes_tensor(np.asarray(codes), num_qubits),
+                  coeffs=torch.tensor(np.asarray(coeffs, np.float32),
+                                      device=device_lib.resolve(device)),
+                  num_qubits=num_qubits)
+
+
+def pauli_string(num_qubits: int, qubit_paulis: Mapping[int, Union[str, int]],
+                 coeff: float = 1.0, device=None) -> PauliSum:
+  """Single Pauli string, e.g. pauli_string(3, {0: 'Z', 2: 'Z'}, -1.0)."""
+  return pauli_sum_from_strings(num_qubits, [(coeff, qubit_paulis)], device)
+
+
 def tfim_1d(num_qubits: int, h: float = 1.0, j: float = 1.0,
             periodic: bool = False, device=None) -> PauliSum:
   """H = -h*sum_q X_q - j*sum_q Z_q Z_{q+1}: open chain by default, ring
@@ -115,3 +163,21 @@ def concat_ops(ops: Sequence[PauliSum], num_qubits: int):
   codes = torch.cat([op.codes.reshape(-1, num_qubits) for op in ops])
   coeffs = torch.cat([op.coeffs.reshape(-1) for op in ops])
   return PauliSum(codes, coeffs, num_qubits), op_slices(ops)
+
+
+def z_strings_from_masks(masks: Sequence[Sequence[int]], num_qubits: int,
+                         device=None) -> Tuple[PauliSum, ...]:
+  """One single-term Z-string PauliSum of coefficient 1 per mask row (the
+  operator shards of an energy), coeffs on `device` (None means the CUDA
+  card, `device.resolve`)."""
+  return tuple(pauli_sum_from_strings(
+      num_qubits, [(1.0, {q: Z for q, bit in enumerate(mask) if bit})],
+      device) for mask in masks)
+
+
+def stack_single_term(paulisums: Sequence[PauliSum]) -> PauliSum:
+  """Stacks single-term PauliSums into one multi-term PauliSum (every
+  shard measured in one pass)."""
+  if any(p.num_terms != 1 for p in paulisums):
+    raise ValueError("stack_single_term requires single-term PauliSums.")
+  return concat_ops(paulisums, paulisums[0].num_qubits)[0]

@@ -63,6 +63,12 @@ def bits_to_index(bits: torch.Tensor, num_qubits: int) -> torch.Tensor:
   return torch.sum(bits.to(torch.int64) * weights, dim=-1)
 
 
+def index_to_bits(idx: torch.Tensor, num_qubits: int) -> torch.Tensor:
+  """Flat basis index -> big-endian int8 bitstring, last dim num_qubits."""
+  shifts = torch.arange(num_qubits - 1, -1, -1, device=idx.device)
+  return ((idx.to(torch.int64)[..., None] >> shifts) & 1).to(torch.int8)
+
+
 def basis_state(num_qubits: int, bits: torch.Tensor) -> torch.Tensor:
   """|b> for a bitstring `bits` of shape [num_qubits], as [R, C]."""
   m = minor_bits(num_qubits)
@@ -709,3 +715,44 @@ def apply_pauli_sum(state: torch.Tensor, op: paulis.PauliSum,
       out = out + apply_row_block(weighted_sum(ts, (start, k)), start, k,
                                   state)
   return out
+
+
+def apply_pauli_string(state: torch.Tensor, codes: Sequence[int]
+                       ) -> torch.Tensor:
+  """P|psi> for a static Pauli code row (0=I, 1=X, 2=Y, 3=Z) on [..., R, C]
+  states: (P psi)[x] = (-i)^#Y (-1)^popcount(x & zy) psi[x ^ xy], with zy
+  the Z/Y qubits' index bits and xy the X/Y ones."""
+  n = len(codes)
+  zy = xy = 0
+  for q, code in enumerate(codes):
+    bit = 1 << (n - 1 - q)
+    if code in (paulis.Z, paulis.Y):
+      zy |= bit
+    if code in (paulis.X, paulis.Y):
+      xy |= bit
+  num_y = sum(1 for code in codes if code == paulis.Y)
+  flat = to_vector(state)
+  idx = torch.arange(flat.shape[-1], device=state.device)
+  sign = parity_signs([zy], flat.shape[-1], state.device)[0]
+  out = flat[..., idx ^ xy] * (sign * (-1j)**num_y).to(state.dtype)
+  return out.reshape(state.shape)
+
+
+def probabilities(state: torch.Tensor) -> torch.Tensor:
+  """|psi|^2 over the standard basis, [..., 2^n] float32."""
+  return to_vector(state).abs()**2
+
+
+def unitary(circuit: ir.Circuit, symbol_values: torch.Tensor) -> torch.Tensor:
+  """Dense (2^n, 2^n) complex64 unitary on the values' device, forward
+  only (metrics, small n): column j is U|j>, the 2^n basis states evolved
+  at once by the batched forward (`hopper_sv.apply_circuit_batched`: K4 /
+  K1 on the card)."""
+  from qhbmlib_tpu_torch.ops import hopper_sv  # hopper_sv imports this
+  n = circuit.num_qubits
+  m = minor_bits(n)
+  idx = torch.arange(2**n, device=symbol_values.device)
+  rowcol = torch.stack([idx >> m, idx & (2**m - 1)], dim=1)
+  with torch.no_grad():
+    re, im = hopper_sv.apply_circuit_batched(circuit, symbol_values, rowcol)
+  return torch.complex(re, im).reshape(2**n, 2**n).T

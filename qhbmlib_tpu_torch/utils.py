@@ -7,6 +7,17 @@ from typing import Optional, Tuple
 import torch
 
 
+def bounded_cache_put(cache: dict, key, value, max_entries: int = 64):
+  """FIFO-bounded insert for id()-keyed caches whose entries pin their keyed
+  objects (ids are unique only among live objects); evicting the oldest
+  entry bounds what a caller that makes a new key object each step keeps
+  alive."""
+  if key not in cache and len(cache) >= max_entries:
+    cache.pop(next(iter(cache)))
+  cache[key] = value
+  return value
+
+
 def weighted_average(counts: torch.Tensor, values: torch.Tensor):
   """Count-weighted mean over the leading axis of `values`; zero-count
   (padding) rows contribute nothing."""
@@ -69,3 +80,8 @@ def unique_bitstrings_with_counts(
       inv = pos_map[inv]
   return (ints_to_bits(uniq, n).to(bitstrings.dtype), inv,
           cnt.to(torch.int32))
+
+
+def expand_unique_results(y: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+  """Inverse of `unique_bitstrings_with_counts`: expanded[i] == y[idx[i]]."""
+  return torch.index_select(y, 0, idx)

@@ -131,9 +131,12 @@ def test_bench_json_line_has_its_keys():
           "gate_reference", "gate_trajectory_steps", "forward_h",
           "forward_h_f64_oracle", "forward_h_abs_err", "forward_h_rel_err",
           "pauli_expectations_per_sec_20q", "hbm_probe", "workload",
+          "qmhl_steps_per_sec_24q", "qmhl_gate_loss_err",
+          "qmhl_gate_grad_rel_err", "qmhl_shards_rel_err", "workload_qmhl",
           "device", "card"} <= set(line["extra"])
   assert line["extra"]["device"] == "cpu" and line["extra"]["card"] is None
-  assert paths == ["train 24q", "train 20q", "pauli 20q", "probe"]
+  assert paths == ["train 24q", "train 20q", "train qmhl 24q", "pauli 20q",
+                   "probe"]
 
 
 def test_probe_main_prints_the_reference_shape():
