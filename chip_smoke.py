@@ -27,22 +27,27 @@ batched forward and sweep against their plain versions, the 9-qubit VQT
 and QMHL losses and single-state `adjoint.expectation` against the CPU,
 K3 / K2 and the batched engine on a diagonal segment of 1440 parity
 factors (over one stage record and over one `parity_bilinear` launch),
-and drives the main paths, each with every launch count reset just before
-it and read just after: the port's bench (`qhbmlib_tpu_torch.bench`: a
+the JAX ladder's r2 rung at 8q (8q Heisenberg thermal data, QMHL, KOBE-2,
+exact categorical EBM) card against CPU and its tr[rho K] against a
+float64 oracle, and drives the main paths, each with every launch count
+reset just before it and read just after: the port's bench (`qhbmlib_tpu_torch.bench`: a
 warm-up and three timed VQT train steps at 24q/2L/100/8 and at
 20q/4L/500/64, and QMHL ones of that 24q model on the data of a fixed
 random 24q QHBM ("train qmhl 24q"), the precision gates, the 24q forward
 <H> and the QMHL step's forward <Z_i> shards against the f64 oracle,
 PauliSum expectations/s at 20q, the HBM stream probe), the train step at
 16q/4L/500/64 (whose lone row block takes `axis_apply`'s N < 16 route),
-its gradient held against the plain versions, and three single-state
-value-and-gradient calls at 20q/4L.  It fails if the VQT gate's gradient
-error reaches 1e-2, the QMHL step's 1e-4, or the oracle checks are more
-than 1e-4 off.  Before
-the last line it prints a JSON line {"kernels": [...]} with each kernel's
-launches on the main paths, its error against the plain version, its times
-and its bound; the last line is {"ok": true, "device": {...}}.  It exits
-non-zero without a CUDA device, and on any failed check.  Imports no jax.
+its gradient held against the plain versions, the r2 rung's train step
+at 8q and 11q ("train r2 8q", "train r2 11q": the thermal data's 2^n
+eigenvectors of rho through the batched forward and sweep, a warm-up and
+three timed steps, the gradient against the plain versions), and three
+single-state value-and-gradient calls at 20q/4L.  It fails if the VQT
+gate's gradient error reaches 1e-2, the QMHL and r2 steps' 1e-4, or the
+oracle checks are more than 1e-4 off.  Before the last line it prints a
+JSON line {"kernels": [...]} with each kernel's launches on the main
+paths, its error against the plain version, its times and its bound;
+the last line is {"ok": true, "device": {...}}.  It exits non-zero
+without a CUDA device, and on any failed check.  Imports no jax.
 """
 
 from __future__ import annotations
@@ -610,6 +615,110 @@ def phase_train_16q(device):
   return launches
 
 
+# Kernels the r2 train steps must launch: the only row block of an 8q or
+# 11q state pairs with the minor operator, so every 1q segment is one
+# axis2_apply pass and no axis_apply runs.
+TRAIN_R2 = ["axis2_apply", "diag_rotate", "qubit_transitions",
+            "parity_bilinear"]
+
+
+def r2_build(qubits):
+  """`bench.run_workload`'s build of the JAX ladder's r2 rung
+  (`ladder.build_rung("r2_heis8_qmhl")`) at `qubits`, logging the
+  construction's host time (two complex eigh of 2^n x 2^n: the target's
+  for rho, then rho's own)."""
+  from qhbmlib_tpu_torch.benchmarks import ladder
+
+  def build(cfg, device):
+    del cfg
+    t0 = time.time()
+    out = ladder.build_rung("r2_heis8_qmhl", qubits=qubits, device=device)
+    log(f"[train r2 {qubits}q] rung built in {time.time() - t0:.2f} s "
+        f"(host: thermal state, its eigendecomposition, {2**qubits} "
+        "eigenvector planes to the card)")
+    return out
+
+  return build
+
+
+def phase_train_r2(device, qubits):
+  """The r2 rung's QMHL train step at `qubits` (8: its own size; 11: the
+  reference's `qubits` override, sample-and-dedup at max_unique 500): a
+  warm-up and STEPS steps (`bench.run_workload`), with every launch count
+  reset just before and read just after; then, as the bench's gate does
+  (TF32 off), the model's gradient through the kernels against the plain
+  versions at each timed step's parameters and EBM draw, within GRAD_TOL.
+  The thermal data's 2^n eigenvectors are the batch.  Returns the
+  launches."""
+  from qhbmlib_tpu_torch import bench
+  traj = {}
+  reset_launches()
+  sps = bench.run_workload(f"r2 {qubits}q", None, STEPS, device, traj,
+                           build=r2_build(qubits))
+  torch.cuda.synchronize()
+  launches = read_launches(f"train r2 {qubits}q", TRAIN_R2)
+  per_step = {k: v / (STEPS + 1) for k, v in launches.items() if v}
+  log(f"[train r2 {qubits}q] {sps:.4f} steps/s; launches per step (warm-up "
+      f"+ {STEPS} steps): {per_step}")
+  gate = bench.precision_gate(traj)
+  check(f"train r2 {qubits}q gradient, kernels vs plain at {STEPS} steps",
+        gate["gate_grad_rel_err"], GRAD_TOL)
+  return launches
+
+
+def r2_oracle(data, k):
+  """tr[rho K] of the r2 data against the Hamiltonian k (KOBE-2 energy,
+  circuit U) in float64 without the port's engine: U^dagger built column
+  by column by the C++ oracle (`native_oracle.simulate` of each basis
+  state), d = diag(U^dagger rho U), and E(x) = sum_t w_t prod_{i in c_t}
+  s_i over the combinations of <= 2 qubits."""
+  import itertools
+  import numpy as np
+  from qhbmlib_tpu_torch.ops import hopper_sv
+  from qhbmlib_tpu_torch.ops import native_oracle
+  n = data.num_qubits
+  dagger = k.circuit_dagger
+  values = hopper_sv.host_values(dagger.resolved_values()).astype(np.float64)
+  idx = np.arange(2**n)
+  bits = (idx[:, None] >> np.arange(n - 1, -1, -1)) & 1
+  w = np.stack([native_oracle.simulate(dagger.pqc, values, bits=b)
+                for b in bits], axis=1)
+  rho = data.density_matrix.numpy()
+  d = np.real(np.einsum("xi,ij,xj->x", w, rho, np.conj(w)))
+  spins = 1.0 - 2.0 * bits
+  combos = [c for order in (1, 2)
+            for c in itertools.combinations(range(n), order)]
+  kernel = k.energy.kernel.detach().cpu().double().numpy()
+  energies = sum(kernel[t] * np.prod(spins[:, list(c)], axis=1)
+                 for t, c in enumerate(combos))
+  return float(d @ energies)
+
+
+def phase_small_r2(device, qubits=8):
+  """The r2 rung at its own 8 qubits, the model's EBM exact: the card's
+  loss and gradient (one step) against the same step on the CPU (plain
+  versions), and tr[rho K] at the initial parameters against the float64
+  oracle (`r2_oracle`)."""
+  from qhbmlib_tpu_torch.benchmarks import ladder
+  build = lambda dev: ladder.build_rung("r2_heis8_qmhl", qubits=qubits,
+                                        exact=True, device=dev)
+  h, data, step = build(device)
+  with torch.no_grad():
+    got = float(data.expectation(h.modular_hamiltonian))
+  want = r2_oracle(data, h.modular_hamiltonian)
+  log(f"[r2 {qubits}q] tr[rho K] at the initial parameters {got:.8f}, f64 "
+      f"oracle {want:.8f}")
+  check(f"r2 {qubits}q tr[rho K] (batched forward over rho's {2**qubits} "
+        "eigenvectors) vs f64 oracle", abs(got - want) / abs(want),
+        ORACLE_TOL)
+  l_dev, g_dev = step()
+  l_cpu, g_cpu = build("cpu")[2]()
+  check(f"r2 {qubits}q QMHL loss, card vs CPU", rel_err(l_dev.cpu(), l_cpu),
+        1e-5)
+  check(f"r2 {qubits}q QMHL gradient, card vs CPU",
+        rel_err(g_dev.cpu(), g_cpu), GRAD_TOL)
+
+
 def phase_bench(device):
   """The port's bench (`qhbmlib_tpu_torch.bench.run_bench`, STEPS timed
   steps a workload) with every launch count reset just before each of its
@@ -959,7 +1068,8 @@ def phase_long_diag_batched(device, n=9, reps=10, batch=4):
   `parity_bilinear` launch takes: value and gradient of the TFIM for
   `batch` basis states, kernels against plain; the sweep must split the
   segment's bilinears into launches of at most MAX_BILIN_K factors.  Then
-  `parity_bilinear` alone at that K against its plain version."""
+  `parity_bilinear` alone at that K against its plain version and its
+  library einsum."""
   from qhbmlib_tpu_torch.ops import adjoint
   from qhbmlib_tpu_torch.ops import hopper_adjoint as ha
   from qhbmlib_tpu_torch.ops import paulis
@@ -998,7 +1108,7 @@ def phase_long_diag_batched(device, n=9, reps=10, batch=4):
   dgen = torch.Generator(device=device).manual_seed(SEED + 13)
   planes = tuple(torch.randn((batch, r, c), generator=dgen, device=device)
                  for _ in range(4))
-  check_bilinear(f"{n}q, one diag segment", planes, rms, cms)
+  check_bilinear(f"{n}q, one diag segment", planes, rms, cms, library=True)
 
 
 def phase_small_qmhl(device):
@@ -1174,12 +1284,15 @@ def main() -> int:
   phase_end_to_end(device)
   phase_small_reference(device)
   phase_small_qmhl(device)
+  phase_small_r2(device)
   phase_single_small(device)
   phase_long_diag(device)
   phase_long_diag_batched(device)
   # The main paths, each driven with every count at 0 just before it.
   _, paths = phase_bench(device)
   paths["train 16q"] = phase_train_16q(device)
+  for qubits in (8, 11):
+    paths[f"train r2 {qubits}q"] = phase_train_r2(device, qubits)
   paths["single"] = phase_single_main(device)
   log(f"[done] on {card}, {time.time() - t0:.1f} s since the build started")
   kernels = [{

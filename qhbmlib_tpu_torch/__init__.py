@@ -10,7 +10,10 @@ against.  It imports torch and never jax:
                 Hamiltonians
   * inference/  EBM and QNN inference, the eq. A5/C2 estimators, QHBM, the
                 VQT and QMHL losses and their metrics
-  * data/       quantum data (QHBM data) for the QMHL loss
+  * data/       quantum data (QHBM data, exact thermal-state data) for the
+                QMHL loss
+  * baselines/  numpy copies of the harness's exact density-matrix helpers
+  * benchmarks/ the bench's tools and the JAX ladder's rungs (`ladder`)
   * convert.py  carries JAX parameter trees into the port's modules
 """
 

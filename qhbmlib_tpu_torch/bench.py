@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import json
 import subprocess
 import sys
@@ -53,6 +54,7 @@ from qhbmlib_tpu_torch import models
 from qhbmlib_tpu_torch import nn
 from qhbmlib_tpu_torch.benchmarks import hbm_probe
 from qhbmlib_tpu_torch.data import qhbm_data
+from qhbmlib_tpu_torch.data import thermal_data
 from qhbmlib_tpu_torch.inference import ebm, qhbm, qmhl_loss, qnn, vqt_loss
 from qhbmlib_tpu_torch.ops import _cuda
 from qhbmlib_tpu_torch.ops import adjoint
@@ -217,7 +219,13 @@ def run_workload(name: str, cfg, steps: int, device, traj=None,
 def plain_loss(h: qhbm.QHBM, other):
   """The step's loss through the kernels' plain versions: the QNN that
   evaluates the circuits rebuilt with `plain=True` -- the model's for VQT
-  (`other` the target), the data's for QMHL (`other` a QHBMData)."""
+  (`other` the target), the data's for QMHL (`other` a QHBMData) -- or,
+  for QMHL on a ThermalStateData, a copy of the data with `plain=True`
+  (the same eigenvectors)."""
+  if isinstance(other, thermal_data.ThermalStateData):
+    data = copy.copy(other)
+    data.plain = True
+    return qmhl_loss.make_qmhl(data, h)
   if isinstance(other, qhbm_data.QHBMData):
     d = other.qhbm
     data = qhbm_data.QHBMData(qhbm.QHBM(d.e_inference,

@@ -1,7 +1,7 @@
 """Times this tree of the port against another tree on one card, in turns.
 
     python -m qhbmlib_tpu_torch.benchmarks.compare_trees OTHER \
-        [--what kernels|bench|pauli] [--phases phase_k4,...] \
+        [--what kernels|bench|pauli|train16q] [--phases phase_k4,...] \
         [--repeats R] [--out DIR]
 
 OTHER is an unpacked tree of another commit (or a variant of this one),
@@ -22,7 +22,9 @@ alike), by default `phase_k4` (K4's `axis_apply` views) and
 runs each tree's own `python -m qhbmlib_tpu_torch.bench --steps 8`;
 `--what pauli` only its PauliSum expectations/s at 20q
 (`bench.measure_pauli_expectations`, whose host-clock spread needs more
-turns than one bench run gives).  Each run's output goes to
+turns than one bench run gives); `--what train16q` only the 16q/4L/500/64
+train step's steps/s over TRAIN_STEPS steps (`bench.run_workload`; a
+host-bound step, whose spread also needs many turns).  Each run's output goes to
 DIR/<turn>_<tree>.log; its [kernels] and [check] lines, or its last line
 (the bench's JSON, the expectations/s), are printed.  Needs the CUDA card.
 """
@@ -51,6 +53,15 @@ for name in {phases!r}:
   getattr(smoke, name)(torch.device("cuda:0"))
 """
 BUILD = "from qhbmlib_tpu_torch.ops import _cuda; _cuda.build()"
+TRAIN_STEPS = 20
+TRAIN16Q = f"""
+import torch
+from qhbmlib_tpu_torch import bench
+from qhbmlib_tpu_torch.benchmarks import step_profile
+torch.backends.cuda.matmul.allow_tf32 = False
+print(bench.run_workload("16q", step_profile.WORKLOADS["16q"], {TRAIN_STEPS},
+                         torch.device("cuda")))
+"""
 PAULI = """
 import torch
 from qhbmlib_tpu_torch import bench
@@ -65,6 +76,8 @@ def command(what: str, phases: str = PHASES):
     return [sys.executable, "-m", "qhbmlib_tpu_torch.bench", "--steps", "8"]
   if what == "pauli":
     return [sys.executable, "-c", PAULI]
+  if what == "train16q":
+    return [sys.executable, "-c", TRAIN16Q]
   code = RUN_PHASES.format(smoke=str(ROOT / "chip_smoke.py"),
                            phases=phases.split(","))
   return [sys.executable, "-c", code]
@@ -72,7 +85,7 @@ def command(what: str, phases: str = PHASES):
 
 def shown(what: str, out: str) -> str:
   lines = out.splitlines()
-  if what in ("bench", "pauli"):
+  if what in ("bench", "pauli", "train16q"):
     return lines[-1] if lines else ""
   return "\n".join(x for x in lines if x.startswith(("[kernels]", "[check]")))
 
@@ -80,7 +93,7 @@ def shown(what: str, out: str) -> str:
 def main(argv=None) -> int:
   p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   p.add_argument("other", type=pathlib.Path)
-  p.add_argument("--what", choices=("kernels", "bench", "pauli"),
+  p.add_argument("--what", choices=("kernels", "bench", "pauli", "train16q"),
                  default="kernels")
   p.add_argument("--phases", default=PHASES)
   p.add_argument("--repeats", type=int, default=1)

@@ -4,9 +4,10 @@
 
 For each workload of WORKLOADS (the port's bench workloads, 24q and 20q,
 and 16q/4L/500/64, whose lone row block (7,2) takes `axis_apply`'s N < 16
-route) it builds the train step (`bench.build_train_step`), and for the
-QMHL step of QMHL_WORKLOADS ("qmhl 24q", `bench.build_qmhl_step`), takes
-one warm-up step, then traces STEPS steps inside one `record_function` region
+route) it builds the train step (`bench.build_train_step`), and for the QMHL
+steps of QMHL_WORKLOADS ("qmhl 24q", `bench.build_qmhl_step`; "r2 8q"
+and "r2 11q", the JAX ladder's r2 rung, `ladder.build_rung`), takes one
+warm-up step, then traces STEPS steps inside one `record_function` region
 that ends in a synchronize.  From the exported Chrome trace: the busy
 share, the union of the device intervals (kernels, copies, sets) inside
 the region over the region's wall time -- the profiler stretches the wall,
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from qhbmlib_tpu_torch import bench
+from qhbmlib_tpu_torch.benchmarks import ladder
 from qhbmlib_tpu_torch.models import circuit_utils
 from qhbmlib_tpu_torch.ops import adjoint
 from qhbmlib_tpu_torch.ops import hopper_adjoint
@@ -53,8 +55,12 @@ TOP = 12  # kernels reported by name; the rest are summed
 # and draw at 16 qubits.
 WORKLOADS = {**bench.WORKLOADS,
              "16q": dict(n=16, layers=4, samples=500, max_unique=64)}
-# The profiled QMHL step: the bench's (`bench.build_qmhl_step`).
-QMHL_WORKLOADS = {"qmhl 24q": bench.QMHL_WORKLOAD}
+# The profiled QMHL steps: the bench's (`bench.build_qmhl_step`) and the
+# r2 rung's (`ladder.build_rung`) at its own 8 qubits and at 11 (its
+# thermal data's 2^n eigenvectors are the batch).
+QMHL_WORKLOADS = {"qmhl 24q": bench.QMHL_WORKLOAD,
+                  "r2 8q": dict(rung="r2_heis8_qmhl", qubits=8),
+                  "r2 11q": dict(rung="r2_heis8_qmhl", qubits=11)}
 # The single-state call's host parts, in call order: (module, function).
 SINGLE_SPANS = (
     (hopper_sv, "host_values"), (hopper_sv, "forward_table"),
@@ -212,11 +218,15 @@ def profile_single(trace_dir: str, device="cuda", n: int = 20,
 
 def profile_workload(name: str, trace_dir: str) -> dict:
   """A warm-up step, then STEPS traced steps of the VQT workload `name` of
-  WORKLOADS or the QMHL workload of QMHL_WORKLOADS: the region's
-  breakdown."""
+  WORKLOADS or the QMHL workload of QMHL_WORKLOADS (a ladder rung where it
+  names one): the region's breakdown."""
   device = torch.device("cuda")
-  if name in QMHL_WORKLOADS:
-    _, _, train_step = bench.build_qmhl_step(QMHL_WORKLOADS[name], device)
+  cfg = QMHL_WORKLOADS.get(name, {})
+  if "rung" in cfg:
+    _, _, train_step = ladder.build_rung(cfg["rung"], qubits=cfg["qubits"],
+                                         device=device)
+  elif name in QMHL_WORKLOADS:
+    _, _, train_step = bench.build_qmhl_step(cfg, device)
   else:
     _, _, train_step = bench.build_train_step(WORKLOADS[name], device)
   train_step()  # warm-up: builds the kernels

@@ -1,5 +1,6 @@
 """Inference engines, the VQT and QMHL losses and their metrics."""
 
+from qhbmlib_tpu_torch.inference.ebm import AnalyticEnergyInference
 from qhbmlib_tpu_torch.inference.ebm import BernoulliEnergyInference
 from qhbmlib_tpu_torch.inference.ebm import EnergyInference
 from qhbmlib_tpu_torch.inference.qhbm import QHBM

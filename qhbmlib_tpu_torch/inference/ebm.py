@@ -1,5 +1,5 @@
-"""Inference on energy functions (port of `qhbmlib_tpu/inference/ebm.py`,
-main-path subset: `EnergyInference` and `BernoulliEnergyInference`).
+"""Inference on energy functions (port of `qhbmlib_tpu/inference/ebm.py`:
+`EnergyInference`, `AnalyticEnergyInference`, `BernoulliEnergyInference`).
 
 Randomness goes through an explicit `torch.Generator` on the inference's
 device, seeded from `initial_seed`.  Unlike the JAX package, whose pinned
@@ -7,13 +7,14 @@ seed reuses one key verbatim, the generator advances with every draw (the
 PyTorch convention); pass a generator to a call to control it exactly.
 
 Samplers feed the estimators a (support, counts) pair: N samples deduped to
-at most `max_unique_samples` rows, or with `exact=True` (n <= 16) the full
-2^n enumeration with expected counts N * p(x).
+at most `max_unique_samples` rows, or with `exact=True` the full 2^n
+enumeration with expected counts N * p(x).
 """
 
 from __future__ import annotations
 
 import abc
+import math
 from typing import Optional
 
 import torch
@@ -24,6 +25,17 @@ from qhbmlib_tpu_torch.models import energy as energy_model
 
 # Largest n for which the exhaustive 2^n support is built.
 DEFAULT_ENUM_BITS = 16
+# Most bits AnalyticEnergyInference enumerates (reference ebm.py:244).
+ANALYTIC_MAX_BITS = 22
+
+
+def categorical_counts(logits: torch.Tensor, num_samples: int, length: int,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
+  """float32 [length] counts of `num_samples` draws from softmax(logits)
+  (reference ebm.py:44-48)."""
+  idx = utils.categorical_indices(logits, num_samples, generator)
+  return torch.bincount(idx, minlength=length).to(torch.float32)
 
 
 class EnergyInference(abc.ABC):
@@ -62,9 +74,24 @@ class EnergyInference(abc.ABC):
   def support_and_counts(self, generator: Optional[torch.Generator] = None):
     """([U, n] float support, [U] float counts), both without grad."""
 
-  @abc.abstractmethod
-  def log_partition_forward(self) -> torch.Tensor:
-    """log Z (value only)."""
+  def log_partition_forward(self, generator=None) -> torch.Tensor:
+    """log Z (value only): the uniform-sampling Monte Carlo estimate n log 2
+    - log Ns + LSE(-E(x_i)) over Ns uniform bitstrings (reference
+    ebm.py:203-212).  Subclasses with an exact value override it."""
+    n = self._energy.num_bits
+    ns = self.num_expectation_samples
+    samples = (torch.rand((ns, n), generator=generator or self.generator,
+                          device=self.device) < 0.5).to(torch.int8)
+    with torch.no_grad():
+      energies = self._energy(samples)
+    return (n * math.log(2.0) - math.log(float(ns)) +
+            torch.logsumexp(-energies, 0))
+
+  def entropy(self, generator=None) -> torch.Tensor:
+    """<E>_p + log Z (reference ebm.py:188-192): the energy's average with
+    its eq. A5 and pathwise gradients plus log Z with the eq. C2 one."""
+    return (self.expectation(self._energy, generator) +
+            self.log_partition(generator))
 
   def expectation(self, values_fn, generator=None) -> torch.Tensor:
     """<f>_p with eq. A5 gradients; values_fn: int8 bits [U, n] -> [U] or
@@ -77,8 +104,87 @@ class EnergyInference(abc.ABC):
   def log_partition(self, generator=None) -> torch.Tensor:
     """log Z with the eq. C2 gradient."""
     support, counts = self.support_and_counts(generator)
-    return estimators.log_partition(self._energy, self.log_partition_forward(),
+    return estimators.log_partition(self._energy,
+                                    self.log_partition_forward(generator),
                                     self.theta, support, counts)
+
+
+class AnalyticEnergyInference(EnergyInference):
+  """The exact categorical distribution over all 2^n bitstrings (reference
+  ebm.py:225-315), for n <= ANALYTIC_MAX_BITS.
+
+  `exact=True` feeds the estimators the full enumeration with expected
+  counts N * p(x).  Otherwise `max_unique_samples` None (the default for n
+  <= 10) counts N categorical draws over the full enumeration, and a cap
+  (default min(2^12, N) above 10 bits) draws N samples and keeps at most
+  that many unique rows."""
+
+  def __init__(self, input_energy: energy_model.BitstringEnergy,
+               num_expectation_samples: int, initial_seed: Optional[int] = None,
+               exact: bool = False, max_unique_samples: Optional[int] = None,
+               device=None, name: Optional[str] = None):
+    n = input_energy.num_bits
+    if n > ANALYTIC_MAX_BITS:
+      raise ValueError(
+          f"AnalyticEnergyInference enumerates all 2^n bitstrings; n={n} "
+          "would materialize a >16M-row enumeration on every inference call. "
+          "For large n use BernoulliEnergyInference (factorized energies) or "
+          "GibbsWithGradientsInference (MCMC); if you specifically need the "
+          "analytic estimator semantics at smaller n, the `exact=True` and "
+          "`max_unique_samples=` options bound its cost without changing the "
+          "estimator.")
+    super().__init__(input_energy, num_expectation_samples, initial_seed,
+                     device, name)
+    self.exact = exact
+    if max_unique_samples is None and n > 10:
+      max_unique_samples = min(2**12, self.num_expectation_samples)
+    self.max_unique_samples = max_unique_samples
+    self.all_bitstrings = utils.all_bitstrings(n, self.device)
+
+  @property
+  def all_energies(self) -> torch.Tensor:
+    """[2^n] energies of every bitstring, differentiable."""
+    return self._energy(self.all_bitstrings)
+
+  def logits(self) -> torch.Tensor:
+    return -self.all_energies
+
+  def probabilities(self) -> torch.Tensor:
+    return torch.softmax(self.logits(), 0)
+
+  def sample(self, num_samples: int, generator=None) -> torch.Tensor:
+    with torch.no_grad():
+      idx = utils.categorical_indices(self.logits(), num_samples,
+                                      generator or self.generator)
+    return self.all_bitstrings[idx]
+
+  def support_and_counts(self, generator=None):
+    with torch.no_grad():
+      logits = self.logits()
+      if self.exact:
+        return (self.all_bitstrings.to(torch.float32),
+                torch.softmax(logits, 0) * self.num_expectation_samples)
+      if self.max_unique_samples is None:
+        # The full enumeration with the draws' counts: the same estimator
+        # as sample-and-dedup, on a static support.
+        return (self.all_bitstrings.to(torch.float32),
+                categorical_counts(logits, self.num_expectation_samples,
+                                   logits.shape[0],
+                                   generator or self.generator))
+      samples = self.sample(self.num_expectation_samples, generator)
+      uniq, _, counts = utils.unique_bitstrings_with_counts(
+          samples, size=self.max_unique_samples)
+      return uniq.to(torch.float32), counts.to(torch.float32)
+
+  def entropy(self, generator=None) -> torch.Tensor:
+    """Exact categorical entropy, differentiable."""
+    log_p = torch.log_softmax(self.logits(), 0)
+    return -torch.sum(torch.exp(log_p) * log_p)
+
+  def log_partition_forward(self, generator=None) -> torch.Tensor:
+    """Exact: LSE over all logits."""
+    with torch.no_grad():
+      return torch.logsumexp(self.logits(), 0)
 
 
 class BernoulliEnergyInference(EnergyInference):
@@ -121,12 +227,12 @@ class BernoulliEnergyInference(EnergyInference):
           samples, size=self.max_unique_samples)
       return uniq.to(torch.float32), counts.to(torch.float32)
 
-  def log_partition_forward(self) -> torch.Tensor:
+  def log_partition_forward(self, generator=None) -> torch.Tensor:
     """Exact: sum_i log(2 cosh theta_i)."""
     thetas = 0.5 * self.logits()
     return torch.sum(torch.logaddexp(thetas, -thetas))
 
-  def entropy(self) -> torch.Tensor:
+  def entropy(self, generator=None) -> torch.Tensor:
     """Exact factorized entropy, differentiable."""
     l = self.logits()
     p = torch.sigmoid(l)

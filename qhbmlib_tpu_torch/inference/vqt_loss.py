@@ -42,7 +42,7 @@ def make_vqt(input_qhbm: qhbm_module.QHBM,
   def loss_fn(beta, generator: Optional[torch.Generator] = None):
     avg = e_inf.expectation(lambda bits: f_vqt(beta, bits), generator)
     with torch.no_grad():
-      log_z = e_inf.log_partition_forward()
+      log_z = e_inf.log_partition_forward(generator)
     return avg - log_z
 
   return loss_fn

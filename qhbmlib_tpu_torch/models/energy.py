@@ -1,5 +1,6 @@
 """Energy-function models over bitstrings (port of
-`qhbmlib_tpu/models/energy.py`, main-path subset).
+`qhbmlib_tpu/models/energy.py`: BitstringEnergy, PauliMixin,
+BernoulliEnergy, KOBE).
 
 An energy is an nn.Module: `energy(bitstrings [batch, n]) -> [batch]`, with
 its trainable weights as `nn.Parameter`s.
@@ -95,3 +96,37 @@ class BernoulliEnergy(BitstringEnergy, PauliMixin):
     return paulis.z_strings_from_masks(
         [[1 if q == i else 0 for q in range(num_qubits)]
          for i in range(num_qubits)], num_qubits, self.kernel.device)
+
+
+class KOBE(BitstringEnergy, PauliMixin):
+  """K-th order binary energy: E(x) = sum_t w_t prod_{i in c_t} s_i over
+  every combination c_t of <= `order` bits (reference
+  `models/energy.py:155-183`).  Its kernel and parity mask live on
+  `device` (None means the CUDA card, `device.resolve`).  Its operator form
+  measures the Z string of each combination, in the same order, then its
+  `VariableDot`."""
+
+  def __init__(self, bits: List[int], order: int,
+               initializer: Optional[qnn_init.Initializer] = None,
+               name: Optional[str] = None, device=None):
+    parity = energy_utils.Parity(bits, order, device)
+    dot = energy_utils.VariableDot(parity.num_terms, initializer, device)
+    super().__init__(bits, [energy_utils.SpinsFromBitstrings(), parity, dot],
+                     name)
+    self.num_terms = parity.num_terms
+    self.indices = parity.indices
+
+  @property
+  def kernel(self) -> nn.Parameter:
+    return self.energy_layers[-1].kernel
+
+  @property
+  def post_process(self) -> List[nn.Module]:
+    return [self.energy_layers[-1]]
+
+  def operator_shards(self, num_qubits: int) -> Sequence[paulis.PauliSum]:
+    """Z on each qubit of each combination, coeffs on the kernel's
+    device."""
+    return paulis.z_strings_from_masks(
+        [[1 if q in combo else 0 for q in range(num_qubits)]
+         for combo in self.indices], num_qubits, self.kernel.device)

@@ -14,6 +14,11 @@ branch the grid-over-batch Pallas kernels take (`_bt_fwd` / `_bt_bwd` under
 The whole batch runs at once (no `batch_chunk`): at 20 qubits and 64 states
 the residual planes take 512 MB of device memory.
 
+`batched_probabilities` runs the same forward and sweep from given states
+(not basis states) and measures the computational-basis probabilities
+|psi_b|^2; `data/thermal_data.py` measures a Hamiltonian against rho's
+eigenvectors with it.
+
 `adjoint_term_expectations` / `expectation` are the per-state API
 (:29-48, :308) for one state of any content: the forward is
 `statevector.apply_circuit` (K3 on the card for 8 <= n <= 20), the backward
@@ -104,6 +109,54 @@ def batched_expectations(circuit: ir.Circuit, symbol_values: torch.Tensor,
                               big.to(device), plain)  # [B, T]
   weighted = terms * big.coeffs.to(device)[None, :]
   return torch.stack([weighted[:, a:b].sum(dim=1) for a, b in slices], dim=1)
+
+
+class _BatchedProbs(torch.autograd.Function):
+  """[B, R, C] probabilities |psi_b|^2 of psi_b = U v_b for given states
+  v_b, differentiable w.r.t. the symbol values by the adjoint method."""
+
+  @staticmethod
+  def forward(ctx, symbol_values, init_re, init_im, circuit, plain):
+    values = hopper_sv.host_values(symbol_values)
+    psi = hopper_sv.apply_circuit_batched(circuit, values, plain=plain,
+                                          init_planes=(init_re, init_im))
+    ctx.circuit = circuit
+    ctx.values = values
+    ctx.plain = plain
+    ctx.save_for_backward(*psi)
+    return psi[0] * psi[0] + psi[1] * psi[1]
+
+  @staticmethod
+  def backward(ctx, g):
+    # d/dtheta sum_bx g_bx |psi_bx|^2 is the sweep of the diagonal
+    # observable O_b = diag(g_b): lam_b = O_b psi_b = g_b * psi_b, as
+    # lam = sum_t g_t P_t psi for Pauli terms.
+    psi_re, psi_im = ctx.saved_tensors
+    lam = (g * psi_re, g * psi_im)
+    grad = hopper_adjoint.adjoint_sweep_batched(
+        ctx.circuit, ctx.values, (psi_re, psi_im), lam, ctx.plain)
+    return grad, None, None, None, None
+
+
+def batched_probabilities(circuit: ir.Circuit, symbol_values: torch.Tensor,
+                          init_planes, plain: bool = False) -> torch.Tensor:
+  """Computational-basis probabilities of U v_b for B given states.
+
+  Args:
+    circuit: static circuit IR (1q dense and diagonal gates).
+    symbol_values: [num_symbols] parameters on the states' device.
+    init_planes: (re, im) float32 [B, R, C] planes of the states v_b (data:
+      no gradient reaches them).
+    plain: run the kernels' plain versions on any device (the precision
+      gate's reference arm only).
+
+  Returns:
+    [B, R, C] float32 |<x|U|v_b>|^2, differentiable w.r.t. `symbol_values`
+    (the forward through K4 / K1, the backward one batched sweep, K5, on
+    the card).
+  """
+  return _BatchedProbs.apply(symbol_values, init_planes[0], init_planes[1],
+                             circuit, plain)
 
 
 # -- one state: adjoint_term_expectations / expectation ------------------------

@@ -27,7 +27,7 @@ tests and `chip_smoke.py` use it as the reference, the main path never does.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -409,9 +409,11 @@ def basis_planes(rowcol: torch.Tensor, shape_rc) -> Planes:
 
 
 def apply_circuit_batched(circuit: ir.Circuit, symbol_values,
-                          init_rowcol: torch.Tensor,
-                          plain: bool = False) -> Planes:
-  """Evolves B basis states through the circuit.
+                          init_rowcol: Optional[torch.Tensor] = None,
+                          plain: bool = False,
+                          init_planes: Optional[Planes] = None) -> Planes:
+  """Evolves B states through the circuit: basis states (`init_rowcol`) or
+  states of any content (`init_planes`), exactly one of the two.
 
   Args:
     circuit: circuit of 1q dense and diagonal gates.
@@ -420,13 +422,21 @@ def apply_circuit_batched(circuit: ir.Circuit, symbol_values,
     init_rowcol: [B, 2] (row, col) indices of the basis states in the
       [R, C] layout, on the device the states should live on.
     plain: run the kernels' plain PyTorch versions (reference only).
+    init_planes: (re, im) float32 [B, R, C] planes of the initial states,
+      on the device the states should live on; not modified (the diagonal
+      stages rotate a contiguous copy in place).
 
   Returns:
     (re, im) float32 [B, R, C] planes of the final states.
   """
-  shape_rc = sv.state_shape(circuit.num_qubits)
-  planes = [basis_planes(init_rowcol, shape_rc)]
-  for stage in prepare_segments(circuit, symbol_values, init_rowcol.device):
+  if (init_rowcol is None) == (init_planes is None):
+    raise ValueError("give exactly one of init_rowcol and init_planes")
+  if init_planes is None:
+    planes = [basis_planes(init_rowcol, sv.state_shape(circuit.num_qubits))]
+  else:
+    planes = [tuple(torch.clone(t, memory_format=torch.contiguous_format)
+                    for t in init_planes)]
+  for stage in prepare_segments(circuit, symbol_values, planes[0][0].device):
     planes = apply_stage(stage, planes, +1, plain)
   return planes[0]
 

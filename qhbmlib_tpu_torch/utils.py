@@ -25,17 +25,31 @@ def weighted_average(counts: torch.Tensor, values: torch.Tensor):
   return torch.tensordot(c, values.to(torch.float32), dims=1) / c.sum()
 
 
+# Bits a code word holds: int64 with the sign bit clear.
+WORD_BITS = 62
+
+
 def bits_to_ints(bitstrings: torch.Tensor) -> torch.Tensor:
-  """Big-endian [..., n] bits -> int64 codes (n <= 62)."""
+  """Big-endian [..., n] bits -> int64 codes [...] for n <= WORD_BITS, or
+  [..., W] code words for wider rows: word w is the big-endian code of bits
+  [w * WORD_BITS, (w + 1) * WORD_BITS), as the reference's
+  `_bit_code_words` packs 31-bit words (`utils/__init__.py:94-105`), so the
+  words compare lexicographically as the bitstrings do."""
   n = bitstrings.shape[-1]
-  if n > 62:
-    raise ValueError(f"bits_to_ints holds at most 62 bits; got n={n}")
+  if n > WORD_BITS:
+    return torch.stack([bits_to_ints(bitstrings[..., s:s + WORD_BITS])
+                        for s in range(0, n, WORD_BITS)], dim=-1)
   weights = 2**torch.arange(n - 1, -1, -1, device=bitstrings.device)
   return torch.sum(bitstrings.to(torch.int64) * weights, dim=-1)
 
 
 def ints_to_bits(ints: torch.Tensor, num_bits: int) -> torch.Tensor:
-  """Integer codes -> big-endian [..., num_bits] int8 bits."""
+  """Integer codes -> big-endian [..., num_bits] int8 bits; for num_bits >
+  WORD_BITS, `ints` holds `bits_to_ints`'s [..., W] code words."""
+  if num_bits > WORD_BITS:
+    return torch.cat([ints_to_bits(ints[..., w],
+                                   min(WORD_BITS, num_bits - WORD_BITS * w))
+                      for w in range(ints.shape[-1])], dim=-1)
   shifts = torch.arange(num_bits - 1, -1, -1, device=ints.device)
   return ((ints.to(torch.int64)[..., None] >> shifts) & 1).to(torch.int8)
 
@@ -62,13 +76,14 @@ def unique_bitstrings_with_counts(
   """
   n = bitstrings.shape[-1]
   batch = bitstrings.shape[0]
-  codes = bits_to_ints(bitstrings)
+  codes = bits_to_ints(bitstrings)  # [batch], or [batch, W] words past 62
+  wide = codes.dim() == 2
   uniq, inv, cnt = torch.unique(codes, sorted=True, return_inverse=True,
-                                return_counts=True)
+                                return_counts=True, dim=0 if wide else None)
   u = uniq.shape[0]
   if size is not None:
     width = max(size, batch)
-    uniq = torch.cat([uniq, uniq.new_zeros(width - u)])
+    uniq = torch.cat([uniq, uniq.new_zeros((width - u,) + uniq.shape[1:])])
     cnt = torch.cat([cnt, cnt.new_zeros(width - u)])
     if size < batch:
       # Stable descending sort == top_k's order: ties keep ascending codes.
@@ -85,3 +100,29 @@ def unique_bitstrings_with_counts(
 def expand_unique_results(y: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
   """Inverse of `unique_bitstrings_with_counts`: expanded[i] == y[idx[i]]."""
   return torch.index_select(y, 0, idx)
+
+
+def categorical_indices(logits: torch.Tensor, num_samples: int,
+                        generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
+  """`num_samples` draws from softmax(logits) by inverse-CDF search
+  (reference `utils/__init__.py:210`), on the logits' device; int64
+  [num_samples]."""
+  logits = logits.reshape(-1).to(torch.float32)
+  return categorical_indices_from_weights(
+      torch.exp(logits - torch.max(logits)), num_samples, generator)
+
+
+def categorical_indices_from_weights(weights: torch.Tensor, num_samples: int,
+                                     generator: Optional[torch.Generator] = None
+                                     ) -> torch.Tensor:
+  """`categorical_indices` on unnormalized non-negative weights: u uniform
+  in [0, total), the index its right-side insertion point into the
+  cumulative sum.  u can round up to the total itself, where right-side
+  insertion gives len(weights), so the last index is clamped as the
+  reference's is (`utils/__init__.py:257-264`)."""
+  cdf = torch.cumsum(weights.reshape(-1).to(torch.float32), 0)
+  u = torch.rand((num_samples,), generator=generator, device=cdf.device,
+                 dtype=torch.float32) * cdf[-1]
+  idx = torch.searchsorted(cdf, u, right=True)
+  return torch.clamp(idx, max=cdf.shape[0] - 1)

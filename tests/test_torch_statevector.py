@@ -366,7 +366,9 @@ def test_weighted_average_matches_jax():
 # -- the port imports no jax -------------------------------------------------
 
 def test_port_imports_no_jax():
-  """Every module of qhbmlib_tpu_torch imports with jax absent from
+  """Every module of qhbmlib_tpu_torch (its own `baselines/` and
+  `benchmarks/ladder.py` among them) imports with jax, the JAX package and
+  the repo's jax-importing `baselines/` and `benchmarks/` absent from
   sys.modules (the card's machine has no jax)."""
   code = (
       "import importlib, pkgutil, sys\n"
@@ -375,10 +377,13 @@ def test_port_imports_no_jax():
       "pkg.__name__ + '.')]\n"
       "for name in names:\n"
       "  importlib.import_module(name)\n"
-      "bad = sorted(m for m in sys.modules if m == 'jax' or "
-      "m.startswith(('jax.', 'qhbmlib_tpu.')) or m == 'qhbmlib_tpu')\n"
+      "roots = ('jax', 'qhbmlib_tpu', 'baselines', 'benchmarks')\n"
+      "bad = sorted(m for m in sys.modules if m.split('.')[0] in roots)\n"
       "assert not bad, bad\n"
       "assert len(names) >= 20, names\n"
+      "for want in ('baselines.utils', 'benchmarks.ladder', "
+      "'data.thermal_data'):\n"
+      "  assert pkg.__name__ + '.' + want in names, want\n"
       "print(len(names))\n")
   out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120, check=False)

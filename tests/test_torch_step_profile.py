@@ -113,7 +113,7 @@ def test_workloads_are_the_bench_s_and_16q():
 def test_compare_trees_runs_this_tree_s_phases():
   """compare_trees runs THIS tree's chip_smoke phases in another tree's
   working directory, and shows only their check and kernel lines (or the
-  bench's, or the expectations/s run's, last line)."""
+  bench's, the expectations/s run's or the 16q step's, last line)."""
   from qhbmlib_tpu_torch.benchmarks import compare_trees as ct
   cmd = ct.command("kernels", "phase_k4")
   assert cmd[1] == "-c" and str(ct.ROOT / "chip_smoke.py") in cmd[2]
@@ -124,6 +124,10 @@ def test_compare_trees_runs_this_tree_s_phases():
   pauli = ct.command("pauli")
   assert "measure_pauli_expectations" in pauli[2]
   compile(pauli[2], "<pauli>", "exec")
+  train = ct.command("train16q")
+  assert "run_workload" in train[2] and 'WORKLOADS["16q"]' in train[2]
+  compile(train[2], "<train16q>", "exec")
   out = "[build] x\n[check] a ok\n[kernels] b\n[bench] c\n{\"value\": 1}"
   assert ct.shown("kernels", out) == "[check] a ok\n[kernels] b"
-  assert ct.shown("bench", out) == ct.shown("pauli", out) == "{\"value\": 1}"
+  assert (ct.shown("bench", out) == ct.shown("pauli", out) ==
+          ct.shown("train16q", out) == "{\"value\": 1}")
