@@ -15,9 +15,14 @@ B = 64 and on 16q's at B = 8, those also timed as CUDA-graph replays
 64; `circuit_forward` (K3) and `adjoint_sweep` (K2) at 20q/4L and 16q/4L
 for one random state, with the cost of one near-empty stage of their
 cooperative launch; `parity_bilinear` again at the train steps' own shapes
-(24q B=8, 20q B=64); `stream_scale` (K6) on the 24-qubit plane at each
-tile size.  Each kernel is timed beside its plain version, the one PyTorch
-call that computes the same function where there is one (`library_ms`),
+(24q B=8, 20q B=64); `diag_rotate` (one batch) and the batched sweep's
+fused diagonal stage (`parity_bilinear` given the stage's cos/sin planes:
+the bilinears and the un-apply of a and lambda in one launch) at the r2
+rung's shapes (8q B=256, 11q B=2048, also timed as CUDA-graph replays)
+and the VQT steps' (20q B=64, 24q B=8); `stream_scale` (K6) on the
+24-qubit plane at each tile size.  Each kernel is timed beside its plain
+version, the one PyTorch call that computes the same function where there
+is one (`library_ms`),
 and its bound: the larger of its bytes over 3.35 TB/s and its float32
 operations over 67 TFLOP/s (H100 SXM), or three times them over 495
 TFLOP/s for the contractions on the tensor cores in 3xTF32 (K1, K4 from N
@@ -41,7 +46,9 @@ its gradient held against the plain versions, the r2 rung's train step
 at 8q and 11q ("train r2 8q", "train r2 11q": the thermal data's 2^n
 eigenvectors of rho through the batched forward and sweep, a warm-up and
 three timed steps, the gradient against the plain versions), and three
-single-state value-and-gradient calls at 20q/4L.  It fails if the VQT
+single-state value-and-gradient calls at 20q/4L.  On every train path
+`diag_rotate` must launch as often as `parity_bilinear`: once a diagonal
+segment in the forward and never in the sweep.  It fails if the VQT
 gate's gradient error reaches 1e-2, the QMHL and r2 steps' 1e-4, or the
 oracle checks are more than 1e-4 off.  Before the last line it prints a
 JSON line {"kernels": [...]} with each kernel's launches on the main
@@ -53,6 +60,7 @@ without a CUDA device, and on any failed check.  Imports no jax.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import re
@@ -315,6 +323,156 @@ def phase_bilinear_steps(device):
     torch.cuda.empty_cache()
 
 
+# The diagonal kernels' shapes timed in phase_diag: (qubits, batch).  The
+# r2 rung's (rho's 2^n eigenvectors, states of 2^n amplitudes, at 8q and
+# at its qubits=11 override) and the VQT steps' (the 20q and 24q
+# workloads' batches), where one state alone fills the card.
+DIAG_SHAPES = ((8, 256), (11, 2048), (N_QUBITS, 64), (N24, BATCH))
+
+
+@functools.lru_cache(maxsize=1)
+def bilinear_fuses() -> bool:
+  """Whether this tree's `parity_bilinear` takes a stage's planes."""
+  import inspect
+  from qhbmlib_tpu_torch.ops import hopper_adjoint as ha
+  return "planes" in inspect.signature(ha.parity_bilinear).parameters
+
+
+def fused_diag_stage(planes, rms, cms, cos_t, sin_t):
+  """The batched sweep's diagonal stage on [B, R, C] planes (l_re, l_im,
+  a_re, a_im), in place; returns the bilinears.  One `parity_bilinear`
+  launch given the stage's planes, where the wrapper takes them; else (a
+  tree from before the fused stage, timed in turns with this one) its
+  sweep's pair: `parity_bilinear`, then `diag_rotate` of a and lambda."""
+  from qhbmlib_tpu_torch.ops import hopper_adjoint as ha
+  from qhbmlib_tpu_torch.ops import hopper_sv as hs
+  if bilinear_fuses():
+    return ha.parity_bilinear(*planes, rms, cms, (cos_t, sin_t))
+  out = ha.parity_bilinear(*planes, rms, cms)
+  hs.diag_rotate([planes[2:], planes[:2]], cos_t, sin_t, -1)
+  return out
+
+
+def fused_diag_stage_plain(planes, rms, cms, cos_t, sin_t):
+  """fused_diag_stage's plain version: the two plain versions in turn."""
+  from qhbmlib_tpu_torch.ops import hopper_adjoint as ha
+  from qhbmlib_tpu_torch.ops import hopper_sv as hs
+  out = ha.parity_bilinear_plain(*planes, rms, cms)
+  hs.diag_rotate_plain([planes[2:], planes[:2]], cos_t, sin_t, -1)
+  return out
+
+
+def phase_diag(device):
+  """The diagonal kernels at DIAG_SHAPES, over the K parity factors of the
+  first diagonal segment of each size's ansatz with seeded weights:
+  `diag_rotate` on one batch (the forward, sign +1) and the sweep's fused
+  stage on two (`fused_diag_stage`: the bilinears, then a and lambda
+  un-applied) against their plain versions, at STATE_TOL for the states
+  and REDUCTION_TOL for the bilinears.  Each is timed four ways: the kernel
+  (CUDA events over wrapper calls; at the r2 shapes also as CUDA-graph
+  replays, device time), its plain version, the library call (`x_c *
+  phase`; check_bilinear's einsum plus two complex multiplies) and its
+  bound.  Beside the fused stage, its two parts as separate launches
+  (`parity_bilinear` alone, then `diag_rotate` of both batches)."""
+  from qhbmlib_tpu_torch.models import circuit_utils
+  from qhbmlib_tpu_torch.ops import hopper_adjoint as ha
+  from qhbmlib_tpu_torch.ops import hopper_sv as hs
+  from qhbmlib_tpu_torch.ops import statevector as sv
+  dgen = torch.Generator(device=device).manual_seed(SEED + 60)
+  for n, b in DIAG_SHAPES:
+    r, c = sv.state_shape(n)
+    rms, cms = first_diag_factors(
+        circuit_utils.hardware_efficient_ansatz(n, 2))
+    k = len(rms)
+    weights = torch.rand(k, generator=dgen, device=device) * 2.0
+    cos_t, sin_t = hs.rotation_planes(weights, rms, cms, (r, c))
+    planes = [torch.randn((b, r, c), generator=dgen, device=device)
+              for _ in range(4)]
+    amps = planes[0].numel()
+    r2 = n <= 11
+    label = f"{n}q B={b}"
+
+    one = [tuple(t.clone() for t in planes[2:])]
+    one_ref = [tuple(t.clone() for t in planes[2:])]
+    hs.diag_rotate(one, cos_t, sin_t, +1)
+    hs.diag_rotate_plain(one_ref, cos_t, sin_t, +1)
+    got, ref = torch.cat(one[0]), torch.cat(one_ref[0])
+    err = rel_err(got, ref)
+    check(f"diag_rotate {label} (one batch, sign +1)", err, STATE_TOL)
+    x_c = torch.complex(*planes[2:])
+    phase = torch.complex(cos_t, sin_t)
+    rot = dict(err=err, max_abs_err=max_abs(got, ref),
+               ms=cuda_ms(lambda: hs.diag_rotate(one, cos_t, sin_t, +1)),
+               plain_ms=cuda_ms(lambda: hs.diag_rotate_plain(one, cos_t,
+                                                             sin_t, +1)),
+               library_ms=cuda_ms(lambda: x_c * phase),
+               # One complex multiply (6 flops) an amplitude; the batch read
+               # and written once, the cos and sin planes read once.
+               **bound(6 * amps, 16 * amps + 8 * r * c))
+    if r2:
+      rot["graph_ms"] = graph_ms(lambda: hs.diag_rotate(one, cos_t, sin_t,
+                                                        +1))
+      rot["library_graph_ms"] = graph_ms(lambda: x_c * phase)
+    del one, one_ref, got, ref
+
+    four = [t.clone() for t in planes]
+    four_ref = [t.clone() for t in planes]
+    bil = fused_diag_stage(four, rms, cms, cos_t, sin_t)
+    bil_ref = fused_diag_stage_plain(four_ref, rms, cms, cos_t, sin_t)
+    err = rel_err(bil, bil_ref)
+    check(f"fused diagonal stage {label} (K={k}): bilinears", err,
+          REDUCTION_TOL)
+    state_err = rel_err(torch.cat(four), torch.cat(four_ref))
+    check(f"fused diagonal stage {label}: a and lambda un-applied",
+          state_err, STATE_TOL)
+    l_c = torch.complex(*planes[:2])
+    lib = ("brc,brc,kr,kc->k", l_c.conj(), x_c,
+           *(sv.parity_signs(m, size, device).to(torch.complex64)
+             for m, size in ((rms, r), (cms, c))))
+    unapply = torch.conj(phase)
+
+    def library():
+      return (torch.einsum(*lib).imag, x_c * unapply, l_c * unapply)
+
+    check(f"fused diagonal stage {label}: library einsum vs plain",
+          rel_err(library()[0], bil_ref), REDUCTION_TOL)
+    stage = dict(
+        err=err, state_err=state_err, max_abs_err=max_abs(bil, bil_ref),
+        ms=cuda_ms(lambda: fused_diag_stage(four, rms, cms, cos_t, sin_t)),
+        plain_ms=cuda_ms(lambda: fused_diag_stage_plain(four, rms, cms,
+                                                        cos_t, sin_t)),
+        library_ms=cuda_ms(library),
+        parts_ms=cuda_ms(lambda: (ha.parity_bilinear(*four, rms, cms),
+                                  hs.diag_rotate([four[2:], four[:2]], cos_t,
+                                                 sin_t, -1))),
+        # Im(conj(lam) a) and its batch sum (4 flops an amplitude), two
+        # complex multiplies (12); each row's C log2 C butterflies and K
+        # signed adds; a and lambda read and written once, the cos and sin
+        # planes and the masks read once, K floats written.
+        **bound(16 * amps + r * c * (c.bit_length() - 1) + 2 * r * k,
+                32 * amps + 8 * r * c + 12 * k))
+    if r2:
+      stage["graph_ms"] = graph_ms(lambda: fused_diag_stage(
+          four, rms, cms, cos_t, sin_t))
+      stage["library_graph_ms"] = graph_ms(library)
+    del four, four_ref, planes, x_c, l_c, lib
+    torch.cuda.empty_cache()
+    for name, rec in (("diag_rotate", rot), ("fused diagonal stage", stage)):
+      device_time = ""
+      if r2:
+        device_time = (f"; device time (graph replay) kernel "
+                       f"{rec['graph_ms']:.4f} ms (share "
+                       f"{rec['bound_ms'] / rec['graph_ms']:.1%}), library "
+                       f"{rec['library_graph_ms']:.4f} ms")
+      parts = (f", its parts as two launches {rec['parts_ms']:.4f} ms"
+               if "parts_ms" in rec else "")
+      log(f"[kernels] {name} {label}" + (f" (K={k})" if parts else "")
+          + f": kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+          f"library {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} "
+          f"ms ({rec['bound_by']}; share {rec['bound_ms'] / rec['ms']:.1%})"
+          + parts + device_time + f", max abs err {rec['max_abs_err']:.3e}")
+
+
 def check_axis_apply(label, shapes, planes, graph=False):
   """axis_apply against its plain version on the [P, N, Q] views `shapes`
   [((p, n, q), (op_re, op_im))] of the planes (re, im), one launch a view,
@@ -560,14 +718,23 @@ def reset_launches() -> None:
     fn.launches = 0
 
 
-def read_launches(path: str, required) -> dict:
+def read_launches(path: str, required, paired: bool = False) -> dict:
   """The counts since reset_launches(); fails if a kernel of `path` never
-  launched."""
+  launched.  With `paired` (a train path: each step one forward and one
+  sweep, every diagonal segment of at most MAX_BILIN_K factors), fails
+  unless `diag_rotate` launched as often as `parity_bilinear`: once a
+  diagonal segment in the forward, and never in the sweep, whose diagonal
+  stages un-apply inside their `parity_bilinear` launch."""
   launches = {name: fn.launches for name, fn in kernel_wrappers().items()}
   log(f"[{path}] kernel launches: {launches}")
   for name in required:
     if launches[name] <= 0:
       raise AssertionError(f"{path}: kernel {name} never launched")
+  if paired and launches["diag_rotate"] != launches["parity_bilinear"]:
+    raise AssertionError(
+        f"{path}: {launches['diag_rotate']} diag_rotate launches against "
+        f"{launches['parity_bilinear']} parity_bilinear: the sweep must not "
+        "launch diag_rotate")
   return launches
 
 
@@ -586,7 +753,9 @@ BENCH_PATHS = {
 
 
 # Kernels the 16q train step must launch: its lone row block (7,2) takes
-# axis_apply at N = 4, once in the forward and twice in the sweep a layer.
+# axis_apply at N = 4, once in the forward and twice in the sweep a layer;
+# diag_rotate runs in the forward only (the sweep's diagonal stages are
+# parity_bilinear launches that also un-apply).
 TRAIN_16Q = ["axis_apply", "axis2_apply", "diag_rotate", "qubit_transitions",
              "parity_bilinear"]
 
@@ -605,7 +774,7 @@ def phase_train_16q(device):
   reset_launches()
   sps = bench.run_workload("16q", cfg, STEPS, device, traj)
   torch.cuda.synchronize()
-  launches = read_launches("train 16q", TRAIN_16Q)
+  launches = read_launches("train 16q", TRAIN_16Q, paired=True)
   per_step = {k: v / (STEPS + 1) for k, v in launches.items() if v}
   log(f"[train 16q] {sps:.4f} steps/s; launches per step (warm-up + "
       f"{STEPS} steps): {per_step}")
@@ -617,7 +786,9 @@ def phase_train_16q(device):
 
 # Kernels the r2 train steps must launch: the only row block of an 8q or
 # 11q state pairs with the minor operator, so every 1q segment is one
-# axis2_apply pass and no axis_apply runs.
+# axis2_apply pass and no axis_apply runs; a step launches 12 axis2_apply,
+# 4 diag_rotate (the forward's), 4 qubit_transitions and 4 parity_bilinear
+# (the sweep's diagonal stages, each with its un-apply).
 TRAIN_R2 = ["axis2_apply", "diag_rotate", "qubit_transitions",
             "parity_bilinear"]
 
@@ -656,7 +827,7 @@ def phase_train_r2(device, qubits):
   sps = bench.run_workload(f"r2 {qubits}q", None, STEPS, device, traj,
                            build=r2_build(qubits))
   torch.cuda.synchronize()
-  launches = read_launches(f"train r2 {qubits}q", TRAIN_R2)
+  launches = read_launches(f"train r2 {qubits}q", TRAIN_R2, paired=True)
   per_step = {k: v / (STEPS + 1) for k, v in launches.items() if v}
   log(f"[train r2 {qubits}q] {sps:.4f} steps/s; launches per step (warm-up "
       f"+ {STEPS} steps): {per_step}")
@@ -733,7 +904,8 @@ def phase_bench(device):
     reset_launches()
     yield
     torch.cuda.synchronize()
-    paths[name] = read_launches(f"bench {name}", BENCH_PATHS[name])
+    paths[name] = read_launches(f"bench {name}", BENCH_PATHS[name],
+                                paired=name.startswith("train"))
 
   result = bench.run_bench(device, steps=STEPS, path=path)
   log(f"[bench] {json.dumps(result)}")
@@ -1067,11 +1239,14 @@ def phase_long_diag_batched(device, n=9, reps=10, batch=4):
   sweep) through one diagonal segment of more parity factors than one
   `parity_bilinear` launch takes: value and gradient of the TFIM for
   `batch` basis states, kernels against plain; the sweep must split the
-  segment's bilinears into launches of at most MAX_BILIN_K factors.  Then
-  `parity_bilinear` alone at that K against its plain version and its
-  library einsum."""
+  segment's bilinears into launches of at most MAX_BILIN_K factors, the
+  first of which also un-applies the segment, and launch `diag_rotate`
+  once (the forward's segment).  Then `parity_bilinear` alone at that K
+  against its plain version and its library einsum, and the fused stage
+  (its planes given) against its plain version."""
   from qhbmlib_tpu_torch.ops import adjoint
   from qhbmlib_tpu_torch.ops import hopper_adjoint as ha
+  from qhbmlib_tpu_torch.ops import hopper_sv as hs
   from qhbmlib_tpu_torch.ops import paulis
   from qhbmlib_tpu_torch.ops import statevector as sv
   pqc = long_diag_circuit(n, reps)
@@ -1090,13 +1265,15 @@ def phase_long_diag_batched(device, n=9, reps=10, batch=4):
 
   rms, cms = first_diag_factors(pqc)
   k = len(rms)
-  before = ha.parity_bilinear.launches
+  before = ha.parity_bilinear.launches, hs.diag_rotate.launches
   val, grad = value_and_grad(False)
-  launched = ha.parity_bilinear.launches - before
+  launched = ha.parity_bilinear.launches - before[0]
+  rotated = hs.diag_rotate.launches - before[1]
   want = -(-k // ha.MAX_BILIN_K)
-  if launched != want:
-    raise AssertionError(f"batched sweep, K={k}: {launched} parity_bilinear "
-                         f"launches, not {want}")
+  if (launched, rotated) != (want, 1):
+    raise AssertionError(f"batched forward and sweep, K={k}: {launched} "
+                         f"parity_bilinear launches, not {want}, and "
+                         f"{rotated} diag_rotate launches, not 1")
   val_ref, grad_ref = value_and_grad(True)
   check(f"batched_expectations {n}q B={batch}, one diag segment of K={k} > "
         f"{ha.MAX_BILIN_K}: value", rel_err(val.cpu(), val_ref.cpu()),
@@ -1109,6 +1286,17 @@ def phase_long_diag_batched(device, n=9, reps=10, batch=4):
   planes = tuple(torch.randn((batch, r, c), generator=dgen, device=device)
                  for _ in range(4))
   check_bilinear(f"{n}q, one diag segment", planes, rms, cms, library=True)
+  weights = torch.rand(k, generator=dgen, device=device) * 2.0 - 1.0
+  rot = hs.rotation_planes(weights, rms, cms, (r, c))
+  four = [t.clone() for t in planes]
+  four_ref = [t.clone() for t in planes]
+  check(f"fused diagonal stage {n}q B={batch}, K={k}: bilinears",
+        rel_err(fused_diag_stage(four, rms, cms, *rot),
+                fused_diag_stage_plain(four_ref, rms, cms, *rot)),
+        REDUCTION_TOL)
+  check(f"fused diagonal stage {n}q B={batch}, K={k}: a and lambda "
+        "un-applied", rel_err(torch.cat(four), torch.cat(four_ref)),
+        STATE_TOL)
 
 
 def phase_small_qmhl(device):
@@ -1279,6 +1467,7 @@ def main() -> int:
   report["circuit_forward"], report["adjoint_sweep"] = (
       phase_single_kernels(device))
   phase_bilinear_steps(device)
+  phase_diag(device)
   report["stream_scale"] = phase_k6(device)
   torch.cuda.empty_cache()
   phase_end_to_end(device)

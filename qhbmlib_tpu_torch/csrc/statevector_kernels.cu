@@ -11,7 +11,9 @@
 //   K4  qhbmlib_tpu/ops/pallas_sv.py:459      apply_circuit_pallas_batched
 //       -> axis_apply, diag_rotate
 //   K5  qhbmlib_tpu/ops/pallas_adjoint.py:540 adjoint_sweep_batched
-//       -> qubit_transitions, parity_bilinear (and K1 / K4's applies)
+//       -> qubit_transitions, diag_bilinear (qhbm_parity_bilinear: the
+//          diagonal stage's bilinears and its un-apply in one pass; K1 /
+//          K4's applies un-apply the 1q segments)
 // A 20-qubit state (8 MB as float32 re/im planes) sat whole in the TPU's
 // VMEM; on the H100 it cannot sit in one SM's 227 KB of shared memory, so
 // the batched engine makes each circuit segment one or two launches over the
@@ -336,40 +338,342 @@ AxisStreamKernel axis_stream_pick(int log_q, const float* x_re,
                     : axis_stream_kernel<N, 1, false>;
 }
 
-// Fixed-order sum of per-block partials: out[i] = sum_b partial[b, i] for i
-// in [0, width).
-__global__ void sum_partials_kernel(const float* __restrict__ partial,
-                                    int blocks, int width,
-                                    float* __restrict__ out) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < width;
-       i += gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int b = 0; b < blocks; ++b) s += partial[(long long)b * width + i];
-    out[i] = s;
+// ---------------------------------------------------------------------------
+// The batched engine's diagonal stages: a (batch, amplitude) grid.
+// ---------------------------------------------------------------------------
+//
+// diag_rotate (the forward's diagonal segments) and diag_bilinear (the
+// sweep's: parity bilinears, then the un-apply) stream [B, R, C] state
+// batches that share one [R, C] cos/sin plane pair.  Their shapes run from
+// B = 2^n states of 2^n amplitudes (rho's eigenvectors: 8q B = 256, 11q B =
+// 2048) to a state that alone fills the card (20q B = 64, 24q B = 8).  A
+// grid over one state's amplitudes that loops over the batch in a thread
+// has one or two blocks at 8-11 qubits, so the grid here spans amplitude
+// tiles x batch chunks: a block owns the states [chunk * S, chunk * S + S)
+// of one tile of up to kDiagThreads float4s at a time, its threads split
+// into `lanes` lanes over the chunk's states where a state has fewer
+// float4s than the block has threads.  Each thread loads a tile position's
+// cos/sin once and applies it to its lane's states, kDiagUnroll states'
+// 16-byte loads in flight before the first store.  Where one state has at
+// least half a wave of tiles (20q, 24q), the chunk is the whole batch and
+// the blocks walk the tiles: a second chunk would read the planes again
+// for no more parallelism.  Otherwise the
+// batch is cut into as many chunks as a wave holds beside the tiles, down
+// to one state a lane.  Each (state, amplitude) has exactly one owning
+// thread, so the in-place writes never race a read.
+constexpr int kDiagThreads = 256;
+constexpr int kDiagBlocksPerSm = 8;  // a wave: 2048 threads an SM
+constexpr int kDiagUnroll = 4;       // states a lane loads before it stores
+
+// Launch geometry: blockIdx.x = chunk * tiles_grid + t; block t walks tiles
+// t, t + tiles_grid, ... of its chunk.
+struct DiagGrid {
+  int tile4;       // float4s of a tile: min(state, kDiagThreads)
+  int lanes;       // kDiagThreads / tile4 lanes over a chunk's states
+  long long tiles;  // tiles of one state
+  int tiles_grid;  // blocks over the tiles (<= tiles)
+  int chunk;       // states of a chunk (a multiple of lanes, or the batch)
+  int chunks;
+  int blocks() const { return tiles_grid * chunks; }
+};
+
+// The grid of B states of size4 float4s for a wave of `wave` blocks: at
+// most `wave` blocks.
+DiagGrid diag_grid(long long B, long long size4, long long wave) {
+  DiagGrid g;
+  g.tile4 = (int)(size4 < kDiagThreads ? size4 : kDiagThreads);
+  g.lanes = kDiagThreads / g.tile4;
+  g.tiles = (size4 + g.tile4 - 1) / g.tile4;
+  const long long want = wave / g.tiles;  // chunks a wave holds
+  if (want <= 1) {
+    g.tiles_grid = (int)(g.tiles < wave ? g.tiles : wave);
+    g.chunk = (int)B;
+    g.chunks = 1;
+    return g;
+  }
+  g.tiles_grid = (int)g.tiles;
+  const long long per = (B + want * g.lanes - 1) / (want * g.lanes);
+  g.chunk = (int)(per * g.lanes);
+  g.chunks = (int)((B + g.chunk - 1) / g.chunk);
+  return g;
+}
+
+// This thread's place in the grid: float4 tx of a tile in lane ty, states
+// [b_begin + ty, b_end) of its chunk in steps of `lanes`.
+struct DiagPlace {
+  int tx;
+  int ty;
+  long long tile0;
+  int b_begin;
+  int b_end;
+};
+
+__device__ __forceinline__ DiagPlace diag_place(const DiagGrid& g, int B) {
+  DiagPlace p;
+  p.tx = (int)threadIdx.x % g.tile4;
+  p.ty = (int)threadIdx.x / g.tile4;
+  p.tile0 = (long long)(blockIdx.x % g.tiles_grid);
+  const long long chunk = blockIdx.x / g.tiles_grid;
+  p.b_begin = (int)(chunk * g.chunk);
+  const long long end = (chunk + 1) * g.chunk;
+  p.b_end = end < B ? (int)end : B;
+  return p;
+}
+
+// (re, im) <- (c + i*s) * (re, im), four amplitudes.
+__device__ __forceinline__ void rotate4(float4& re, float4& im, float4 c,
+                                        float4 s) {
+  const float4 xr = re;
+  const float4 xi = im;
+  re = make_float4(c.x * xr.x - s.x * xi.x, c.y * xr.y - s.y * xi.y,
+                   c.z * xr.z - s.z * xi.z, c.w * xr.w - s.w * xi.w);
+  im = make_float4(c.x * xi.x + s.x * xr.x, c.y * xi.y + s.y * xr.y,
+                   c.z * xi.z + s.z * xr.z, c.w * xi.w + s.w * xr.w);
+}
+
+// ---------------------------------------------------------------------------
+// diag_rotate: x <- (cos t + i*sign*sin t) * x, in place, for one or two
+// state batches sharing the [R, C] cos/sin planes.
+// ---------------------------------------------------------------------------
+//
+// Replaces the "diag_rot" stage of K4 (pallas_sv.py `_make_batched_kernel`,
+// sign +).  Bound: device memory -- 16 bytes read and written per
+// amplitude for 6 flop; the planes, read once a tile position and block,
+// add 8 bytes per amplitude of ONE state.  kTwo rotates two batches (a and
+// lambda) with the same planes.
+template <bool kTwo>
+__global__ void __launch_bounds__(kDiagThreads)
+    diag_rotate_kernel(float4* __restrict__ re0, float4* __restrict__ im0,
+                       float4* __restrict__ re1, float4* __restrict__ im1,
+                       int B, long long size4, DiagGrid g,
+                       const float4* __restrict__ cos_p,
+                       const float4* __restrict__ sin_p, float sign) {
+  const DiagPlace p = diag_place(g, B);
+  if (p.ty >= g.lanes) return;
+  const int step = g.lanes;
+  for (long long i = p.tile0 * g.tile4 + p.tx; i < size4;
+       i += (long long)g.tiles_grid * g.tile4) {
+    const float4 c = cos_p[i];
+    float4 s = sin_p[i];
+    s.x *= sign;
+    s.y *= sign;
+    s.z *= sign;
+    s.w *= sign;
+    for (int b = p.b_begin + p.ty; b < p.b_end; b += kDiagUnroll * step) {
+      float4 xr[kDiagUnroll], xi[kDiagUnroll], yr[kDiagUnroll],
+          yi[kDiagUnroll];
+#pragma unroll
+      for (int j = 0; j < kDiagUnroll; ++j) {
+        const long long o = (long long)(b + j * step) * size4 + i;
+        if (b + j * step < p.b_end) {
+          xr[j] = re0[o];
+          xi[j] = im0[o];
+          if (kTwo) {
+            yr[j] = re1[o];
+            yi[j] = im1[o];
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kDiagUnroll; ++j) {
+        const long long o = (long long)(b + j * step) * size4 + i;
+        if (b + j * step < p.b_end) {
+          rotate4(xr[j], xi[j], c, s);
+          re0[o] = xr[j];
+          im0[o] = xi[j];
+          if (kTwo) {
+            rotate4(yr[j], yi[j], c, s);
+            re1[o] = yr[j];
+            im1[o] = yi[j];
+          }
+        }
+      }
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
-// parity_bilinear: bilin[k] = sum_{b,r,c} s(r & rm_k) s(c & cm_k)
-//                             (l_re*a_im - l_im*a_re)[b, r, c]
+// diag_bilinear: bilin[k] = sum_{b,r,c} s(r & rm_k) s(c & cm_k)
+//                           (l_re*a_im - l_im*a_re)[b, r, c],
+// and, with kRotate, a and lambda <- exp(-i theta) * (a, lambda) in place.
 // ---------------------------------------------------------------------------
 //
-// Replaces the diagonal-segment gradient reductions of K5
-// (pallas_adjoint.py `_make_bwd_kernel`, "bwddiagrot": the [R, K] sign
-// matmul plus the column-sum dot), summed over the batch.
+// Replaces the "bwddiagrot" stage of K5 (pallas_adjoint.py
+// `_make_bwd_kernel`: the [R, K] sign matmul and column-sum dot, then the
+// un-apply of a and lambda), summed over the batch.  Since
+// Im(conj(lam e^{-it}) a e^{-it}) = Im(conj(lam) a), the bilinears are the
+// same before and after the rotation, so one pass reads a and lambda once,
+// writes them un-applied and emits the K bilinears.
 //
-// Bound: reading the two state batches (16 bytes per amplitude pair) -- the
-// K * C sign work per row is small next to it.  Each block stages the
-// batch-summed P for a few rows in shared memory (coalesced along columns),
-// then thread k folds those rows into its factor's sum with signs from
-// __popc, so no [R, K] or [K, C] sign matrix is ever materialised.  Per-block
-// partials are summed in a fixed order by sum_partials_kernel.
-constexpr int kBilinThreads = 256;
+// Bound: device memory -- 32 bytes read and 32 written per amplitude-state
+// with the un-apply (16 read without it).  Each thread sums its lane's
+// Im(conj(lam) a) over its states in registers; the block sums its lanes
+// in a fixed order into w[r, c] for the tile's rows in shared memory, then
+// a log2(C)-level Walsh-Hadamard butterfly over each row gives every column
+// parity u[r, m] = sum_c s(c & m) w[r, c] at once (C log2 C adds a row, not
+// K * C sign-and-adds), and factor k adds s(r & rm_k) u[r, cm_k] over the
+// tile's rows: one sign a row and factor.  Per-block partials are summed in
+// a fixed order by sum_partials_kernel: no float atomics, so the gradient
+// is the same run to run.  C is a power of two in [4, 256], K <= kBilinMaxK.
 constexpr int kBilinMaxK = 1024;
+constexpr size_t kDiagBilinearSmem =
+    (8 * kDiagThreads + 2 * kBilinMaxK) * sizeof(float);
 
-// This block's partial bilinears over rows first_block * rows_per, ... with
-// THREADS threads; out[K].  `w` holds THREADS floats, s_rm / s_cm kBilinMaxK
-// ints each.  Starts and ends with a block barrier.
+template <bool kRotate>
+__global__ void __launch_bounds__(kDiagThreads)
+    diag_bilinear_kernel(float4* __restrict__ l_re, float4* __restrict__ l_im,
+                         float4* __restrict__ a_re, float4* __restrict__ a_im,
+                         const float4* __restrict__ cos_p,
+                         const float4* __restrict__ sin_p,
+                         const int* __restrict__ row_masks,
+                         const int* __restrict__ col_masks, int K, int B,
+                         int R, int C, DiagGrid g,
+                         float* __restrict__ partial) {
+  constexpr int kKPerThread = kBilinMaxK / kDiagThreads;
+  extern __shared__ float smem[];  // kDiagBilinearSmem bytes
+  float4* s_w = reinterpret_cast<float4*>(smem);  // each lane's sums
+  float* s_u = smem + 4 * kDiagThreads;  // a tile's rows, then parities
+  int* s_rm = reinterpret_cast<int*>(s_u + 4 * kDiagThreads);
+  int* s_cm = s_rm + kBilinMaxK;
+  for (int k = threadIdx.x; k < K; k += kDiagThreads) {
+    s_rm[k] = row_masks[k];
+    s_cm[k] = col_masks[k];
+  }
+  const DiagPlace p = diag_place(g, B);
+  const bool lane_on = p.ty < g.lanes;
+  const int step = g.lanes;
+  const long long size4 = (long long)R * C / 4;
+  const int rows = 4 * g.tile4 / C;  // rows of a tile
+  float acc[kKPerThread];
+#pragma unroll
+  for (int j = 0; j < kKPerThread; ++j) acc[j] = 0.f;
+
+  for (long long tile = p.tile0; tile < g.tiles; tile += g.tiles_grid) {
+    const long long i = tile * g.tile4 + p.tx;
+    float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (lane_on && i < size4) {
+      float4 c = make_float4(1.f, 1.f, 1.f, 1.f);
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (kRotate) {  // the un-apply: exp(-i theta)
+        c = cos_p[i];
+        s = sin_p[i];
+        s.x = -s.x;
+        s.y = -s.y;
+        s.z = -s.z;
+        s.w = -s.w;
+      }
+      for (int b = p.b_begin + p.ty; b < p.b_end; b += kDiagUnroll * step) {
+        float4 lr[kDiagUnroll], li[kDiagUnroll], ar[kDiagUnroll],
+            ai[kDiagUnroll];
+#pragma unroll
+        for (int j = 0; j < kDiagUnroll; ++j) {
+          const long long o = (long long)(b + j * step) * size4 + i;
+          if (b + j * step < p.b_end) {
+            lr[j] = l_re[o];
+            li[j] = l_im[o];
+            ar[j] = a_re[o];
+            ai[j] = a_im[o];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kDiagUnroll; ++j) {
+          const long long o = (long long)(b + j * step) * size4 + i;
+          if (b + j * step < p.b_end) {
+            w.x = fmaf(lr[j].x, ai[j].x, fmaf(-li[j].x, ar[j].x, w.x));
+            w.y = fmaf(lr[j].y, ai[j].y, fmaf(-li[j].y, ar[j].y, w.y));
+            w.z = fmaf(lr[j].z, ai[j].z, fmaf(-li[j].z, ar[j].z, w.z));
+            w.w = fmaf(lr[j].w, ai[j].w, fmaf(-li[j].w, ar[j].w, w.w));
+            if (kRotate) {
+              rotate4(ar[j], ai[j], c, s);
+              rotate4(lr[j], li[j], c, s);
+              a_re[o] = ar[j];
+              a_im[o] = ai[j];
+              l_re[o] = lr[j];
+              l_im[o] = li[j];
+            }
+          }
+        }
+      }
+    }
+    s_w[threadIdx.x] = w;
+    __syncthreads();
+    // The lanes' sums, lane by lane: w[r, c] of the tile, row-major.
+    for (int t = threadIdx.x; t < g.tile4; t += kDiagThreads) {
+      float4 v = s_w[t];
+      for (int y = 1; y < g.lanes; ++y) {
+        const float4 e = s_w[y * g.tile4 + t];
+        v.x += e.x;
+        v.y += e.y;
+        v.z += e.z;
+        v.w += e.w;
+      }
+      s_u[4 * t] = v.x;
+      s_u[4 * t + 1] = v.y;
+      s_u[4 * t + 2] = v.z;
+      s_u[4 * t + 3] = v.w;
+    }
+    __syncthreads();
+    // Butterflies on bit h of the column, h < C: rows never mix.
+    for (int h = 1; h < C; h <<= 1) {
+      for (int q = threadIdx.x; q < rows * C / 2; q += kDiagThreads) {
+        const int lo = (q / h) * 2 * h + q % h;
+        const float x = s_u[lo];
+        const float y = s_u[lo + h];
+        s_u[lo] = x + y;
+        s_u[lo + h] = x - y;
+      }
+      __syncthreads();
+    }
+    const long long r0 = tile * rows;
+#pragma unroll
+    for (int j = 0; j < kKPerThread; ++j) {
+      const int k = threadIdx.x + j * kDiagThreads;
+      if (k < K) {
+        const int rm = s_rm[k];
+        const int cm = s_cm[k];
+        float sum = 0.f;
+        for (int q = 0; q < rows && r0 + q < R; ++q) {
+          const float u = s_u[q * C + cm];
+          sum += (__popc((int)(r0 + q) & rm) & 1) ? -u : u;
+        }
+        acc[j] += sum;
+      }
+    }
+    __syncthreads();  // s_w and s_u are the next tile's
+  }
+#pragma unroll
+  for (int j = 0; j < kKPerThread; ++j) {
+    const int k = threadIdx.x + j * kDiagThreads;
+    if (k < K) partial[(long long)blockIdx.x * K + k] = acc[j];
+  }
+}
+
+// out[i] = sum_b partial[b, i] for i in [0, width): one warp an output, its
+// lanes over the blocks, then a butterfly of shuffles -- a fixed order for
+// a fixed number of blocks.
+__global__ void sum_partials_kernel(const float* __restrict__ partial,
+                                    int blocks, int width,
+                                    float* __restrict__ out) {
+  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = (int)threadIdx.x % 32;
+  if (i >= width) return;  // whole warps: blockDim.x is a multiple of 32
+  float s = 0.f;
+  for (int b = lane; b < blocks; b += 32) {
+    s += partial[(long long)b * width + i];
+  }
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (lane == 0) out[i] = s;
+}
+
+// parity_bilinear_rows: the bilinears of K2's kBilin stage (the
+// cooperative sweep of one state), bilin[k] = sum_{b,r,c} s(r & rm_k)
+// s(c & cm_k) (l_re*a_im - l_im*a_re)[b, r, c].  This block's partial
+// bilinears over rows first_block * rows_per, ... with THREADS threads;
+// out[K].  The block stages the batch-summed P of a few rows in shared
+// memory (coalesced along columns), then thread k folds those rows into
+// its factor's sum with signs from __popc.  `w` holds THREADS floats,
+// s_rm / s_cm kBilinMaxK ints each.  Starts and ends with a block
+// barrier.
 template <int THREADS>
 __device__ void parity_bilinear_rows(const float* __restrict__ l_re,
                                      const float* __restrict__ l_im,
@@ -431,67 +735,6 @@ __device__ void parity_bilinear_rows(const float* __restrict__ l_re,
     if (k < K) out[k] = acc[j];
   }
   __syncthreads();
-}
-
-__global__ void __launch_bounds__(kBilinThreads)
-    parity_bilinear_partial_kernel(const float* __restrict__ l_re,
-                                   const float* __restrict__ l_im,
-                                   const float* __restrict__ a_re,
-                                   const float* __restrict__ a_im,
-                                   const int* __restrict__ row_masks,
-                                   const int* __restrict__ col_masks, int K,
-                                   int B, int R, int C,
-                                   float* __restrict__ partial) {
-  __shared__ float w[kBilinThreads];
-  __shared__ int s_rm[kBilinMaxK];
-  __shared__ int s_cm[kBilinMaxK];
-  parity_bilinear_rows<kBilinThreads>(
-      l_re, l_im, a_re, a_im, row_masks, col_masks, K, B, R, C,
-      partial + (long long)blockIdx.x * K, blockIdx.x, gridDim.x, w, s_rm,
-      s_cm);
-}
-
-// ---------------------------------------------------------------------------
-// diag_rotate: x <- (cos t + i*sign*sin t) * x, in place, for one or two
-// state batches sharing the [R, C] cos/sin planes.
-// ---------------------------------------------------------------------------
-//
-// Replaces the "diag_rot" stage of K4 (pallas_sv.py `_make_batched_kernel`,
-// sign +) and the "bwddiagrot" un-apply of K5 (pallas_adjoint.py
-// `_make_bwd_kernel`, sign -, a and lambda together).
-//
-// Bound: device memory -- 16 bytes read and written per amplitude for 6
-// flop.  The kernel reads each float4 of the planes once and applies it to
-// every state of the batch, so the planes cost 8 bytes per element instead
-// of 8 per element per state; accesses are 16-byte vectors.
-__device__ __forceinline__ void rotate4(float4* re, float4* im, long long i,
-                                        float4 c, float4 s) {
-  const float4 xr = re[i];
-  const float4 xi = im[i];
-  re[i] = make_float4(c.x * xr.x - s.x * xi.x, c.y * xr.y - s.y * xi.y,
-                      c.z * xr.z - s.z * xi.z, c.w * xr.w - s.w * xi.w);
-  im[i] = make_float4(c.x * xi.x + s.x * xr.x, c.y * xi.y + s.y * xr.y,
-                      c.z * xi.z + s.z * xr.z, c.w * xi.w + s.w * xr.w);
-}
-
-__global__ void diag_rotate_kernel(float4* re0, float4* im0, float4* re1,
-                                   float4* im1, int B, long long size4,
-                                   const float4* __restrict__ cos_p,
-                                   const float4* __restrict__ sin_p,
-                                   float sign) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < size4; i += (long long)gridDim.x * blockDim.x) {
-    const float4 c = cos_p[i];
-    float4 s = sin_p[i];
-    s.x *= sign;
-    s.y *= sign;
-    s.z *= sign;
-    s.w *= sign;
-    for (int b = 0; b < B; ++b) {
-      rotate4(re0, im0, b * size4 + i, c, s);
-      if (re1 != nullptr) rotate4(re1, im1, b * size4 + i, c, s);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -2112,6 +2355,9 @@ int sm_count() {
   return sms > 0 ? sms : 1;
 }
 
+// A wave of the diagonal kernels' 256-thread blocks on this device.
+long long diag_wave() { return (long long)sm_count() * kDiagBlocksPerSm; }
+
 // Blocks of `kernel` resident on one SM at `threads` threads and `smem`
 // bytes of dynamic shared memory.  The kernel's dynamic shared-memory
 // limit is raised to `smem` where it is lower (never lowered: a launch of
@@ -2375,19 +2621,44 @@ int qhbm_qubit_transitions(const float* l_re, const float* l_im,
   return (int)cudaGetLastError();
 }
 
-// bilin[k] over B states [B, R, C]; masks are int32 [K] device arrays;
-// `partial` is scratch of blocks * K floats.  Needs C <= 256, K <= 1024.
-int qhbm_parity_bilinear(const float* l_re, const float* l_im,
-                         const float* a_re, const float* a_im,
+// Blocks of the diagonal kernels' grid over B states of `size` amplitudes
+// on this device: the rows of qhbm_parity_bilinear's `partial`.
+int qhbm_diag_blocks(int B, int size) {
+  if (B < 1 || size < 4) return 0;
+  return diag_grid(B, size / 4, diag_wave()).blocks();
+}
+
+// bilin[k] over B states [B, R, C] (R*C floats a plane, every plane 16-byte
+// aligned); masks are int32 [K] device arrays; `partial` is scratch of
+// `blocks` (>= qhbm_diag_blocks(B, R*C)) * K floats.  With cos_p and sin_p
+// ([R, C] planes, else NULL) it also un-applies the segment in place: a
+// and lambda <- exp(-i theta) * (a, lambda).  Needs C a power of two in
+// [4, 256] and K <= 1024.
+int qhbm_parity_bilinear(float* l_re, float* l_im, float* a_re, float* a_im,
                          const int* row_masks, const int* col_masks, int K,
-                         int B, int R, int C, float* partial, float* out,
-                         int blocks, void* stream) {
-  if (C > kBilinThreads || K > kBilinMaxK) return (int)cudaErrorInvalidValue;
+                         int B, int R, int C, const float* cos_p,
+                         const float* sin_p, float* partial, int blocks,
+                         float* out, void* stream) {
+  if (C < 4 || C > kDiagThreads || (C & (C - 1)) || K < 0 ||
+      K > kBilinMaxK || B < 1 || R < 1 ||
+      (cos_p == nullptr) != (sin_p == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const DiagGrid g = diag_grid(B, (long long)R * C / 4, diag_wave());
+  if (g.blocks() > blocks) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  parity_bilinear_partial_kernel<<<blocks, kBilinThreads, 0, s>>>(
-      l_re, l_im, a_re, a_im, row_masks, col_masks, K, B, R, C, partial);
-  sum_partials_kernel<<<(K + 255) / 256, 256, 0, s>>>(partial, blocks, K,
-                                                      out);
+  auto kernel = cos_p != nullptr ? diag_bilinear_kernel<true>
+                                 : diag_bilinear_kernel<false>;
+  kernel<<<g.blocks(), kDiagThreads, kDiagBilinearSmem, s>>>(
+      reinterpret_cast<float4*>(l_re), reinterpret_cast<float4*>(l_im),
+      reinterpret_cast<float4*>(a_re), reinterpret_cast<float4*>(a_im),
+      reinterpret_cast<const float4*>(cos_p),
+      reinterpret_cast<const float4*>(sin_p), row_masks, col_masks, K, B, R,
+      C, g, partial);
+  if (K > 0) {
+    sum_partials_kernel<<<(K + 7) / 8, 256, 0, s>>>(partial, g.blocks(), K,
+                                                    out);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -2397,14 +2668,15 @@ int qhbm_parity_bilinear(const float* l_re, const float* l_im,
 int qhbm_diag_rotate(float* re0, float* im0, float* re1, float* im1, int B,
                      int size, const float* cos_p, const float* sin_p,
                      int sign, void* stream) {
+  if (B < 1 || size < 4 || size % 4) return (int)cudaErrorInvalidValue;
   const long long size4 = size / 4;
-  long long grid = (size4 + 255) / 256;
-  const long long cap = (long long)sm_count() * 8;
-  if (grid > cap) grid = cap;
-  diag_rotate_kernel<<<(int)grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  const DiagGrid g = diag_grid(B, size4, diag_wave());
+  auto kernel = re1 != nullptr ? diag_rotate_kernel<true>
+                               : diag_rotate_kernel<false>;
+  kernel<<<g.blocks(), kDiagThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<float4*>(re0), reinterpret_cast<float4*>(im0),
       reinterpret_cast<float4*>(re1), reinterpret_cast<float4*>(im1), B,
-      size4, reinterpret_cast<const float4*>(cos_p),
+      size4, g, reinterpret_cast<const float4*>(cos_p),
       reinterpret_cast<const float4*>(sin_p), (float)sign);
   return (int)cudaGetLastError();
 }

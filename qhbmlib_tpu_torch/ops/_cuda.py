@@ -47,8 +47,9 @@ _SIGNATURES = {
     "qhbm_transitions_scratch": [],
     "qhbm_qubit_transitions": [_P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _P,
                                _P],
+    "qhbm_diag_blocks": [_I, _I],
     "qhbm_parity_bilinear": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
-                             _I, _P],
+                             _P, _I, _P, _P],
     "qhbm_diag_rotate": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _P],
     "qhbm_axis2_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _P],

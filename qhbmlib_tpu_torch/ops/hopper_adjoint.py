@@ -16,8 +16,10 @@ reverse:
         diag segment -> `parity_bilinear` over all K parity factors (one
                         launch for each MAX_BILIN_K of them);
   (2) un-apply the segment to a and lambda: the inverse operators as K1 /
-      `axis_apply` passes (`hopper_sv.plan_passes`), or one `diag_rotate`
-      with sign -1 over both.
+      `axis_apply` passes (`hopper_sv.plan_passes`); a diagonal segment's
+      un-apply runs in (1)'s first `parity_bilinear` launch, which reads
+      each state once for both (Im(conj(lam) a) does not change under the
+      common rotation exp(-i theta)).
 
 `adjoint_sweep` (K2, pallas_adjoint.py:480) runs the same stages for ONE
 state of 8 to 20 qubits in one cooperative launch over a stage table; its
@@ -31,7 +33,7 @@ contractions, coefficient groupings) runs on the host after the sweep, as
 from __future__ import annotations
 
 import functools
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -147,10 +149,16 @@ qubit_transitions.launches = 0
 
 
 def parity_bilinear_plain(l_re, l_im, a_re, a_im, row_masks: Sequence[int],
-                          col_masks: Sequence[int]) -> torch.Tensor:
-  """[K] sum_b s_r_k^T P_b s_c_k with P = Im(conj(lam) * a) per state."""
+                          col_masks: Sequence[int],
+                          planes: Optional[Planes] = None) -> torch.Tensor:
+  """[K] sum_b s_r_k^T P_b s_c_k with P = Im(conj(lam) * a) per state; with
+  the segment's (cos, sin) `planes`, then the un-apply of a and lambda in
+  place (`diag_rotate_plain`, sign -1)."""
   p = (l_re * a_im - l_im * a_re).sum(dim=0)
-  return sv.parity_bilinear(row_masks, col_masks, p)
+  out = sv.parity_bilinear(row_masks, col_masks, p)
+  if planes is not None:
+    hopper_sv.diag_rotate_plain([(a_re, a_im), (l_re, l_im)], *planes, -1)
+  return out
 
 
 @functools.lru_cache(maxsize=64)
@@ -166,37 +174,53 @@ MAX_BILIN_K = 1024
 
 
 def parity_bilinear(l_re, l_im, a_re, a_im, row_masks: Sequence[int],
-                    col_masks: Sequence[int]) -> torch.Tensor:
+                    col_masks: Sequence[int],
+                    planes: Optional[Planes] = None) -> torch.Tensor:
   """Batch-summed parity bilinears of P = l_re*a_im - l_im*a_re over
-  [B, R, C] planes, one per (row_mask, col_mask) factor: returns [K].  On
-  the card, one launch for each run of at most MAX_BILIN_K factors, each
-  writing its slice of the output, as the stage tables split bilinear
-  records."""
+  [B, R, C] planes, one per (row_mask, col_mask) factor: returns [K].
+
+  With a diagonal segment's (cos, sin) [R, C] `planes` it is the batched
+  sweep's whole diagonal stage: the bilinears, and a and lambda un-applied
+  in place (multiplied by exp(-i theta)), in one pass that reads each
+  state once (K5's "bwddiagrot"; Im(conj(lam) a) is the same after the
+  rotation).  On the card, one launch for each run of at most MAX_BILIN_K
+  factors, each writing its slice of the output, as the stage tables split
+  bilinear records; only the first launch un-applies."""
   if l_re.device.type == "cpu":
     return parity_bilinear_plain(l_re, l_im, a_re, a_im, row_masks,
-                                 col_masks)
+                                 col_masks, planes)
   if l_re.device.type != "cuda":
     raise ValueError(f"parity_bilinear: unsupported device {l_re.device}")
   b, r, c = l_re.shape
   k = len(row_masks)
-  if c > 256 or len(col_masks) != k:
-    raise ValueError(f"parity_bilinear: C={c} (<= 256), {k} row masks and "
-                     f"{len(col_masks)} column masks")
-  _cuda.require([l_re, l_im, a_re, a_im], l_re.device, [(b, r, c)] * 4)
+  if not 4 <= c <= 256 or c & (c - 1) or len(col_masks) != k:
+    raise ValueError(f"parity_bilinear: C={c} (a power of two in [4, 256]), "
+                     f"{k} row masks and {len(col_masks)} column masks")
+  states = [l_re, l_im, a_re, a_im]
+  _cuda.require(states, l_re.device, [(b, r, c)] * 4)
+  if any(t.data_ptr() % 16 for t in states):
+    raise ValueError("parity_bilinear: planes must be 16-byte aligned")
+  cos_ptr = sin_ptr = None
+  if planes is not None:
+    _cuda.require(list(planes), l_re.device, [(r, c)] * 2)
+    if len({t.data_ptr() for t in states}) != 4:
+      raise ValueError("parity_bilinear: the un-apply needs four distinct "
+                       "planes")
+    cos_ptr, sin_ptr = (t.data_ptr() for t in planes)
   dev = l_re.device
   rm, cm = _device_masks(tuple(row_masks), tuple(col_masks), str(dev))
   lib = _cuda.library()
-  rows_per_block = 256 // c  # the kernel's 256 threads cover whole rows
-  blocks = min(-(-r // rows_per_block), 4 * _cuda.sm_count(dev))
+  blocks = lib.qhbm_diag_blocks(b, r * c)
   partial = torch.empty((blocks, min(k, MAX_BILIN_K)), dtype=torch.float32,
                         device=dev)
   out = torch.empty((k,), dtype=torch.float32, device=dev)
-  for lo in range(0, k, MAX_BILIN_K):
+  for lo in range(0, max(k, 1), MAX_BILIN_K):
     part = min(k - lo, MAX_BILIN_K)
     _cuda.check(lib.qhbm_parity_bilinear(
         l_re.data_ptr(), l_im.data_ptr(), a_re.data_ptr(), a_im.data_ptr(),
         rm[lo:].data_ptr(), cm[lo:].data_ptr(), part, b, r, c,
-        partial.data_ptr(), out[lo:].data_ptr(), blocks,
+        cos_ptr if lo == 0 else None, sin_ptr if lo == 0 else None,
+        partial.data_ptr(), blocks, out[lo:].data_ptr(),
         _cuda.stream_of(l_re)), "parity_bilinear")
     parity_bilinear.launches += 1
   return out
@@ -379,7 +403,7 @@ def adjoint_sweep_batched(circuit: ir.Circuit, symbol_values, psi: Planes,
   trans = qubit_transitions_plain if plain else qubit_transitions
   bilin = parity_bilinear_plain if plain else parity_bilinear
   stages, plan = prepare_backward(circuit, symbol_values, device)
-  # The diagonal un-applies rotate in place: work on contiguous copies.
+  # The diagonal stages un-apply in place: work on contiguous copies.
   a, lm = [tuple(torch.clone(t, memory_format=torch.contiguous_format)
                  for t in pair) for pair in (psi, lam)]
   reductions = []  # [Q, 2, 2, 2] transitions or [K] bilinears, stage order
@@ -391,8 +415,7 @@ def adjoint_sweep_batched(circuit: ir.Circuit, symbol_values, psi: Planes,
       a, lm = hopper_sv.apply_passes(passes, [a, lm], n, plain)
     else:
       _, rms, cms, planes = stage
-      reductions.append(bilin(*lm, *a, rms, cms))
-      a, lm = hopper_sv.apply_stage(("diag", planes), [a, lm], -1, plain)
+      reductions.append(bilin(*lm, *a, rms, cms, planes))
   # One device->host copy for every reduction, then the tiny algebra.
   outputs = []
   if reductions:

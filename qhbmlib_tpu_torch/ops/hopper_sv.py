@@ -12,7 +12,9 @@ does not fit one SM, so every segment is one or two launches over the
   1q segment   -> `axis2_apply` (K1, `fused_blocks_minor_apply`) on pairs of
                   its operators, `axis_apply` on an operator left unpaired
                   (`plan_passes`);
-  diag segment -> one `diag_rotate` with the segment's shared planes.
+  diag segment -> one `diag_rotate` with the segment's shared planes (the
+                  batched sweep un-applies it inside its diagonal stage's
+                  `hopper_adjoint.parity_bilinear` launch).
 
 `circuit_forward` (K3, `apply_circuit_pallas`, pallas_sv.py:667) runs the
 whole circuit on ONE state of 8 to 20 qubits in one cooperative launch that
@@ -99,7 +101,10 @@ def diag_rotate_plain(states: List[Planes], cos_t, sin_t, sign: int) -> None:
 def diag_rotate(states: List[Planes], cos_t, sin_t, sign: int) -> None:
   """Multiplies one or two state batches IN PLACE by exp(i*sign*theta),
   given the shared [R, C] planes cos(theta), sin(theta).  Sign +1 is the
-  forward apply, -1 the adjoint un-apply (pallas_adjoint.py:345-357)."""
+  forward apply, -1 an un-apply (pallas_adjoint.py:345-357; the batched
+  sweep's runs fused with its bilinears, `hopper_adjoint.parity_bilinear`).
+  On the card its grid spans amplitude tiles x batch chunks, so a batch of
+  small states fills the card as one large state does."""
   re0, im0 = states[0]
   if re0.device.type == "cpu":
     diag_rotate_plain(states, cos_t, sin_t, sign)
@@ -383,15 +388,14 @@ def prepare_segments(circuit: ir.Circuit, symbol_values, device):
   return stages
 
 
-def apply_stage(stage, planes: List[Planes], sign: int,
+def apply_stage(stage, planes: List[Planes],
                 plain: bool = False) -> List[Planes]:
-  """Applies one prepared stage to each [B, R, C] plane pair; diagonal
-  stages rotate in place (sign +1 forward, -1 un-apply), 1q stages return
-  new planes."""
+  """Applies one prepared forward stage to each [B, R, C] plane pair;
+  diagonal stages rotate in place, 1q stages return new planes."""
   kind, body = stage
   if kind == "diag":
     (diag_rotate_plain if plain else diag_rotate)(planes, body[0], body[1],
-                                                  sign)
+                                                  +1)
     return planes
   b, r, c = planes[0][0].shape
   return apply_passes(body, planes, (r * c).bit_length() - 1, plain)
@@ -437,7 +441,7 @@ def apply_circuit_batched(circuit: ir.Circuit, symbol_values,
     planes = [tuple(torch.clone(t, memory_format=torch.contiguous_format)
                     for t in init_planes)]
   for stage in prepare_segments(circuit, symbol_values, planes[0][0].device):
-    planes = apply_stage(stage, planes, +1, plain)
+    planes = apply_stage(stage, planes, plain)
   return planes[0]
 
 

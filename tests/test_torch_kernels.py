@@ -130,6 +130,95 @@ def test_sweep_takes_one_transition_call_per_1q_segment(monkeypatch):
   np.testing.assert_array_equal(got.numpy(), expected.numpy())
 
 
+def test_sweep_takes_one_bilinear_call_per_diag_stage(monkeypatch):
+  """The batched sweep runs each diagonal stage as ONE `parity_bilinear`
+  call given the stage's cos/sin planes (the bilinears and the un-apply of
+  a and lambda in one pass) and calls `diag_rotate` nowhere, and gives the
+  plain sweep's gradient."""
+  n, batch = 9, 3
+  pqc, values, bits, op, g = _problem(n, 2, batch, 32)
+  psis, lams = _psi_lam(pqc, values, bits, op, g)
+  bilinears, rotations = [], []
+  real_bilinear = hopper_adjoint.parity_bilinear
+
+  def counted_bilinear(*args):
+    bilinears.append(args[6])
+    return real_bilinear(*args)
+
+  def counted_rotate(*args):
+    rotations.append(args)
+    return hopper_sv.diag_rotate_plain(*args)
+
+  monkeypatch.setattr(hopper_adjoint, "parity_bilinear", counted_bilinear)
+  monkeypatch.setattr(hopper_sv, "diag_rotate", counted_rotate)
+  tpqc = tcu.hardware_efficient_ansatz(n, 2)
+  got = hopper_adjoint.adjoint_sweep_batched(
+      tpqc, torch.tensor(values), _split(psis), _split(lams))
+  segments = [cls for cls, _ in tsv.segment_circuit(tpqc.gates)]
+  assert len(bilinears) == segments.count("diag") == 2
+  assert all(len(planes) == 2 for planes in bilinears)
+  assert not rotations
+  expected = hopper_adjoint.adjoint_sweep_batched(
+      tpqc, torch.tensor(values), _split(psis), _split(lams), plain=True)
+  np.testing.assert_array_equal(got.numpy(), expected.numpy())
+
+
+def test_fused_diag_stage_plain_is_bilinear_then_unapply():
+  """parity_bilinear with the planes: the bilinears of the states as given
+  and both states rotated by exp(-i theta) in place, as the two plain
+  versions in sequence; without them the states are left alone."""
+  rng = np.random.RandomState(8)
+  shape = (3, 2, 8)
+  lam, a = _planes(rng, shape), _planes(rng, shape)
+  before = [_c(lam), _c(a)]
+  theta = rng.uniform(-3, 3, shape[1:]).astype(np.float32)
+  planes = (torch.tensor(np.cos(theta)), torch.tensor(np.sin(theta)))
+  rms, cms = [0, 1, 3], [5, 0, 7]
+  alone = hopper_adjoint.parity_bilinear(*lam, *a, rms, cms)
+  np.testing.assert_array_equal(_c(lam), before[0])
+  fused = hopper_adjoint.parity_bilinear(*lam, *a, rms, cms, planes)
+  np.testing.assert_array_equal(fused.numpy(), alone.numpy())
+  for state, b in zip((lam, a), before):
+    np.testing.assert_allclose(_c(state), b * np.exp(-1j * theta),
+                               atol=1e-6)
+
+
+def test_k4_plain_matches_pallas_interpret_small_state_large_batch(
+    monkeypatch):
+  """The forward at the r2 rung's shape, a small state in a large batch:
+  8q (the smallest n `pallas_sv.batched_supported` admits) B = 64."""
+  monkeypatch.setenv("QHBM_MATMUL_PRECISION", "high")
+  n, batch = 8, 64
+  pqc, values, bits, _, _ = _problem(n, 2, batch, 41)
+  rowcol = _rowcol(bits, n)
+  expected = pallas_sv.apply_circuit_pallas_batched(
+      pqc, jnp.asarray(values), jnp.asarray(rowcol), interpret=True)
+  got = hopper_sv.apply_circuit_batched(
+      tcu.hardware_efficient_ansatz(n, 2), torch.tensor(values),
+      torch.tensor(rowcol))
+  np.testing.assert_allclose(_c(got), np.asarray(expected), atol=STATE_ATOL)
+
+
+def test_k5_plain_matches_pallas_interpret_small_state_large_batch(
+    monkeypatch):
+  """The sweep (each diagonal stage one fused `parity_bilinear` call) at
+  8q B = 64 against `pallas_adjoint.adjoint_sweep_batched` (its
+  "bwddiagrot": the bilinears, then the un-apply) in interpret mode."""
+  monkeypatch.setenv("QHBM_MATMUL_PRECISION", "high")
+  n, batch = 8, 64
+  pqc, values, bits, op, g = _problem(n, 2, batch, 42)
+  psis, lams = _psi_lam(pqc, values, bits, op, g)
+  expected = pallas_adjoint.adjoint_sweep_batched(
+      pqc, jnp.asarray(values), jnp.asarray(psis), jnp.asarray(lams),
+      interpret=True)
+  got = hopper_adjoint.adjoint_sweep_batched(
+      tcu.hardware_efficient_ansatz(n, 2), torch.tensor(values),
+      _split(psis), _split(lams))
+  np.testing.assert_allclose(got.numpy(), np.asarray(expected),
+                             atol=GRAD_ATOL)
+  assert np.abs(np.asarray(expected)).max() > 1e-3  # non-trivial gradient
+
+
 @pytest.mark.parametrize("n", [9, 15])
 def test_parity_bilinear_plain_matches_jax(n):
   """Batch-summed bilinears of Im(conj(lam) a) equal the sum of the
