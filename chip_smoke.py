@@ -45,12 +45,23 @@ PauliSum expectations/s at 20q, the HBM stream probe), the train step at
 its gradient held against the plain versions, the r2 rung's train step
 at 8q and 11q ("train r2 8q", "train r2 11q": the thermal data's 2^n
 eigenvectors of rho through the batched forward and sweep, a warm-up and
-three timed steps, the gradient against the plain versions), and three
-single-state value-and-gradient calls at 20q/4L.  On every train path
+three timed steps, the gradient against the plain versions), three
+single-state value-and-gradient calls at 20q/4L, the 20q workload with the
+Heisenberg chain as its target ("vqt heis 20q": terms that span row blocks
+and that mix row and column; one step's gradient against the plain
+versions, <H> of one sampled bitstring against the f64 oracle), and last
+the JAX ladder's r5 rung at its own 28 qubits ("train r5 28q": KOBE-2
+sampled by 8 Gibbs-With-Gradients chains threaded through the steps, the
+data 4 states of 2 GB; a warm-up and three timed steps, peak memory and
+the batch-chunk plan, the gradient against the plain versions, and
+<K_model> of the first data bitstring against a float64 oracle of the
+28q circuit run on the host in a thread from the start).  Before r5 it
+times r5's kernels at their 28q shapes and measures the batch-chunking
+rule's state count at 24q.  On every train path
 `diag_rotate` must launch as often as `parity_bilinear`: once a diagonal
 segment in the forward and never in the sweep.  It fails if the VQT
-gate's gradient error reaches 1e-2, the QMHL and r2 steps' 1e-4, or the
-oracle checks are more than 1e-4 off.  Before the last line it prints a
+gate's gradient error reaches 1e-2, the QMHL, r2, r5 and Heisenberg
+steps' 1e-4, or the oracle checks are more than 1e-4 off.  Before the last line it prints a
 JSON line {"kernels": [...]} with each kernel's launches on the main
 paths, its error against the plain version, its times and its bound;
 the last line is {"ok": true, "device": {...}}.  It exits non-zero
@@ -375,102 +386,110 @@ def phase_diag(device):
   bound.  Beside the fused stage, its two parts as separate launches
   (`parity_bilinear` alone, then `diag_rotate` of both batches)."""
   from qhbmlib_tpu_torch.models import circuit_utils
+  dgen = torch.Generator(device=device).manual_seed(SEED + 60)
+  for n, b in DIAG_SHAPES:
+    check_diag(device, n, b, *first_diag_factors(
+        circuit_utils.hardware_efficient_ansatz(n, 2)), dgen)
+
+
+def check_diag(device, n, b, rms, cms, dgen):
+  """phase_diag's checks and times at one shape: `diag_rotate` (one batch,
+  sign +1) and the fused diagonal stage over the parity factors (rms, cms)
+  with weights from `dgen`, on B = b states of n qubits; graph replays
+  at n <= 11.  Returns the two records."""
   from qhbmlib_tpu_torch.ops import hopper_adjoint as ha
   from qhbmlib_tpu_torch.ops import hopper_sv as hs
   from qhbmlib_tpu_torch.ops import statevector as sv
-  dgen = torch.Generator(device=device).manual_seed(SEED + 60)
-  for n, b in DIAG_SHAPES:
-    r, c = sv.state_shape(n)
-    rms, cms = first_diag_factors(
-        circuit_utils.hardware_efficient_ansatz(n, 2))
-    k = len(rms)
-    weights = torch.rand(k, generator=dgen, device=device) * 2.0
-    cos_t, sin_t = hs.rotation_planes(weights, rms, cms, (r, c))
-    planes = [torch.randn((b, r, c), generator=dgen, device=device)
-              for _ in range(4)]
-    amps = planes[0].numel()
-    r2 = n <= 11
-    label = f"{n}q B={b}"
+  r, c = sv.state_shape(n)
+  k = len(rms)
+  weights = torch.rand(k, generator=dgen, device=device) * 2.0
+  cos_t, sin_t = hs.rotation_planes(weights, rms, cms, (r, c))
+  planes = [torch.randn((b, r, c), generator=dgen, device=device)
+            for _ in range(4)]
+  amps = planes[0].numel()
+  r2 = n <= 11
+  label = f"{n}q B={b}"
 
-    one = [tuple(t.clone() for t in planes[2:])]
-    one_ref = [tuple(t.clone() for t in planes[2:])]
-    hs.diag_rotate(one, cos_t, sin_t, +1)
-    hs.diag_rotate_plain(one_ref, cos_t, sin_t, +1)
-    got, ref = torch.cat(one[0]), torch.cat(one_ref[0])
-    err = rel_err(got, ref)
-    check(f"diag_rotate {label} (one batch, sign +1)", err, STATE_TOL)
-    x_c = torch.complex(*planes[2:])
-    phase = torch.complex(cos_t, sin_t)
-    rot = dict(err=err, max_abs_err=max_abs(got, ref),
-               ms=cuda_ms(lambda: hs.diag_rotate(one, cos_t, sin_t, +1)),
-               plain_ms=cuda_ms(lambda: hs.diag_rotate_plain(one, cos_t,
-                                                             sin_t, +1)),
-               library_ms=cuda_ms(lambda: x_c * phase),
-               # One complex multiply (6 flops) an amplitude; the batch read
-               # and written once, the cos and sin planes read once.
-               **bound(6 * amps, 16 * amps + 8 * r * c))
+  one = [tuple(t.clone() for t in planes[2:])]
+  one_ref = [tuple(t.clone() for t in planes[2:])]
+  hs.diag_rotate(one, cos_t, sin_t, +1)
+  hs.diag_rotate_plain(one_ref, cos_t, sin_t, +1)
+  got, ref = torch.cat(one[0]), torch.cat(one_ref[0])
+  err = rel_err(got, ref)
+  check(f"diag_rotate {label} (one batch, sign +1)", err, STATE_TOL)
+  x_c = torch.complex(*planes[2:])
+  phase = torch.complex(cos_t, sin_t)
+  rot = dict(err=err, max_abs_err=max_abs(got, ref),
+             ms=cuda_ms(lambda: hs.diag_rotate(one, cos_t, sin_t, +1)),
+             plain_ms=cuda_ms(lambda: hs.diag_rotate_plain(one, cos_t,
+                                                           sin_t, +1)),
+             library_ms=cuda_ms(lambda: x_c * phase),
+             # One complex multiply (6 flops) an amplitude; the batch read
+             # and written once, the cos and sin planes read once.
+             **bound(6 * amps, 16 * amps + 8 * r * c))
+  if r2:
+    rot["graph_ms"] = graph_ms(lambda: hs.diag_rotate(one, cos_t, sin_t,
+                                                      +1))
+    rot["library_graph_ms"] = graph_ms(lambda: x_c * phase)
+  del one, one_ref, got, ref
+
+  four = [t.clone() for t in planes]
+  four_ref = [t.clone() for t in planes]
+  bil = fused_diag_stage(four, rms, cms, cos_t, sin_t)
+  bil_ref = fused_diag_stage_plain(four_ref, rms, cms, cos_t, sin_t)
+  err = rel_err(bil, bil_ref)
+  check(f"fused diagonal stage {label} (K={k}): bilinears", err,
+        REDUCTION_TOL)
+  state_err = rel_err(torch.cat(four), torch.cat(four_ref))
+  check(f"fused diagonal stage {label}: a and lambda un-applied",
+        state_err, STATE_TOL)
+  l_c = torch.complex(*planes[:2])
+  lib = ("brc,brc,kr,kc->k", l_c.conj(), x_c,
+         *(sv.parity_signs(m, size, device).to(torch.complex64)
+           for m, size in ((rms, r), (cms, c))))
+  unapply = torch.conj(phase)
+
+  def library():
+    return (torch.einsum(*lib).imag, x_c * unapply, l_c * unapply)
+
+  check(f"fused diagonal stage {label}: library einsum vs plain",
+        rel_err(library()[0], bil_ref), REDUCTION_TOL)
+  stage = dict(
+      err=err, state_err=state_err, max_abs_err=max_abs(bil, bil_ref),
+      ms=cuda_ms(lambda: fused_diag_stage(four, rms, cms, cos_t, sin_t)),
+      plain_ms=cuda_ms(lambda: fused_diag_stage_plain(four, rms, cms,
+                                                      cos_t, sin_t)),
+      library_ms=cuda_ms(library),
+      parts_ms=cuda_ms(lambda: (ha.parity_bilinear(*four, rms, cms),
+                                hs.diag_rotate([four[2:], four[:2]], cos_t,
+                                               sin_t, -1))),
+      # Im(conj(lam) a) and its batch sum (4 flops an amplitude), two
+      # complex multiplies (12); each row's C log2 C butterflies and K
+      # signed adds; a and lambda read and written once, the cos and sin
+      # planes and the masks read once, K floats written.
+      **bound(16 * amps + r * c * (c.bit_length() - 1) + 2 * r * k,
+              32 * amps + 8 * r * c + 12 * k))
+  if r2:
+    stage["graph_ms"] = graph_ms(lambda: fused_diag_stage(
+        four, rms, cms, cos_t, sin_t))
+    stage["library_graph_ms"] = graph_ms(library)
+  del four, four_ref, planes, x_c, l_c, lib
+  torch.cuda.empty_cache()
+  for name, rec in (("diag_rotate", rot), ("fused diagonal stage", stage)):
+    device_time = ""
     if r2:
-      rot["graph_ms"] = graph_ms(lambda: hs.diag_rotate(one, cos_t, sin_t,
-                                                        +1))
-      rot["library_graph_ms"] = graph_ms(lambda: x_c * phase)
-    del one, one_ref, got, ref
-
-    four = [t.clone() for t in planes]
-    four_ref = [t.clone() for t in planes]
-    bil = fused_diag_stage(four, rms, cms, cos_t, sin_t)
-    bil_ref = fused_diag_stage_plain(four_ref, rms, cms, cos_t, sin_t)
-    err = rel_err(bil, bil_ref)
-    check(f"fused diagonal stage {label} (K={k}): bilinears", err,
-          REDUCTION_TOL)
-    state_err = rel_err(torch.cat(four), torch.cat(four_ref))
-    check(f"fused diagonal stage {label}: a and lambda un-applied",
-          state_err, STATE_TOL)
-    l_c = torch.complex(*planes[:2])
-    lib = ("brc,brc,kr,kc->k", l_c.conj(), x_c,
-           *(sv.parity_signs(m, size, device).to(torch.complex64)
-             for m, size in ((rms, r), (cms, c))))
-    unapply = torch.conj(phase)
-
-    def library():
-      return (torch.einsum(*lib).imag, x_c * unapply, l_c * unapply)
-
-    check(f"fused diagonal stage {label}: library einsum vs plain",
-          rel_err(library()[0], bil_ref), REDUCTION_TOL)
-    stage = dict(
-        err=err, state_err=state_err, max_abs_err=max_abs(bil, bil_ref),
-        ms=cuda_ms(lambda: fused_diag_stage(four, rms, cms, cos_t, sin_t)),
-        plain_ms=cuda_ms(lambda: fused_diag_stage_plain(four, rms, cms,
-                                                        cos_t, sin_t)),
-        library_ms=cuda_ms(library),
-        parts_ms=cuda_ms(lambda: (ha.parity_bilinear(*four, rms, cms),
-                                  hs.diag_rotate([four[2:], four[:2]], cos_t,
-                                                 sin_t, -1))),
-        # Im(conj(lam) a) and its batch sum (4 flops an amplitude), two
-        # complex multiplies (12); each row's C log2 C butterflies and K
-        # signed adds; a and lambda read and written once, the cos and sin
-        # planes and the masks read once, K floats written.
-        **bound(16 * amps + r * c * (c.bit_length() - 1) + 2 * r * k,
-                32 * amps + 8 * r * c + 12 * k))
-    if r2:
-      stage["graph_ms"] = graph_ms(lambda: fused_diag_stage(
-          four, rms, cms, cos_t, sin_t))
-      stage["library_graph_ms"] = graph_ms(library)
-    del four, four_ref, planes, x_c, l_c, lib
-    torch.cuda.empty_cache()
-    for name, rec in (("diag_rotate", rot), ("fused diagonal stage", stage)):
-      device_time = ""
-      if r2:
-        device_time = (f"; device time (graph replay) kernel "
-                       f"{rec['graph_ms']:.4f} ms (share "
-                       f"{rec['bound_ms'] / rec['graph_ms']:.1%}), library "
-                       f"{rec['library_graph_ms']:.4f} ms")
-      parts = (f", its parts as two launches {rec['parts_ms']:.4f} ms"
-               if "parts_ms" in rec else "")
-      log(f"[kernels] {name} {label}" + (f" (K={k})" if parts else "")
-          + f": kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-          f"library {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} "
-          f"ms ({rec['bound_by']}; share {rec['bound_ms'] / rec['ms']:.1%})"
-          + parts + device_time + f", max abs err {rec['max_abs_err']:.3e}")
+      device_time = (f"; device time (graph replay) kernel "
+                     f"{rec['graph_ms']:.4f} ms (share "
+                     f"{rec['bound_ms'] / rec['graph_ms']:.1%}), library "
+                     f"{rec['library_graph_ms']:.4f} ms")
+    parts = (f", its parts as two launches {rec['parts_ms']:.4f} ms"
+             if "parts_ms" in rec else "")
+    log(f"[kernels] {name} {label}" + (f" (K={k})" if parts else "")
+        + f": kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+        f"library {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} "
+        f"ms ({rec['bound_by']}; share {rec['bound_ms'] / rec['ms']:.1%})"
+        + parts + device_time + f", max abs err {rec['max_abs_err']:.3e}")
+  return rot, stage
 
 
 def check_axis_apply(label, shapes, planes, graph=False):
@@ -955,72 +974,79 @@ def first_segment_passes(n, device):
   return hopper_sv.device_passes(ops, n - sv.minor_bits(n), device)
 
 
-def phase_k1(device):
-  """axis2_apply (K1) against its plain version on the passes of a 1q
-  segment at 24q and 20q, B = BATCH; returns the 24q record.  K1 runs its
-  contractions on the tensor cores in 3xTF32 (three TF32 products per
-  float32 product), so its bound is the 3xTF32 tensor bound,
-  max(bytes / 3.35 TB/s, 3 * flops / 495 TFLOP/s); the float32-core bound
-  of earlier records is logged beside it as `fp32_bound_ms`."""
+def check_axis2(device, n, b):
+  """axis2_apply (K1) against its plain version on the passes of the first
+  1q segment of the n-qubit ansatz, on [B, R, C] planes, timed beside its
+  plain version, its library einsum and its bounds; returns the record."""
   from qhbmlib_tpu_torch.ops import hopper_sv as hs
   from qhbmlib_tpu_torch.ops import statevector as sv
-  report = None
-  for n in (N24, N_QUBITS):
-    passes = first_segment_passes(n, device)
-    pairs = [p for p in passes if len(p) == 4]
-    r, c = sv.state_shape(n)
-    dgen = torch.Generator(device=device).manual_seed(SEED + n)
-    x = [tuple(torch.randn((BATCH, r, c), generator=dgen, device=device)
-               for _ in range(2))]
+  passes = first_segment_passes(n, device)
+  pairs = [p for p in passes if len(p) == 4]
+  r, c = sv.state_shape(n)
+  dgen = torch.Generator(device=device).manual_seed(SEED + n)
+  x = [tuple(torch.randn((b, r, c), generator=dgen, device=device)
+             for _ in range(2))]
 
-    def run(plain):
-      return [hs.apply_pass(p, x, n, plain)[0] for p in pairs]
+  def run(plain):
+    return [hs.apply_pass(p, x, n, plain)[0] for p in pairs]
 
-    got, ref = run(False), run(True)
-    err = max(rel_err(torch.cat(g), torch.cat(f)) for g, f in zip(got, ref))
-    views = [f"({s1},{k1})x({s2},{k2})" for (s1, k1), _, (s2, k2), _ in pairs]
-    check(f"axis2_apply {n}q B={BATCH} passes {' '.join(views)}", err,
-          STATE_TOL)
-    abs_err = max(max_abs(torch.cat(g), torch.cat(f))
-                  for g, f in zip(got, ref))
-    del got, ref
-    # One einsum of both operators with the [P, N1, M, N2, Q] view a pass.
-    x_c = torch.complex(*x[0])
-    lib = [(torch.complex(*op1), torch.complex(*op2),
-            x_c.view(BATCH << s1, 2**k1, 2**(s2 - s1 - k1), 2**k2,
-                     2**(n - s2 - k2)))
-           for (s1, k1), op1, (s2, k2), op2 in pairs]
-    amps = x_c.numel()
-    # Per pass: N1 + N2 complex multiply-adds per amplitude; the state read
-    # and written once, both operators read.
-    flops = sum(8 * amps * (2**k1 + 2**k2) for (_, k1), _, (_, k2), _ in pairs)
-    nbytes = sum(16 * amps + 8 * (4**k1 + 4**k2) for (_, k1), _, (_, k2), _
-                 in pairs)
-    rec = dict(err=err, max_abs_err=abs_err,
-               ms=cuda_ms(lambda: run(False), reps=5),
-               plain_ms=cuda_ms(lambda: run(True), reps=5),
-               # The state first: contracted left to right (torch's order
-               # without opt_einsum), no [N1, N1, N2, N2] product forms.
-               library_ms=cuda_ms(lambda: [
-                   torch.einsum("pimjq,Ii,Jj->pImJq", v, a, b)
-                   for a, b, v in lib], reps=5),
-               **bound(3 * flops, nbytes, PEAK_TF32_PER_S))
-    rec["fp32_bound_ms"] = bound(flops, nbytes)["bound_ms"]
-    # The same operators one axis_apply pass each, as before K1.
-    singles = [(p[0], p[1]) for p in pairs] + [(p[2], p[3]) for p in pairs]
-    unfused_ms = cuda_ms(lambda: [hs.apply_pass(p, x, n) for p in singles],
-                         reps=5)
-    log(f"[kernels] axis2_apply {n}q ({len(pairs)} passes, B={BATCH}): "
-        f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-        f"library {rec['library_ms']:.4f} ms, 3xTF32 tensor bound "
-        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; share "
-        f"{rec['bound_ms'] / rec['ms']:.1%}), fp32-core bound "
-        f"{rec['fp32_bound_ms']:.4f} ms, the same operators as {len(singles)} "
-        f"axis_apply passes {unfused_ms:.4f} ms, max abs err "
-        f"{rec['max_abs_err']:.3e}")
-    del x, x_c, lib
-    torch.cuda.empty_cache()
-    report = report or rec
+  got, ref = run(False), run(True)
+  err = max(rel_err(torch.cat(g), torch.cat(f)) for g, f in zip(got, ref))
+  views = [f"({s1},{k1})x({s2},{k2})" for (s1, k1), _, (s2, k2), _ in pairs]
+  check(f"axis2_apply {n}q B={b} passes {' '.join(views)}", err, STATE_TOL)
+  abs_err = max(max_abs(torch.cat(g), torch.cat(f))
+                for g, f in zip(got, ref))
+  del got, ref
+  # One einsum of both operators with the [P, N1, M, N2, Q] view a pass.
+  x_c = torch.complex(*x[0])
+  lib = [(torch.complex(*op1), torch.complex(*op2),
+          x_c.view(b << s1, 2**k1, 2**(s2 - s1 - k1), 2**k2,
+                   2**(n - s2 - k2)))
+         for (s1, k1), op1, (s2, k2), op2 in pairs]
+  amps = x_c.numel()
+  # Per pass: N1 + N2 complex multiply-adds per amplitude; the state read
+  # and written once, both operators read.
+  flops = sum(8 * amps * (2**k1 + 2**k2) for (_, k1), _, (_, k2), _ in pairs)
+  nbytes = sum(16 * amps + 8 * (4**k1 + 4**k2) for (_, k1), _, (_, k2), _
+               in pairs)
+  rec = dict(err=err, max_abs_err=abs_err,
+             ms=cuda_ms(lambda: run(False), reps=5),
+             plain_ms=cuda_ms(lambda: run(True), reps=5),
+             # The state first: contracted left to right (torch's order
+             # without opt_einsum), no [N1, N1, N2, N2] product forms.
+             library_ms=cuda_ms(lambda: [
+                 torch.einsum("pimjq,Ii,Jj->pImJq", v, a, b)
+                 for a, b, v in lib], reps=5),
+             **bound(3 * flops, nbytes, PEAK_TF32_PER_S))
+  rec["fp32_bound_ms"] = bound(flops, nbytes)["bound_ms"]
+  # The same operators one axis_apply pass each, as before K1.
+  singles = [(p[0], p[1]) for p in pairs] + [(p[2], p[3]) for p in pairs]
+  unfused_ms = cuda_ms(lambda: [hs.apply_pass(p, x, n) for p in singles],
+                       reps=5)
+  each = ", ".join(f"{v} {cuda_ms(lambda p=p: hs.apply_pass(p, x, n), 5):.4f}"
+                   f" ms" for v, p in zip(views, pairs))
+  log(f"[kernels] axis2_apply {n}q ({len(pairs)} passes, B={b}; {each}): "
+      f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+      f"library {rec['library_ms']:.4f} ms, 3xTF32 tensor bound "
+      f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; share "
+      f"{rec['bound_ms'] / rec['ms']:.1%}), fp32-core bound "
+      f"{rec['fp32_bound_ms']:.4f} ms, the same operators as {len(singles)} "
+      f"axis_apply passes {unfused_ms:.4f} ms, max abs err "
+      f"{rec['max_abs_err']:.3e}")
+  del x, x_c, lib
+  torch.cuda.empty_cache()
+  return rec
+
+
+def phase_k1(device):
+  """axis2_apply (K1) against its plain version on the passes of a 1q
+  segment at 24q and 20q, B = BATCH (`check_axis2`); returns the 24q
+  record.  K1 runs its contractions on the tensor cores in 3xTF32 (three
+  TF32 products per float32 product), so its bound is the 3xTF32 tensor
+  bound, max(bytes / 3.35 TB/s, 3 * flops / 495 TFLOP/s); the float32-core
+  bound of earlier records is logged beside it as `fp32_bound_ms`."""
+  report = check_axis2(device, N24, BATCH)
+  check_axis2(device, N_QUBITS, BATCH)
   return report
 
 
@@ -1394,6 +1420,390 @@ def phase_k6(device):
   return rec
 
 
+def chunk_peak(device, pqc, values, bits, ops, batch_chunk=None):
+  """Peak bytes allocated during one batched_expectations forward and
+  backward beyond what was allocated before it, with the call's plan."""
+  from qhbmlib_tpu_torch.ops import adjoint
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  base = torch.cuda.memory_allocated(device)
+  torch.cuda.reset_peak_memory_stats(device)
+  v = values.clone().requires_grad_(True)
+  out = adjoint.batched_expectations(pqc, v, bits, ops,
+                                     batch_chunk=batch_chunk)
+  out.sum().backward()
+  torch.cuda.synchronize()
+  peak = torch.cuda.max_memory_allocated(device) - base
+  return peak, dict(adjoint.last_plan), out.detach(), v.grad
+
+
+def phase_chunk_rule(device):
+  """The batch-chunking rule of `adjoint.batched_expectations` on the card.
+
+  Measures its LIVE_STATES count at 24q, B = 8, psi kept: the peak bytes of
+  a forward and backward over one chunk of 8 and over chunks of 2 (the
+  parity-sign caches warmed first), less the residual, per chunk element
+  (the slope between the two) in states of S = 8 * 2^n bytes, and the
+  part that does not grow with the chunk (the rotation planes, the
+  intercept), for the TFIM and the Heisenberg chain (whose mixed terms
+  take the per-term apply).  Then checks that the rule gives one chunk
+  and keeps psi at the bench's 24q B = 8 and 20q B = 64, and that chunks
+  of 3 with psi recomputed give one chunk's values and gradient (20q,
+  B = 8) within 1e-5 relative L2."""
+  from qhbmlib_tpu_torch.benchmarks import ladder
+  from qhbmlib_tpu_torch.models import circuit_utils
+  from qhbmlib_tpu_torch.ops import adjoint
+  from qhbmlib_tpu_torch.ops import paulis
+  n, batch = N24, BATCH
+  s_bytes = adjoint.state_bytes(n)
+  pqc = circuit_utils.hardware_efficient_ansatz(n, 2)
+  gen = torch.Generator().manual_seed(SEED + 70)
+  values = (torch.rand(pqc.num_symbols, generator=gen) * 2.0).to(device)
+  bits = torch.randint(0, 2, (batch, n), generator=gen,
+                       dtype=torch.int8).to(device)
+  counts = []
+  for name, op in (("TFIM", paulis.tfim_1d(n, device=device)),
+                   ("Heisenberg", ladder.heisenberg(n, device=device))):
+    chunk_peak(device, pqc, values, bits, (op,))  # warms the sign caches
+    peaks = {}
+    for chunk in (batch, 2):
+      peak, plan, _, _ = chunk_peak(device, pqc, values, bits, (op,), chunk)
+      if not plan["store_psi"]:
+        raise AssertionError(f"{n}q B={batch}: psi not kept: {plan}")
+      peaks[chunk] = (peak - batch * s_bytes) / s_bytes
+    live = (peaks[batch] - peaks[2]) / (batch - 2)
+    fixed = peaks[2] - 2 * live
+    counts.append((name, live, fixed))
+    log(f"[chunk] {n}q B={batch} {name}: peak beyond the residual "
+        f"{peaks[batch]:.2f} states at one chunk of {batch}, "
+        f"{peaks[2]:.2f} at chunks of 2: {live:.2f} states live per chunk "
+        f"element, {fixed:.2f} fixed (LIVE_STATES {adjoint.LIVE_STATES}, "
+        f"FIXED_STATES {adjoint.FIXED_STATES})")
+  for name, live, fixed in counts:
+    if live > adjoint.LIVE_STATES or fixed > adjoint.FIXED_STATES:
+      raise AssertionError(
+          f"{name}: {live:.2f} live and {fixed:.2f} fixed states > the "
+          f"rule's {adjoint.LIVE_STATES} and {adjoint.FIXED_STATES}")
+  free = adjoint.free_bytes(device)
+  for label, (nq, b) in (("24q", (N24, BATCH)), ("20q", (N_QUBITS, 64)),
+                         ("r5 28q", (R5_QUBITS, 4))):
+    store = adjoint.store_psi(nq, b, free)
+    chunk = adjoint.auto_chunk(nq, b, free, store)
+    log(f"[chunk] rule at {label} B={b}, {free / 2**30:.1f} GiB free: "
+        f"chunk {chunk}, psi {'kept' if store else 'recomputed'}")
+    if nq != R5_QUBITS and not (store and chunk == b):
+      raise AssertionError(f"{label}: the rule must keep one chunk and psi")
+  pqc20 = circuit_utils.hardware_efficient_ansatz(N_QUBITS, LAYERS)
+  v20 = (torch.rand(pqc20.num_symbols, generator=gen) * 2.0).to(device)
+  b20 = torch.randint(0, 2, (BATCH, N_QUBITS), generator=gen,
+                      dtype=torch.int8).to(device)
+  op20 = (ladder.heisenberg(N_QUBITS, device=device),)
+  _, _, want, want_g = chunk_peak(device, pqc20, v20, b20, op20)
+  saved = adjoint.PSI_RESIDUAL_SHARE
+  adjoint.PSI_RESIDUAL_SHARE = 0.0
+  try:
+    _, plan, got, got_g = chunk_peak(device, pqc20, v20, b20, op20, 3)
+  finally:
+    adjoint.PSI_RESIDUAL_SHARE = saved
+  if plan["store_psi"] or plan["chunk"] != 3:
+    raise AssertionError(f"recompute arm ran {plan}")
+  check(f"{N_QUBITS}q B={BATCH} chunks of 3, psi recomputed, vs one chunk: "
+        "values", rel_err(got, want), 1e-5)
+  check(f"{N_QUBITS}q B={BATCH} chunks of 3, psi recomputed, vs one chunk: "
+        "gradient", rel_err(got_g, want_g), 1e-5)
+
+
+# The r5 rung (`ladder.build_rung("r5_gwg28_qmhl")`) at its own 28 qubits.
+R5 = "r5_gwg28_qmhl"
+R5_QUBITS = 28
+# Kernels the r5 step launches: every 28q 1q segment is two axis2_apply
+# passes, (0,7) x minor and (7,7) x (14,7), so no axis_apply runs.
+TRAIN_R5 = ["axis2_apply", "diag_rotate", "qubit_transitions",
+            "parity_bilinear"]
+
+
+def z_moments_f64(p, n):
+  """<Z_i> [n] and <Z_i Z_j> [n, n] of the float64 distribution p [2^n]
+  (qubit 0 the top index bit), exact: p as a [2^(n-h), 2^h] matrix, the
+  high qubits' signs constant along a row, the low ones' along a column."""
+  import numpy as np
+  h = n // 2
+  mat = p.reshape(2**(n - h), 2**h)
+
+  def signs(bits):
+    x = np.arange(2**bits)[:, None] >> np.arange(bits - 1, -1, -1)
+    return (1.0 - 2.0 * (x & 1)).astype(np.float64)  # [2^bits, bits]
+
+  s_hi, s_lo = signs(n - h), signs(h)
+  q_hi, q_lo = mat.sum(axis=1), mat.sum(axis=0)
+  first = np.concatenate([q_hi @ s_hi, q_lo @ s_lo])
+  cross = s_hi.T @ (mat @ s_lo)
+  second = np.block([[s_hi.T @ (q_hi[:, None] * s_hi), cross],
+                     [cross.T, s_lo.T @ (q_lo[:, None] * s_lo)]])
+  return first, second
+
+
+class R5Anchor:
+  """The 28q forward anchor of r5: <K_model> of the first data bitstring
+  through the composite circuit (the data ansatz, then the model's
+  dagger) at the initial weights, in float64 on the host by the C++ oracle
+  (`native_oracle.simulate`, 4 GB of complex128) and the exact Z moments
+  of its distribution, in a thread started before the kernels build
+  (ctypes releases the GIL)."""
+
+  def __init__(self, device):
+    import threading
+    import numpy as np
+    from qhbmlib_tpu_torch.benchmarks import ladder
+    from qhbmlib_tpu_torch.ops import hopper_sv
+    self.rung = ladder.build_rung(R5, qubits=R5_QUBITS, device=device)
+    h, data, _ = self.rung
+    self.k = h.modular_hamiltonian
+    self.total = data.qhbm.q_inference.circuit + self.k.circuit_dagger
+    gen = data.qhbm.e_inference.generator
+    copy = torch.Generator(device=gen.device)
+    copy.set_state(gen.get_state())
+    support, _ = data.qhbm.e_inference.support_and_counts(copy)
+    self.bits = support[:1].to(torch.int8)
+    self.values = hopper_sv.host_values(self.total.resolved_values())
+    self.kernel = self.k.energy.kernel.detach().cpu().double().numpy()
+    self.result = {}
+    self.thread = threading.Thread(target=self._run, args=(
+        np.asarray(self.bits.cpu()[0]),), daemon=True)
+    self.t0 = time.time()
+    self.thread.start()
+
+  def _run(self, bits):
+    import numpy as np
+    from qhbmlib_tpu_torch.ops import native_oracle
+    try:
+      psi = native_oracle.simulate(self.total.pqc,
+                                   self.values.astype(np.float64), bits=bits)
+      self.result["simulate_s"] = time.time() - self.t0
+      p = psi.real**2 + psi.imag**2
+      del psi
+      first, second = z_moments_f64(p, self.total.pqc.num_qubits)
+      self.result["shards"] = np.asarray(
+          [first[c[0]] if len(c) == 1 else second[c[0], c[1]]
+           for c in self.k.energy.indices])
+      self.result["seconds"] = time.time() - self.t0
+    except Exception as e:  # noqa: BLE001 -- raised again by check()
+      self.result["error"] = e
+
+  def check(self, got_shards):
+    """Waits for the oracle; holds the card's shards and <K> to it."""
+    import numpy as np
+    t0 = time.time()
+    self.thread.join()
+    if "error" in self.result:
+      raise self.result["error"]
+    want = self.result["shards"]
+    got = got_shards.detach().cpu().double().numpy()
+    n = self.total.pqc.num_qubits
+    log(f"[r5 {n}q] f64 oracle: {self.total.pqc.num_gates} gates simulated "
+        f"in {self.result['simulate_s']:.1f} s, Z moments by "
+        f"{self.result['seconds']:.1f} s after its start; waited "
+        f"{time.time() - t0:.1f} s for it here")
+    check(f"r5 {n}q forward shards <Z_c> ({len(want)}, first data "
+          "bitstring through data ansatz + model dagger) vs f64 oracle",
+          float(np.linalg.norm(got - want) / np.linalg.norm(want)),
+          ORACLE_TOL)
+    k_got, k_want = float(got @ self.kernel), float(want @ self.kernel)
+    log(f"[r5 {n}q] <K_model> card {k_got:.8f}, f64 oracle {k_want:.8f}")
+    check(f"r5 {n}q forward <K_model> vs f64 oracle",
+          abs(k_got - k_want) / abs(k_want), ORACLE_TOL)
+
+
+def r5_plain_loss(h, data):
+  """The r5 step's loss through the kernels' plain versions: the data's
+  QNN rebuilt with `plain=True`, the chain state threaded."""
+  from qhbmlib_tpu_torch.data import qhbm_data
+  from qhbmlib_tpu_torch.inference import qhbm, qmhl_loss, qnn
+  d = data.qhbm
+  plain = qhbm_data.QHBMData(qhbm.QHBM(d.e_inference,
+                                       qnn.AnalyticQuantumInference(
+                                           d.q_inference.circuit,
+                                           plain=True)))
+  return qmhl_loss.make_qmhl_with_state(plain, h)
+
+
+def r5_steps(h, data, step, steps, snaps):
+  """`steps` train steps of r5, each step's input (parameters, both EBM
+  generators' states, the chain state) and output (loss, flat gradient)
+  appended to `snaps`.  Returns the seconds they took, host clock ending
+  in a synchronize."""
+  from qhbmlib_tpu_torch import bench
+  gens = bench.generators(h, data)
+  t0 = time.perf_counter()
+  for _ in range(steps):
+    point = ([p.detach().clone() for p in h.parameters()],
+             [g.get_state() for g in gens], step.ebm_state["model"].clone())
+    loss, grad = step()
+    snaps.append((point, loss, grad))
+  torch.cuda.synchronize()
+  return time.perf_counter() - t0
+
+
+def r5_gate(h, data, snaps) -> float:
+  """The largest relative L2 error of the model gradient through the
+  kernels against the plain versions, recomputed at each recorded point
+  (parameters, EBM generator states, chain state)."""
+  from qhbmlib_tpu_torch import bench
+  loss_fn = r5_plain_loss(h, data)
+  gens = bench.generators(h, data)
+  worst = 0.0
+  for (params, states, chain), loss_k, grad_k in snaps:
+    with torch.no_grad():
+      for p, v in zip(h.parameters(), params):
+        p.copy_(v)
+    for gen, state in zip(gens, states):
+      gen.set_state(state)
+    for p in h.parameters() + data.qhbm.parameters():
+      p.grad = None
+    loss, _ = loss_fn(model_state=chain)
+    loss.backward()
+    grad_p = bench.flat_grads(h)
+    log(f"[r5 gate] loss kernels {float(loss_k):.8f}, plain "
+        f"{float(loss.detach()):.8f}")
+    worst = max(worst, rel_err(grad_k.cpu(), grad_p.cpu()))
+  return worst
+
+
+def phase_train_r5(device, anchor):
+  """The JAX ladder's r5 rung at its own 28 qubits (`anchor.rung`, built
+  at start-up): the forward anchor's card side at the initial weights
+  (`R5Anchor.check`), then the main path "train r5 28q": a warm-up and
+  STEPS timed steps with every count reset just before and read just
+  after, steps/s on the host clock, peak device memory and the chunk plan
+  of the last batched_expectations call; then the model's gradient
+  through the kernels against the plain versions at each timed step's
+  parameters, EBM draws and chain state.  Returns the launches."""
+  from qhbmlib_tpu_torch.ops import adjoint
+  h, data, step = anchor.rung
+  n = R5_QUBITS
+  with torch.no_grad():
+    got = adjoint.batched_expectations(
+        anchor.total.pqc, anchor.total.resolved_values(), anchor.bits,
+        anchor.k.operator_shards)[0]
+  log(f"[r5 {n}q] forward of the anchor state: plan {adjoint.last_plan}")
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats(device)
+  path = f"train r5 {n}q"
+  reset_launches()
+  t0 = time.perf_counter()
+  loss, _ = step()
+  torch.cuda.synchronize()
+  log(f"[{path}] warm-up step {time.perf_counter() - t0:.2f} s, loss "
+      f"{float(loss):.6f}")
+  snaps = []
+  dt = r5_steps(h, data, step, STEPS, snaps)
+  launches = read_launches(path, TRAIN_R5, paired=True)
+  plan = dict(adjoint.last_plan)
+  per_step = {k: v / (STEPS + 1) for k, v in launches.items() if v}
+  log(f"[{path}] {STEPS / dt:.4f} steps/s ({STEPS} steps in {dt:.3f} s); "
+      f"peak device memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f}"
+      f" GiB; batched_expectations plan {plan} (chunk {plan['chunk']} of "
+      f"{plan['batch']}, psi {'kept' if plan['store_psi'] else 'recomputed'})"
+      f"; launches per step (warm-up + {STEPS} steps): {per_step}")
+  anchor.check(got)
+  check(f"train r5 gradient at {n}q, kernels vs plain at {STEPS} steps",
+        r5_gate(h, data, snaps), GRAD_TOL)
+  return launches
+
+
+def free_device_memory() -> None:
+  """Drops what earlier phases left cached on the card: the parity-sign
+  and Pauli-matrix caches and the allocator's free blocks."""
+  import gc
+  from qhbmlib_tpu_torch.ops import statevector as sv
+  gc.collect()
+  sv._parity_signs.cache_clear()
+  sv._pauli_stack.cache_clear()
+  torch.cuda.empty_cache()
+  log(f"[memory] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+      "after freeing the caches")
+
+
+def phase_kernels_28q(device):
+  """The r5 path's kernels at their 28q shapes, B = the chunk the rule
+  gives r5's 4 data states now (what its step runs with this much free
+  memory): axis2_apply on both passes of a 1q segment (each pass also
+  timed alone), qubit_transitions over
+  its 28 qubits, diag_rotate and the fused diagonal stage over the parity
+  factors of r5's composite diagonal segment (data ansatz + model dagger),
+  each against its plain version, timed beside it, its library call and
+  its bound (`check_axis2`, `check_transitions`, `check_diag`)."""
+  from qhbmlib_tpu_torch.benchmarks import ladder
+  from qhbmlib_tpu_torch.ops import adjoint
+  from qhbmlib_tpu_torch.ops import statevector as sv
+  n = R5_QUBITS
+  free = adjoint.free_bytes(device)
+  batch = adjoint.auto_chunk(n, 4, free, adjoint.store_psi(n, 4, free))
+  log(f"[kernels] r5 {n}q shapes at B={batch}, the rule's chunk of 4 "
+      f"states with {free / 2**30:.1f} GiB free")
+  h, data, _ = ladder.build_rung(R5, qubits=n, device="cpu")
+  total = data.qhbm.q_inference.circuit + h.modular_hamiltonian.circuit_dagger
+  check_axis2(device, n, batch)
+  r, c = sv.state_shape(n)
+  dgen = torch.Generator(device=device).manual_seed(SEED + 80)
+  planes = tuple(torch.randn((batch, r, c), generator=dgen, device=device)
+                 for _ in range(4))
+  check_transitions(f"{n}q", planes, list(range(n)))
+  del planes
+  torch.cuda.empty_cache()
+  rms, cms = first_diag_factors(total.pqc)
+  log(f"[kernels] r5 {n}q composite diagonal segment: K = {len(rms)}")
+  check_diag(device, n, batch, rms, cms, dgen)
+
+
+def phase_vqt_heis20(device):
+  """"vqt heis 20q": the bench's 20q workload (`bench.WORKLOADS["20q"]`)
+  with the Heisenberg chain (`ladder.heisenberg`) as its target, whose
+  XX / YY on (6, 7) span the row blocks (0,7), (7,6) and on (12, 13) mix
+  row and column: a warm-up and one step with every count reset just
+  before and read just after, that step's gradient against the plain
+  versions within GRAD_TOL (`bench.precision_gate`), and <H> of one
+  sampled bitstring against the f64 oracle within ORACLE_TOL.  Returns
+  the launches."""
+  import numpy as np
+  from qhbmlib_tpu_torch import bench
+  from qhbmlib_tpu_torch.benchmarks import ladder
+  from qhbmlib_tpu_torch.ops import adjoint
+  from qhbmlib_tpu_torch.ops import hopper_sv
+  from qhbmlib_tpu_torch.ops import native_oracle
+  cfg = bench.WORKLOADS["20q"]
+  target = ladder.heisenberg(cfg["n"], device=device)
+  traj = {}
+  reset_launches()
+  bench.run_workload("vqt heis 20q", cfg, 1, device, traj,
+                     build=lambda cfg, dev: bench.build_train_step(
+                         cfg, dev, target=target))
+  torch.cuda.synchronize()
+  launches = read_launches("vqt heis 20q", BENCH_PATHS["train 20q"],
+                           paired=True)
+  gate = bench.precision_gate(traj)
+  check("vqt heis 20q gradient, kernels vs plain at 1 step",
+        gate["gate_grad_rel_err"], GRAD_TOL)
+  h = traj["model"]
+  circuit = h.q_inference.circuit
+  bits = h.e_inference.sample(
+      1, torch.Generator(device=device).manual_seed(SEED + 90))
+  with torch.no_grad():
+    values = circuit.resolved_values()
+    got = float(adjoint.batched_expectations(circuit.pqc, values, bits,
+                                             (target,))[0, 0])
+  psi = native_oracle.simulate(
+      circuit.pqc, hopper_sv.host_values(values).astype(np.float64),
+      bits=bits.cpu().numpy()[0])
+  want = native_oracle.expectation_f64(psi, target)
+  log(f"[vqt heis 20q] <H> of one sampled bitstring {got:.8f}, f64 oracle "
+      f"{want:.8f}")
+  check("vqt heis 20q <H> vs f64 oracle", abs(got - want) / abs(want),
+        ORACLE_TOL)
+  return launches
+
+
 SOURCES = {"stream_scale": "qhbmlib_tpu_torch/csrc/stream_kernels.cu"}
 REPLACES = {
     "axis_apply": "qhbmlib_tpu/ops/pallas_sv.py:459",
@@ -1438,6 +1848,11 @@ def main() -> int:
       f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}, "
       f"count {torch.cuda.device_count()}")
 
+  # r5's 28q float64 anchor runs on the host from here on (minutes).
+  anchor = R5Anchor(device)
+  log(f"[r5 {R5_QUBITS}q] rung built on the card; its f64 oracle started "
+      f"in a thread ({anchor.total.pqc.num_gates} gates, data bitstring "
+      f"{anchor.bits.cpu().numpy()[0].tolist()})")
   t0 = time.time()
   _cuda.build(verbose=True)
   _cuda.library()
@@ -1483,6 +1898,13 @@ def main() -> int:
   for qubits in (8, 11):
     paths[f"train r2 {qubits}q"] = phase_train_r2(device, qubits)
   paths["single"] = phase_single_main(device)
+  paths["vqt heis 20q"] = phase_vqt_heis20(device)
+  free_device_memory()
+  phase_kernels_28q(device)
+  phase_chunk_rule(device)
+  free_device_memory()
+  # Last, so r5's f64 anchor (minutes of host work) is most likely done.
+  paths[f"train r5 {R5_QUBITS}q"] = phase_train_r5(device, anchor)
   log(f"[done] on {card}, {time.time() - t0:.1f} s since the build started")
   kernels = [{
       "name": name, "route": "cuda",

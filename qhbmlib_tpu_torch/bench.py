@@ -108,15 +108,17 @@ def _bench_model(cfg, device, exact: bool) -> qhbm.QHBM:
   return qhbm.QHBM(e_inf, qnn.AnalyticQuantumInference(circuit))
 
 
-def build_train_step(cfg, device, exact: bool = False):
+def build_train_step(cfg, device, exact: bool = False, target=None):
   """The bench's VQT train step (bench.py:134-176) in the port, with
   seeded random weights (`_bench_model`).
 
   Returns (h, target, train_step): train_step() takes one Adam step on h's
   parameters and returns the loss and the flat gradient [theta, phi] from
   before the update, both on the device.  `exact` uses the full 2^n EBM
-  support with expected counts (n <= 16) instead of sampling."""
-  target = paulis.tfim_1d(cfg["n"], device=device)  # open chain, as bench.py
+  support with expected counts (n <= 16) instead of sampling.  `target`
+  (a PauliSum on `device`) replaces the open-chain TFIM of bench.py."""
+  if target is None:
+    target = paulis.tfim_1d(cfg["n"], device=device)
   h = _bench_model(cfg, device, exact)
   loss_fn = vqt_loss.make_vqt(h, target)
   opt = torch.optim.Adam(h.parameters(), lr=1e-2)

@@ -1,12 +1,14 @@
 """Where a VQT train step's device time goes, from one torch.profiler trace.
 
     python -m qhbmlib_tpu_torch.benchmarks.step_profile [--trace-dir DIR]
+        [--only WORKLOAD ...]
 
 For each workload of WORKLOADS (the port's bench workloads, 24q and 20q,
 and 16q/4L/500/64, whose lone row block (7,2) takes `axis_apply`'s N < 16
 route) it builds the train step (`bench.build_train_step`), and for the QMHL
 steps of QMHL_WORKLOADS ("qmhl 24q", `bench.build_qmhl_step`; "r2 8q"
-and "r2 11q", the JAX ladder's r2 rung, `ladder.build_rung`), takes one
+and "r2 11q", the JAX ladder's r2 rung, and "r5 28q", its r5 rung,
+`ladder.build_rung`), takes one
 warm-up step, then traces STEPS steps inside one `record_function` region
 that ends in a synchronize.  From the exported Chrome trace: the busy
 share, the union of the device intervals (kernels, copies, sets) inside
@@ -55,12 +57,14 @@ TOP = 12  # kernels reported by name; the rest are summed
 # and draw at 16 qubits.
 WORKLOADS = {**bench.WORKLOADS,
              "16q": dict(n=16, layers=4, samples=500, max_unique=64)}
-# The profiled QMHL steps: the bench's (`bench.build_qmhl_step`) and the
-# r2 rung's (`ladder.build_rung`) at its own 8 qubits and at 11 (its
-# thermal data's 2^n eigenvectors are the batch).
+# The profiled QMHL steps: the bench's (`bench.build_qmhl_step`), the r2
+# rung's (`ladder.build_rung`) at its own 8 qubits and at 11 (its thermal
+# data's 2^n eigenvectors are the batch), and the r5 rung's at its own 28
+# qubits (GWG chains, 4 data states of 2 GB).
 QMHL_WORKLOADS = {"qmhl 24q": bench.QMHL_WORKLOAD,
                   "r2 8q": dict(rung="r2_heis8_qmhl", qubits=8),
-                  "r2 11q": dict(rung="r2_heis8_qmhl", qubits=11)}
+                  "r2 11q": dict(rung="r2_heis8_qmhl", qubits=11),
+                  "r5 28q": dict(rung="r5_gwg28_qmhl", qubits=28)}
 # The single-state call's host parts, in call order: (module, function).
 SINGLE_SPANS = (
     (hopper_sv, "host_values"), (hopper_sv, "forward_table"),
@@ -251,14 +255,20 @@ def profile_workload(name: str, trace_dir: str) -> dict:
 def main(argv=None) -> None:
   p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   p.add_argument("--trace-dir", default="chiprun_out")
+  p.add_argument("--only", nargs="*", metavar="WORKLOAD",
+                 help="trace only these workloads (names as printed; "
+                 "'single' for the single-state calls)")
   args = p.parse_args(argv)
   if not torch.cuda.is_available():
     sys.exit("step_profile: needs the CUDA card")
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   for name in [*WORKLOADS, *QMHL_WORKLOADS]:
-    print(json.dumps(profile_workload(name, args.trace_dir)), flush=True)
-  print(json.dumps(profile_single(args.trace_dir)), flush=True)
+    if args.only is None or name in args.only:
+      print(json.dumps(profile_workload(name, args.trace_dir)), flush=True)
+      torch.cuda.empty_cache()
+  if args.only is None or "single" in args.only:
+    print(json.dumps(profile_single(args.trace_dir)), flush=True)
 
 
 if __name__ == "__main__":

@@ -34,3 +34,27 @@ def make_qmhl(data: quantum_data.QuantumData, input_qhbm: qhbm_module.QHBM):
     return data.expectation(model_k, data_gen) + e_inf.log_partition(model_gen)
 
   return loss_fn
+
+
+def make_qmhl_with_state(data: quantum_data.QuantumData,
+                         input_qhbm: qhbm_module.QHBM):
+  """The QMHL loss of a train step that threads the model sampler's state,
+  as the reference's jitted step does (`make_qmhl`'s pure loss with
+  `ebm_state`, qmhl_loss.py:30-46): no burn-in, whatever the parameters.
+
+  Returns loss_fn(generators=None, model_state=None) -> (loss, new model
+  state): `model_state` is the model EBM's sampler state (a GWG chain
+  state; None continues the stored one) and log Z draws its support, then
+  its Monte Carlo samples, from the model's generator.  The data's
+  expectation uses its own sampler as `make_qmhl` does."""
+  model_k = input_qhbm.modular_hamiltonian
+  e_inf = input_qhbm.e_inference
+
+  def loss_fn(generators: Optional[Sequence[torch.Generator]] = None,
+              model_state=None):
+    data_gen, model_gen = generators or (None, None)
+    data_exp = data.expectation(model_k, data_gen)
+    log_z, new_state = e_inf.log_partition_with_state(model_gen, model_state)
+    return data_exp + log_z, new_state
+
+  return loss_fn

@@ -11,24 +11,40 @@ branch the grid-over-batch Pallas kernels take (`_bt_fwd` / `_bt_bwd` under
             batched reverse sweep (`hopper_adjoint`, K5) gives the
             batch-summed symbol gradient.
 
-The whole batch runs at once (no `batch_chunk`): at 20 qubits and 64 states
-the residual planes take 512 MB of device memory.
+The batch runs in chunks of `batch_chunk` states (`_bt_fwd` / `_bt_bwd`,
+:338-484): each chunk's forward, then in the backward each chunk's lambda,
+one batched sweep and its share of the gradient.  psi stays as the residual
+only while the whole batch's states fit the residual budget (`_store_psi`,
+:348-352); otherwise the backward recomputes each chunk's forward.  The
+rules, sized for the card this runs on (the reference's ~128 MB of live
+chunk state was tuned to a 16 GB v5e):
 
-`batched_probabilities` runs the same forward and sweep from given states
-(not basis states) and measures the computational-basis probabilities
-|psi_b|^2; `data/thermal_data.py` measures a Hamiltonian against rho's
-eigenvectors with it.
+  free     = torch.cuda.mem_get_info's free bytes + the bytes the caching
+             allocator holds unused (HOST_FREE_BYTES for a CPU batch);
+  store    = B * S <= PSI_RESIDUAL_SHARE * free, S = 8 * 2^n bytes a state;
+  chunk    = clamp((CHUNK_SHARE * free - (B * S if store else 0)
+                    - FIXED_STATES * S) // (LIVE_STATES * S), 1, B).
 
-`adjoint_term_expectations` / `expectation` are the per-state API
-(:29-48, :308) for one state of any content: the forward is
-`statevector.apply_circuit` (K3 on the card for 8 <= n <= 20), the backward
-one reverse sweep (K2 there; `reverse_sweep`, the port of
-`_xla_reverse_sweep`, is its plain version).
+LIVE_STATES counts the state-sized buffers live per chunk element beyond
+the residual: the forward's planes and a pass's output, L3's complex copy,
+|psi|^2 and the lambda build's temporaries (the diagonal tier's phase
+array, the weighted state, the sum), lambda's planes and the sweep's pass
+outputs; the sweep overwrites a recomputed psi and the fresh lambda in
+place (no clones).  Measured on the card at 24q, B = 8
+(`chip_smoke.phase_chunk_rule`: `torch.cuda.max_memory_allocated` over a
+forward and backward at one chunk of 8 and at chunks of 2, less the
+residual, in states S): 7.00 states live per chunk element and 2.01 that
+do not grow with the chunk, for the TFIM and the Heisenberg chain alike
+(NVIDIA H100 80GB HBM3, 700.00 W); the constants keep a state of margin
+over each.  At the bench's 24q B = 8 and 20q B = 64 the rule gives one
+chunk and keeps psi; at r5's 28q B = 4 (~78 GiB free) it keeps psi (8 GiB)
+and runs one state a chunk (two would need 92 GiB free), whose step
+peaked at 30.3 GiB.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -47,41 +63,110 @@ def bits_to_rowcol(bits: torch.Tensor, n: int) -> torch.Tensor:
                       sv.bits_to_index(bits[:, nr:], m)], dim=1)
 
 
+# Shares of the free device memory (`free_bytes`) one batched_expectations
+# call may fill: the psi residual kept from the forward to the backward, and
+# the residual plus the live chunk.
+PSI_RESIDUAL_SHARE = 0.25
+CHUNK_SHARE = 0.5
+# State-sized buffers live per chunk element beyond the residual, and those
+# a call holds whatever its chunk (7.00 and 2.01 measured at 24q: the
+# module docstring).
+LIVE_STATES = 8
+FIXED_STATES = 3
+# The free memory the rules assume for a batch on the host.
+HOST_FREE_BYTES = 16 << 30
+
+# The last call's plan: {"batch", "chunk", "store_psi", "free_bytes"}.
+last_plan = {}
+
+
+def state_bytes(n: int) -> int:
+  """Bytes of one complex64 n-qubit state (its two float32 planes)."""
+  return 8 * 2**n
+
+
+def free_bytes(device) -> int:
+  """Device memory a call can still fill: cudaMemGetInfo's free bytes plus
+  what PyTorch's caching allocator holds unused; HOST_FREE_BYTES on the
+  CPU."""
+  device = torch.device(device)
+  if device.type != "cuda":
+    return HOST_FREE_BYTES
+  free, _ = torch.cuda.mem_get_info(device)
+  return int(free + torch.cuda.memory_reserved(device) -
+             torch.cuda.memory_allocated(device))
+
+
+def store_psi(n: int, batch: int, free: int) -> bool:
+  """Keep psi from the forward while the batch's states fit the residual
+  budget (the reference's `_store_psi`); else the backward recomputes."""
+  return batch * state_bytes(n) <= PSI_RESIDUAL_SHARE * free
+
+
+def auto_chunk(n: int, batch: int, free: int, store: bool) -> int:
+  """States a chunk: what CHUNK_SHARE of `free` holds at LIVE_STATES
+  state-sized buffers an element, after the residual and FIXED_STATES;
+  1 to `batch`."""
+  avail = (CHUNK_SHARE * free - (batch * state_bytes(n) if store else 0) -
+           FIXED_STATES * state_bytes(n))
+  return max(1, min(batch, int(avail // (LIVE_STATES * state_bytes(n)))))
+
+
 class _BatchedTerms(torch.autograd.Function):
   """[B, T] coefficient-free per-term expectations over a bitstring batch,
-  differentiable w.r.t. the symbol values by the adjoint method."""
+  differentiable w.r.t. the symbol values by the adjoint method, chunk by
+  chunk (`_bt_fwd` / `_bt_bwd`)."""
 
   @staticmethod
-  def forward(ctx, symbol_values, rowcol, circuit, op, plain):
+  def forward(ctx, symbol_values, rowcol, circuit, op, plain, chunk, store):
     # One host copy of the values serves both passes: the backward folds
     # its operators from it without waiting on the device.
     values = hopper_sv.host_values(symbol_values)
-    psi = hopper_sv.apply_circuit_batched(circuit, values, rowcol, plain)
-    terms = sv.expectation_terms(torch.complex(*psi), op)
+    terms, saved = [], []
+    for lo in range(0, rowcol.shape[0], chunk):
+      psi = hopper_sv.apply_circuit_batched(circuit, values,
+                                            rowcol[lo:lo + chunk], plain)
+      terms.append(sv.expectation_terms(torch.complex(*psi), op))
+      if store:
+        saved.extend(psi)
+      del psi
     ctx.circuit = circuit
     ctx.op = op
     ctx.values = values
     ctx.plain = plain
-    ctx.save_for_backward(*psi)
-    return terms
+    ctx.chunk = chunk
+    ctx.store = store
+    ctx.save_for_backward(rowcol, *saved)
+    return terms[0] if len(terms) == 1 else torch.cat(terms)
 
   @staticmethod
   def backward(ctx, g):
-    psi_re, psi_im = ctx.saved_tensors
+    rowcol, *saved = ctx.saved_tensors
     ones = paulis.PauliSum(ctx.op.codes,
                            torch.ones_like(ctx.op.coeffs, dtype=torch.float32),
                            ctx.op.num_qubits)
-    lam = sv.apply_pauli_sum(torch.complex(psi_re, psi_im), ones,
-                             term_weights=g)
-    grad = hopper_adjoint.adjoint_sweep_batched(
-        ctx.circuit, ctx.values, (psi_re, psi_im),
-        (lam.real.contiguous(), lam.imag.contiguous()), ctx.plain)
-    return grad, None, None, None, None
+    grad = None
+    for i, lo in enumerate(range(0, g.shape[0], ctx.chunk)):
+      if ctx.store:
+        psi = saved[2 * i:2 * i + 2]
+      else:  # recompute this chunk's forward; the sweep may overwrite it
+        psi = hopper_sv.apply_circuit_batched(
+            ctx.circuit, ctx.values, rowcol[lo:lo + ctx.chunk], ctx.plain)
+      lam = sv.apply_pauli_sum(torch.complex(*psi), ones,
+                               term_weights=g[lo:lo + ctx.chunk])
+      lam = (lam.real.contiguous(), lam.imag.contiguous())
+      part = hopper_adjoint.adjoint_sweep_batched(
+          ctx.circuit, ctx.values, psi, lam, ctx.plain,
+          overwrite=(not ctx.store, True))
+      del psi, lam
+      grad = part if grad is None else grad + part
+    return grad, None, None, None, None, None, None
 
 
 def batched_expectations(circuit: ir.Circuit, symbol_values: torch.Tensor,
                          init_bits: torch.Tensor,
                          ops: Sequence[paulis.PauliSum],
+                         batch_chunk: Optional[int] = None,
                          plain: bool = False) -> torch.Tensor:
   """Expectations of each op against U|b> for each bitstring b.
 
@@ -94,6 +179,9 @@ def batched_expectations(circuit: ir.Circuit, symbol_values: torch.Tensor,
     symbol_values: [num_symbols] parameters on the device to run on.
     init_bits: [B, n] int bitstrings; each becomes a basis initial state.
     ops: PauliSums to measure.
+    batch_chunk: states a chunk; None sizes it from the free memory
+      (`auto_chunk`).  Whether psi is kept for the backward follows
+      `store_psi` either way; `last_plan` records the choice.
     plain: run the kernels' plain versions on any device (the precision
       gate's reference arm only).
 
@@ -105,8 +193,15 @@ def batched_expectations(circuit: ir.Circuit, symbol_values: torch.Tensor,
   big, slices = paulis.concat_ops(tuple(ops), n)
   device = symbol_values.device
   rowcol = bits_to_rowcol(init_bits.to(device), n)
+  batch = int(rowcol.shape[0])
+  free = free_bytes(device)
+  store = store_psi(n, batch, free)
+  chunk = (auto_chunk(n, batch, free, store) if batch_chunk is None else
+           max(1, min(batch, int(batch_chunk))))
+  last_plan.update(batch=batch, chunk=chunk, store_psi=store,
+                   free_bytes=free)
   terms = _BatchedTerms.apply(symbol_values, rowcol, circuit,
-                              big.to(device), plain)  # [B, T]
+                              big.to(device), plain, chunk, store)  # [B, T]
   weighted = terms * big.coeffs.to(device)[None, :]
   return torch.stack([weighted[:, a:b].sum(dim=1) for a, b in slices], dim=1)
 

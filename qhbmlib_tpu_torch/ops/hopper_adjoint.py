@@ -390,12 +390,15 @@ def _grads_from_flat(flat: torch.Tensor, shapes) -> List[torch.Tensor]:
 
 
 def adjoint_sweep_batched(circuit: ir.Circuit, symbol_values, psi: Planes,
-                          lam: Planes, plain: bool = False) -> torch.Tensor:
+                          lam: Planes, plain: bool = False,
+                          overwrite=(False, False)) -> torch.Tensor:
   """Batch-summed symbol gradient [num_symbols] from one reverse sweep over
   [B, R, C] planes psi = (re, im) and lam = (re, im), on their device.
 
   `symbol_values` is a tensor on any device or a host array; the operators
-  are folded on the host from it.  The inputs are not modified.
+  are folded on the host from it.  `overwrite` = (psi's, lam's) says which
+  input the sweep may un-apply in place (contiguous planes the caller no
+  longer needs: no copy of them is made); the others are not modified.
   `plain=True` runs the kernels' plain versions (reference only)."""
   device = psi[0].device
   r, c = psi[0].shape[1:]
@@ -403,9 +406,10 @@ def adjoint_sweep_batched(circuit: ir.Circuit, symbol_values, psi: Planes,
   trans = qubit_transitions_plain if plain else qubit_transitions
   bilin = parity_bilinear_plain if plain else parity_bilinear
   stages, plan = prepare_backward(circuit, symbol_values, device)
-  # The diagonal stages un-apply in place: work on contiguous copies.
-  a, lm = [tuple(torch.clone(t, memory_format=torch.contiguous_format)
-                 for t in pair) for pair in (psi, lam)]
+  # The diagonal stages un-apply in place: copies of what must survive.
+  a, lm = [tuple(t if mine and t.is_contiguous() else
+                 torch.clone(t, memory_format=torch.contiguous_format)
+                 for t in pair) for pair, mine in zip((psi, lam), overwrite)]
   reductions = []  # [Q, 2, 2, 2] transitions or [K] bilinears, stage order
   for stage in stages:
     if stage[0] == "bwd1q":

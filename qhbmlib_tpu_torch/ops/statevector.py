@@ -14,9 +14,14 @@ as in the reference (`statevector.py:1203-1210`).  State-sized products use
 torch matmuls; the caller pins float32 precision on the card
 (`torch.backends.cuda.matmul.allow_tf32 = False`).
 
-Pauli tiers: only the tiers the TFIM target needs are ported -- diagonal
-(I/Z) terms, minor-only terms and terms inside one row block.  Spanning and
-mixed terms raise NotImplementedError.
+Pauli tiers, as in the reference (`expectation_terms` :1454-1517,
+`apply_pauli_sum` :526-584): diagonal (I/Z) terms in one parity
+contraction, minor-only terms in one [C, C] product, terms inside one row
+block in one block operator, terms spanning row blocks on <= 3 qubits in
+kron bins (`_bin_by_support`, `major_transition`, `apply_dense`), terms
+mixing row and column qubits on <= 3 row qubits in column-resolved bins
+(expectations; the apply takes them term by term), and the rest term by
+term (`apply_pauli_string`).  Every tier takes leading batch axes.
 """
 
 from __future__ import annotations
@@ -319,29 +324,44 @@ def parity_signs(masks: Sequence[int], size: int, device=None) -> torch.Tensor:
                        str(device_lib.resolve(device)))
 
 
+def _rows_matmul(s: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+  """s [M, N] times every [N, C] matrix of x [..., N, C] as ONE 2-D matmul
+  over [N, (...)*C] (a batched matmul would expand s over the batch)."""
+  lead, (n, c) = x.shape[:-2], x.shape[-2:]
+  flat = x.reshape(-1, n, c).transpose(0, 1).reshape(n, -1)
+  out = torch.matmul(s, flat).reshape(s.shape[0], -1, c).transpose(0, 1)
+  return out.reshape(lead + (s.shape[0], c))
+
+
 def parity_outer_sum(weights: torch.Tensor, row_masks, col_masks,
                      shape_rc) -> torch.Tensor:
   """sum_k w_k * s(row & rm_k) (x) s(col & cm_k) as one matmul.
 
   `weights` is [..., K] (real or complex); returns [..., R, C] in the
-  weights' dtype, summed in it.  The reference chunks the factors for
-  memory at 28 qubits; K = 116 factors of a 20-qubit segment fit in one
-  [R, K] x [K, C] product.
+  weights' dtype, summed in it.  The weights scale the [K, C] column signs
+  (each product is +-w_k, exact), then one [R, K] x [K, (...)*C] product:
+  no [..., K, R] temporary, which grows with K (406 factors of a 28-qubit
+  KOBE-2 observable) where the reference chunks the factors.
   """
   r, c = shape_rc
   dev = weights.device
-  s_r = parity_signs(row_masks, r, dev).to(weights.dtype)
-  s_c = parity_signs(col_masks, c, dev).to(weights.dtype)
-  return torch.matmul((weights[..., :, None] * s_r).transpose(-1, -2), s_c)
+  s_r = parity_signs(row_masks, r, dev).T
+  s_c = parity_signs(col_masks, c, dev)
+  real = weights.real if weights.is_complex() else weights
+  w_c = weights[..., :, None] * s_c.to(real.dtype)  # [..., K, C]
+  if not weights.is_complex():
+    return _rows_matmul(s_r.to(weights.dtype), w_c)
+  return torch.complex(_rows_matmul(s_r.to(real.dtype), w_c.real),
+                       _rows_matmul(s_r.to(real.dtype), w_c.imag))
 
 
 def parity_bilinear(row_masks, col_masks, p: torch.Tensor) -> torch.Tensor:
-  """[..., K] vector of s_r_k^T P s_c_k for P [..., R, C]."""
+  """[..., K] vector of s_r_k^T P s_c_k for P [..., R, C]: the row-signed
+  sums S_r P [..., K, C], then each factor's column signs."""
   r, c = p.shape[-2:]
   s_r = parity_signs(row_masks, r, p.device)
   s_c = parity_signs(col_masks, c, p.device)
-  w = torch.matmul(p, s_c.T)  # [..., R, K]
-  return torch.einsum("kr,...rk->...k", s_r, w)
+  return torch.sum(_rows_matmul(s_r, p) * s_c, dim=-1)
 
 
 def diag_segment_weights(gates, angles, nr: int, m: int):
@@ -426,6 +446,77 @@ def apply_row_block(mat_k: torch.Tensor, start: int, k: int,
 def apply_minor_mat(state: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
   """state @ mat^T against a [C, C] (or batched [..., C, C]) operator."""
   return torch.matmul(state, mat.transpose(-1, -2))
+
+
+def _embed_minor_mat(mat_k: torch.Tensor, positions: Tuple[int, ...],
+                     m: int) -> torch.Tensor:
+  """Embeds a k-qubit matrix [..., 2^k, 2^k] (axes in `positions` order,
+  most significant first) into the [..., C, C] minor operator."""
+  k = len(positions)
+  if k == m and tuple(positions) == tuple(range(m)):
+    return mat_k
+  d, e = 2**k, 2**(m - k)
+  eye = torch.eye(e, dtype=mat_k.dtype, device=mat_k.device)
+  big = (mat_k[..., :, None, :, None] * eye.reshape(1, e, 1, e)).reshape(
+      mat_k.shape[:-2] + (d * e, d * e))
+  perm = _index(tuple(int(x) for x in _embed_perm(tuple(positions), m)),
+                str(mat_k.device))
+  return big[..., perm, :][..., :, perm]
+
+
+def apply_dense(mat: torch.Tensor, qubits: Tuple[int, ...],
+                state: torch.Tensor) -> torch.Tensor:
+  """A dense operator on 1-3 major qubits, on minor qubits only, or on one
+  major and one minor qubit, applied to [..., R, C] states (reference
+  `apply_dense`, statevector.py:236-307).  `mat` is [2^k, 2^k] or batched
+  [..., 2^k, 2^k] against the states' batch, its axes in the order of
+  `qubits` (qubits[0] most significant); 3 major qubits come sorted."""
+  shape = state.shape
+  lead = shape[:-2]
+  c = int(shape[-1])
+  m = c.bit_length() - 1
+  nr = num_qubits_of(state) - m
+  majors = [q for q in qubits if q < nr]
+  minors = [q for q in qubits if q >= nr]
+  if not majors:
+    return apply_minor_mat(state, _embed_minor_mat(
+        mat, tuple(q - nr for q in qubits), m))
+  mt = mat.reshape(mat.shape[:-2] + (2,) * (2 * len(qubits)))
+  if not minors:
+    if len(qubits) == 1:
+      view = state.reshape(lead + (2**qubits[0], 2, -1))
+      out = torch.einsum("...ij,...ajb->...aib", mat, view)
+    elif len(qubits) == 2:
+      s0, s1 = sorted(qubits)
+      view = state.reshape(lead + (2**s0, 2, 2**(s1 - s0 - 1), 2, -1))
+      prog = ("...XYxy,...axbyd->...aXbYd" if qubits[0] == s0 else
+              "...XYxy,...aybxd->...aYbXd")
+      out = torch.einsum(prog, mt, view)
+    else:
+      q0, q1, q2 = qubits
+      if not q0 < q1 < q2:
+        raise ValueError(f"apply_dense takes 3 major qubits sorted: {qubits}")
+      view = state.reshape(lead + (2**q0, 2, 2**(q1 - q0 - 1), 2,
+                                   2**(q2 - q1 - 1), 2, -1))
+      out = torch.einsum("...XYZxyz,...axbydze->...aXbYdZe", mt, view)
+    return out.reshape(shape)
+  if len(majors) != 1 or len(minors) != 1:
+    raise NotImplementedError(f"apply_dense on qubits {qubits}: a mixed "
+                              "operator takes one major and one minor qubit")
+  (maj,), (mnr,) = majors, minors
+  view = state.reshape(lead + (2**maj, 2, -1, c))
+  if qubits[0] != maj:  # axes (maj_out, mnr_out, maj_in, mnr_in)
+    mt = mt.transpose(-4, -3).transpose(-2, -1)
+  outs = []
+  for i in (0, 1):
+    acc = None
+    for j in (0, 1):
+      emb = _embed_minor_mat(mt[..., i, :, j, :], (mnr - nr,), m)
+      contrib = torch.einsum("...cd,...abd->...abc", emb,
+                             view.select(-3, j))
+      acc = contrib if acc is None else acc + contrib
+    outs.append(acc)
+  return torch.stack(outs, dim=-3).reshape(shape)
 
 
 def apply_majors_and_minor(state: torch.Tensor, major_by_qubit,
@@ -560,7 +651,7 @@ def partial_trace_1q(g_block: torch.Tensor, k: int,
 
 
 # ---------------------------------------------------------------------------
-# Pauli sums: expectations and applies (diag / minor-only / row-block tiers)
+# Pauli sums: expectations and applies, tiered as the reference
 # ---------------------------------------------------------------------------
 
 def _is_diag_codes(codes) -> bool:
@@ -590,21 +681,97 @@ def _minor_pauli_np(minor_factors, m: int) -> np.ndarray:
   return np.ascontiguousarray(big[perm][:, perm]).astype(np.complex64)
 
 
-def _embed_block_pauli_np(major_factors, start: int, k: int) -> np.ndarray:
-  """Static [2^k, 2^k] kron of per-qubit Pauli factors over the row block
-  [start, start+k), identity on untouched qubits."""
-  by_qubit = dict(major_factors)
+def _major_kron_np(bin_qubits, factor_by_qubit) -> np.ndarray:
+  """Static [2^k, 2^k] kron of per-qubit Pauli factors over the (sorted)
+  major qubits of a bin; identity on bin qubits the term does not touch."""
   mat = None
-  for q in range(start, start + k):
-    f = paulis.PAULI_MATS[by_qubit.get(q, paulis.I)]
+  for q in bin_qubits:
+    f = paulis.PAULI_MATS[factor_by_qubit.get(q, paulis.I)]
     mat = f if mat is None else np.kron(mat, f)
   return mat.astype(np.complex64)
 
 
+def _embed_block_pauli_np(major_factors, start: int, k: int) -> np.ndarray:
+  """Static [2^k, 2^k] kron of per-qubit Pauli factors over the row block
+  [start, start+k), identity on untouched qubits."""
+  return _major_kron_np(range(start, start + k), dict(major_factors))
+
+
+def _interleave_kron_np(p_np: np.ndarray, k: int) -> np.ndarray:
+  """[2^k, 2^k] kron matrix -> (2,)*2k tensor with per-qubit (conj, value)
+  index pairs interleaved, matching the transition tensor's axis order."""
+  t = p_np.reshape((2,) * (2 * k))
+  perm = []
+  for i in range(k):
+    perm += [i, k + i]
+  return np.ascontiguousarray(np.transpose(t, perm))
+
+
+def _bin_by_support(items, max_k: int = 3):
+  """Greedy first-fit binning of (payload, support_tuple) items into bins
+  whose union support stays within `max_k` qubits, in the reference's
+  order; one state pass then serves every term of a bin.  Returns
+  [(sorted_support_tuple, [payload])]."""
+  bins = []
+  for payload, sup in items:
+    s = set(sup)
+    for b in bins:
+      if len(b[0] | s) <= max_k:
+        b[0] |= s
+        b[1].append(payload)
+        break
+    else:
+      bins.append([set(s), [payload]])
+  return [(tuple(sorted(b[0])), b[1]) for b in bins]
+
+
+# Joint transition tensors over k major qubits (the reference's einsum
+# programs with leading batch axes): each qubit's conj-side index directly
+# precedes its value-side index.
+_TRANS_PURE = {
+    1: "...air,...axr->...ix",
+    2: "...aibjr,...axbyr->...ixjy",
+    3: "...aibjekr,...axbyezr->...ixjykz",
+}
+_TRANS_FULL = {
+    1: "...aibC,...axbD->...ixCD",
+    2: "...aibjeC,...axbyeD->...ixjyCD",
+    3: "...aibjekfC,...axbyezfD->...ixjykzCD",
+}
+
+
+def _major_view(state: torch.Tensor, bin_qubits, keep_cols: bool):
+  """[..., R, C] reshaped to expose each bin qubit as its own size-2 axis
+  (the columns kept as the last axis with `keep_cols`)."""
+  c = state.shape[-1]
+  shape = []
+  prev = -1
+  for q in bin_qubits:
+    shape += [2**(q - prev - 1), 2]
+    prev = q
+  tail = (-1, c) if keep_cols else (-1,)
+  return state.reshape(state.shape[:-2] + tuple(shape) + tail)
+
+
+def major_transition(state: torch.Tensor, bin_qubits,
+                     keep_cols: bool = False) -> torch.Tensor:
+  """Joint transition tensor over k <= 3 major qubits in one state pass:
+  G[..., i1, x1, ...] = sum_rest conj(psi)[..i..] psi[..x..]; with
+  `keep_cols` the column axes stay separate (G[..., C, D]) so minor
+  factors can contract afterwards."""
+  view = _major_view(state, bin_qubits, keep_cols)
+  prog = (_TRANS_FULL if keep_cols else _TRANS_PURE)[len(bin_qubits)]
+  return torch.einsum(prog, view.conj(), view)
+
+
+@functools.lru_cache(maxsize=256)
 def _tier_terms(rows, nr: int):
-  """(diag, minor_only, {block: [terms]}) term indices; raises for the tiers
-  the port has not taken over yet."""
-  diag, minor_only = [], []
+  """Static split of a PauliSum's terms (cached per (rows, nr)): (diag,
+  minor_only, ((block, terms), ...) for the row blocks, spanning, mixed,
+  fallback), with spanning and mixed [(t, major qubits)] of <= 3 major
+  qubits and fallback the terms on more major qubits than one block or
+  bin holds, as in the reference's `expectation_terms`."""
+  diag, minor_only, spanning, mixed, fallback = [], [], [], [], []
   blocks = _row_blocks(nr)
   block_terms = {b: [] for b in blocks}
   for t, codes in enumerate(rows):
@@ -612,17 +779,20 @@ def _tier_terms(rows, nr: int):
       diag.append(t)
       continue
     majors, minors = _term_factors(codes, nr)
+    mq = tuple(q for q, _ in majors)
     if not majors:
       minor_only.append(t)
-      continue
-    mq = [q for q, _ in majors]
-    home = [b for b in blocks if b[0] <= mq[0] and mq[-1] < b[0] + b[1]]
-    if minors or not home:
-      raise NotImplementedError(
-          f"Pauli term {codes} spans row blocks or mixes row and column "
-          "qubits; that tier is not ported yet")
-    block_terms[home[0]].append(t)
-  return diag, minor_only, block_terms
+    elif minors:
+      (mixed if len(mq) <= 3 else fallback).append((t, mq))
+    else:
+      home = [b for b in blocks if b[0] <= mq[0] and mq[-1] < b[0] + b[1]]
+      if home:
+        block_terms[home[0]].append(t)
+      else:
+        (spanning if len(mq) <= 3 else fallback).append((t, mq))
+  return (tuple(diag), tuple(minor_only),
+          tuple((b, tuple(ts)) for b, ts in block_terms.items() if ts),
+          tuple(spanning), tuple(mixed), tuple(t for t, _ in fallback))
 
 
 @functools.lru_cache(maxsize=256)
@@ -634,16 +804,27 @@ def _index(idx: Tuple[int, ...], device: str) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=64)
-def _pauli_stack(rows, terms: Tuple[int, ...], nr: int, m: int, block,
-                 device: str) -> torch.Tensor:
-  """[len(terms), N, N] complex64 static Pauli matrices of minor-only terms
-  (block None, N = C) or of terms inside row block `block` (N = 2^k), on
-  `device`; cached, so each crosses to the device once."""
-  if block is None:
-    mats = [_minor_pauli_np(_term_factors(rows[t], nr)[1], m) for t in terms]
-  else:
-    mats = [_embed_block_pauli_np(_term_factors(rows[t], nr)[0], *block)
-            for t in terms]
+def _pauli_stack(rows, terms: Tuple[int, ...], nr: int, m: int, kind: str,
+                 arg, device: str) -> torch.Tensor:
+  """Static complex64 Pauli matrices of `terms`, one a term, on `device`;
+  cached, so each crosses to the device once.  `kind`:
+    "minor"  [T, C, C]     minor-only strings (or a mixed term's minor part);
+    "block"  [T, N, N]     strings inside row block arg = (start, k);
+    "kron"   [T, N, N]     major factors over bin arg (N = 2^len(arg));
+    "trans"  [T, 4^k]      "kron" with (conj, value) axes interleaved, to
+                           contract against `major_transition`."""
+  mats = []
+  for t in terms:
+    majors, minors = _term_factors(rows[t], nr)
+    if kind == "minor":
+      mats.append(_minor_pauli_np(minors, m))
+    elif kind == "block":
+      mats.append(_embed_block_pauli_np(majors, *arg))
+    elif kind == "kron":
+      mats.append(_major_kron_np(arg, dict(majors)))
+    else:
+      mats.append(_interleave_kron_np(_major_kron_np(arg, dict(majors)),
+                                      len(arg)).reshape(-1))
   return torch.as_tensor(np.stack(mats)).to(device)
 
 
@@ -651,15 +832,21 @@ def expectation_terms(state: torch.Tensor,
                       op: paulis.PauliSum) -> torch.Tensor:
   """Per-term real expectations <psi|P_t|psi>, shape [..., num_terms].
 
-  Coefficients are NOT applied (the caller dots with `op.coeffs`)."""
+  Coefficients are NOT applied (the caller dots with `op.coeffs`).  Tiers:
+  all diagonal terms in one parity bilinear of |psi|^2; minor-only terms
+  from one [C, C] cross gram; terms inside a row block from that block's
+  transition; spanning and mixed terms from one joint transition a bin of
+  <= 3 major qubits (mixed: column-resolved, then each term's [C, C] minor
+  Pauli); the rest term by term."""
   if op.num_terms == 0:  # e.g. an empty concat_ops; torch.cat([]) raises
     return torch.zeros(state.shape[:-2] + (0,), dtype=torch.float32,
                        device=state.device)
   rows = op.code_rows()
   m = int(state.shape[-1]).bit_length() - 1
   nr = op.num_qubits - m
-  diag, minor_only, block_terms = _tier_terms(rows, nr)
+  diag, minor_only, blocks, spanning, mixed, fallback = _tier_terms(rows, nr)
   dev = str(state.device)
+  lead = state.shape[:-2]
   parts = []  # (term indices, values [..., len(indices)])
   if diag:
     masks = [pauli_z_masks(rows[t], nr, m) for t in diag]
@@ -667,15 +854,32 @@ def expectation_terms(state: torch.Tensor,
     parts.append((diag, parity_bilinear([rm for rm, _ in masks],
                                         [cm for _, cm in masks], prob)))
   if minor_only:
-    stack = _pauli_stack(rows, tuple(minor_only), nr, m, None, dev)
+    stack = _pauli_stack(rows, minor_only, nr, m, "minor", None, dev)
     parts.append((minor_only, torch.einsum(
         "tij,...ij->...t", stack, cross_gram(state, state)).real))
-  for (start, k), ts in block_terms.items():
-    if ts:
-      stack = _pauli_stack(rows, tuple(ts), nr, m, (start, k), dev)
-      parts.append((ts, torch.einsum(
-          "tij,...ij->...t", stack,
-          block_transition(state, state, start, k)).real))
+  for (start, k), ts in blocks:
+    stack = _pauli_stack(rows, ts, nr, m, "block", (start, k), dev)
+    parts.append((ts, torch.einsum(
+        "tij,...ij->...t", stack,
+        block_transition(state, state, start, k)).real))
+  for bin_qubits, ts in _bin_by_support(spanning):
+    ts = tuple(ts)
+    g = major_transition(state, bin_qubits).reshape(lead + (-1,))
+    stack = _pauli_stack(rows, ts, nr, m, "trans", bin_qubits, dev)
+    parts.append((ts, torch.einsum("...x,tx->...t", g, stack).real))
+  for bin_qubits, ts in _bin_by_support(mixed):
+    ts = tuple(ts)
+    g = major_transition(state, bin_qubits, keep_cols=True)
+    g = g.reshape(lead + (4**len(bin_qubits),) + g.shape[-2:])
+    pmaj = _pauli_stack(rows, ts, nr, m, "trans", bin_qubits, dev)
+    pmin = _pauli_stack(rows, ts, nr, m, "minor", None, dev)
+    gm = torch.einsum("...xcd,tcd->...tx", g, pmin)
+    parts.append((ts, torch.einsum("...tx,tx->...t", gm, pmaj).real))
+  if fallback:
+    conj = state.conj()
+    parts.append((fallback, torch.stack([
+        torch.sum(conj * apply_pauli_string(state, rows[t]),
+                  dim=(-2, -1)).real for t in fallback], dim=-1)))
   vals = torch.cat([v for _, v in parts], dim=-1)
   return vals[..., _index(tuple(np.argsort([t for ts, _ in parts
                                             for t in ts])), dev)]
@@ -685,36 +889,49 @@ def apply_pauli_sum(state: torch.Tensor, op: paulis.PauliSum,
                     term_weights: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
   """(sum_t w_t * coeffs[t] * P_t)|psi>; `term_weights` is [..., T] and
-  broadcasts against the state's batch dimensions."""
+  broadcasts against the state's batch dimensions.  Tiers: diagonal terms
+  in one parity-weighted multiply, minor-only terms in one [C, C] product,
+  one operator a row block, one `apply_dense` a kron bin of spanning terms,
+  and the mixed and > 3-major terms term by term, as the reference."""
   rows = op.code_rows()
   n = op.num_qubits
   m = int(state.shape[-1]).bit_length() - 1
   nr = n - m
-  diag, minor_only, block_terms = _tier_terms(rows, nr)
+  diag, minor_only, blocks, spanning, mixed, fallback = _tier_terms(rows, nr)
+  dev = str(state.device)
   w = op.coeffs.to(state.device, COMPLEX_DTYPE)
   if term_weights is not None:
     w = w * term_weights.to(COMPLEX_DTYPE)
 
-  out = torch.zeros_like(state)
-  if diag:
-    masks = [pauli_z_masks(rows[t], nr, m) for t in diag]
-    d = parity_outer_sum(w[..., _index(tuple(diag), str(state.device))],
-                         [rm for rm, _ in masks],
-                         [cm for _, cm in masks], state.shape[-2:])
-    out = out + d * state
+  def weighted_sum(ts, kind, arg):
+    stack = _pauli_stack(rows, ts, nr, m, kind, arg, dev)
+    return torch.einsum("...t,tij->...ij", w[..., _index(ts, dev)], stack)
 
-  def weighted_sum(ts, block):
-    stack = _pauli_stack(rows, tuple(ts), nr, m, block, str(state.device))
-    return torch.einsum("...t,tij->...ij",
-                        w[..., _index(tuple(ts), str(state.device))], stack)
+  def parts():  # each made only when the sum takes it: one alive at once
+    if diag:
+      masks = [pauli_z_masks(rows[t], nr, m) for t in diag]
+      yield parity_outer_sum(w[..., _index(diag, dev)],
+                             [rm for rm, _ in masks],
+                             [cm for _, cm in masks], state.shape[-2:]) * state
+    if minor_only:
+      yield apply_minor_mat(state, weighted_sum(minor_only, "minor", None))
+    for (start, k), ts in blocks:
+      yield apply_row_block(weighted_sum(ts, "block", (start, k)), start, k,
+                            state)
+    for bin_qubits, ts in _bin_by_support(spanning):
+      yield apply_dense(weighted_sum(tuple(ts), "kron", bin_qubits),
+                        bin_qubits, state)
+    for t in sorted([t for t, _ in mixed] + list(fallback)):
+      yield w[..., t, None, None] * apply_pauli_string(state, rows[t])
 
-  if minor_only:
-    out = out + apply_minor_mat(state, weighted_sum(minor_only, None))
-  for (start, k), ts in block_terms.items():
-    if ts:
-      out = out + apply_row_block(weighted_sum(ts, (start, k)), start, k,
-                                  state)
-  return out
+  out = None
+  for part in parts():  # every part is a fresh tensor: sum in place
+    if out is None:
+      out = part
+    else:
+      out += part
+    del part
+  return torch.zeros_like(state) if out is None else out
 
 
 def apply_pauli_string(state: torch.Tensor, codes: Sequence[int]

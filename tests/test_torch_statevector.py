@@ -156,18 +156,6 @@ def test_apply_pauli_sum_tfim(n):
                                           term_weights=jnp.asarray(w[i])))
 
 
-def test_untaken_pauli_tiers_raise():
-  """Terms spanning row blocks (or mixing row and column qubits) wait for a
-  later port; they must raise rather than return a wrong value."""
-  op = tp.pauli_sum_from_strings(15, [(1.0, {0: "X", 14: "X"})],
-                                 device="cpu")
-  psi = torch.tensor(_state(np.random.RandomState(0), 15))
-  with pytest.raises(NotImplementedError):
-    tsv.expectation_terms(psi, op)
-  with pytest.raises(NotImplementedError):
-    tsv.apply_pauli_sum(psi, op)
-
-
 @pytest.mark.parametrize("n", NS)
 def test_basis_state(n):
   bits = np.random.RandomState(n + 9).randint(0, 2, n).astype(np.int8)

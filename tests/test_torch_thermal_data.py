@@ -339,7 +339,7 @@ def test_r2_rung_matches_jax(smoke, qubits):
 
 
 @pytest.mark.parametrize("name", ["r1_tfim2_vqt", "r3_kobe16_vqt_shift",
-                                  "r4_tfim24_sharded_vqt", "r5_gwg28_qmhl"])
+                                  "r4_tfim24_sharded_vqt"])
 def test_other_rungs_name_what_they_wait_for(name):
   assert name in jladder.RUNGS and name in tladder.RUNGS
   with pytest.raises(NotImplementedError, match="queue 1 item"):
