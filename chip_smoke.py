@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of `qhbmlib_tpu_torch/csrc/` with nvcc (one
-process per source, in parallel) and holds each of the eight against its
+process per source, in parallel) and holds each of the ten against its
 plain PyTorch version: `axis_apply` (K4) on the three passes of a 20-qubit
 1q segment, at the 20q train step's own shape (B = 64, the lone row block
 (7,6)), on the minor operator alone and on the lone row blocks (7,1),
@@ -20,7 +20,11 @@ fused diagonal stage (`parity_bilinear` given the stage's cos/sin planes:
 the bilinears and the un-apply of a and lambda in one launch) at the r2
 rung's shapes (8q B=256, 11q B=2048, also timed as CUDA-graph replays)
 and the VQT steps' (20q B=64, 24q B=8); `stream_scale` (K6) on the
-24-qubit plane at each tile size.  Each kernel is timed beside its plain
+24-qubit plane at each tile size; `flip_apply` and `flip_bilinear` (the
+engine's flip class: CXP, XXP, YYP, PROTs with X or Y factors, which no
+Pallas kernel takes) on XX across row blocks and across row and column,
+CXP, a three-qubit PROT spanning row and column and (24q) YY on column
+bits, at 20q B=64 and 24q B=8.  Each kernel is timed beside its plain
 version, the one PyTorch call that computes the same function where there
 is one (`library_ms`),
 and its bound: the larger of its bytes over 3.35 TB/s and its float32
@@ -49,6 +53,11 @@ three timed steps, the gradient against the plain versions), three
 single-state value-and-gradient calls at 20q/4L, the 20q workload with the
 Heisenberg chain as its target ("vqt heis 20q": terms that span row blocks
 and that mix row and column; one step's gradient against the plain
+versions, <H> of one sampled bitstring against the f64 oracle), "train
+qaia 20q" (the 20q workload with QAIA on the TFIM's shards, 4 layers: a
+warm-up and three steps, the gradient against the plain versions), "vqt
+qaia heis 20q" (QAIA on the Heisenberg chain's shards, 2 layers: its XX
+and YY PROTs run the flip kernels; one step's gradient against the plain
 versions, <H> of one sampled bitstring against the f64 oracle), and last
 the JAX ladder's r5 rung at its own 28 qubits ("train r5 28q": KOBE-2
 sampled by 8 Gibbs-With-Gradients chains threaded through the steps, the
@@ -57,11 +66,13 @@ the batch-chunk plan, the gradient against the plain versions, and
 <K_model> of the first data bitstring against a float64 oracle of the
 28q circuit run on the host in a thread from the start).  Before r5 it
 times r5's kernels at their 28q shapes and measures the batch-chunking
-rule's state count at 24q.  On every train path
+rule's state count at 24q, and before the main paths it checks that a
+24q expectation agrees within 1e-6 with the caller's TF32 flag on and off
+(the engine pins fp32).  On every train path
 `diag_rotate` must launch as often as `parity_bilinear`: once a diagonal
 segment in the forward and never in the sweep.  It fails if the VQT
-gate's gradient error reaches 1e-2, the QMHL, r2, r5 and Heisenberg
-steps' 1e-4, or the oracle checks are more than 1e-4 off.  Before the last line it prints a
+gate's gradient error reaches 1e-2, the QMHL, r2, r5, Heisenberg and
+QAIA steps' 1e-4, or the oracle checks are more than 1e-4 off.  Before the last line it prints a
 JSON line {"kernels": [...]} with each kernel's launches on the main
 paths, its error against the plain version, its times and its bound;
 the last line is {"ok": true, "device": {...}}.  It exits non-zero
@@ -492,6 +503,165 @@ def check_diag(device, n, b, rms, cms, dgen):
   return rot, stage
 
 
+def flip_gates(n):
+  """The flip-class gates the kernel phase holds at n qubits (qubits
+  sorted): XX on (6, 7) (across the row blocks (0,7) / (7,6) at 20q) and
+  on (12, 13) (row and column at 20q), CXP on (3, 15) (a row control, a
+  column target at 20q), a PROT X.Y.Z on (2, 14, 17) spanning row and
+  column, and at 24q YY on (19, 20) (both column bits)."""
+  from qhbmlib_tpu_torch.ops import circuit_ir as ir
+  gates = {"XX (6,7)": ir.Gate(ir.XXP, (6, 7)),
+           "XX (12,13)": ir.Gate(ir.XXP, (12, 13)),
+           "CXP (3,15)": ir.Gate(ir.CXP, (3, 15)),
+           "PROT X.Y.Z (2,14,17)": ir.Gate(ir.PROT, (2, 14, 17),
+                                           paulis=(1, 2, 3))}
+  if n >= 21:
+    gates["YY (19,20)"] = ir.Gate(ir.YYP, (19, 20))
+  return gates
+
+
+def flip_library(gate, angle, x_c):
+  """One torch.einsum of the gate's 2^k x 2^k matrix on the complex view
+  [B, ..., 2, ..., 2, ...] of x_c (the gate's qubits sorted)."""
+  from qhbmlib_tpu_torch.ops import statevector as sv
+  k = len(gate.qubits)
+  mat = sv.gate_matrix(gate.kind, angle, gate.paulis).to(x_c.device)
+  mat = mat.reshape((2,) * (2 * k))
+  shape, prev = [x_c.shape[0]], -1
+  for q in gate.qubits:
+    shape += [2**(q - prev - 1), 2]
+    prev = q
+  view = x_c.reshape(shape + [-1])
+  outs, ins, rest = "XYZ"[:k], "xyz"[:k], "pqr"[:k]
+  prog = (f"{outs}{ins},b{''.join(r + i for r, i in zip(rest, ins))}e->"
+          f"b{''.join(r + o for r, o in zip(rest, outs))}e")
+  return lambda: torch.einsum(prog, mat, view)
+
+
+def check_flip(device, n, b, label, gate, dgen):
+  """`flip_apply` (the gate's record on one batch) and `flip_bilinear`
+  (the un-apply of a and lambda and g = 2 Re sum conj(lam) dU a_before)
+  on B = b random states of n qubits against their plain versions, timed
+  beside them, the library einsum (`flip_library`, for flip_apply) and
+  their bounds.  Returns the two records."""
+  from qhbmlib_tpu_torch.ops import hopper_adjoint as ha
+  from qhbmlib_tpu_torch.ops import hopper_sv as hs
+  from qhbmlib_tpu_torch.ops import statevector as sv
+  r, c = sv.state_shape(n)
+  angle = 0.6180339887
+  rec = hs.flip_record(gate, angle, n)
+  inv = hs.flip_record(gate, -angle, n)
+  d_rec = hs.flip_record(gate, angle, n, deriv=True)
+  planes = [torch.randn((b, r, c), generator=dgen, device=device)
+            for _ in range(4)]
+  amps = planes[0].numel()
+  where = f"{label} {n}q B={b}"
+
+  one = [tuple(t.clone() for t in planes[2:])]
+  one_ref = [tuple(t.clone() for t in planes[2:])]
+  hs.flip_apply(one, rec)
+  hs.flip_apply_plain(one_ref, rec)
+  got, ref = torch.cat(one[0]), torch.cat(one_ref[0])
+  err = rel_err(got, ref)
+  check(f"flip_apply {where}", err, STATE_TOL)
+  library = flip_library(gate, angle, torch.complex(*planes[2:]))
+  check(f"flip_apply {where}: library einsum vs plain",
+        rel_err(torch.view_as_real(library()).reshape(-1),
+                torch.view_as_real(torch.complex(*one_ref[0])).reshape(-1)),
+        STATE_TOL)
+  apply = dict(err=err, max_abs_err=max_abs(got, ref),
+               ms=cuda_ms(lambda: hs.flip_apply(one, rec)),
+               plain_ms=cuda_ms(lambda: hs.flip_apply_plain(one, rec)),
+               library_ms=cuda_ms(library),
+               # Two complex products and their sum an output amplitude
+               # (~16 flops); the batch read and written once.
+               **bound(16 * amps, 16 * amps))
+  del one, one_ref, got, ref, library
+
+  four = [t.clone() for t in planes]
+  four_ref = [t.clone() for t in planes]
+  g = ha.flip_bilinear(*four, inv, d_rec)
+  g_ref = ha.flip_bilinear_plain(*four_ref, inv, d_rec)
+  err = rel_err(g, g_ref)
+  check(f"flip_bilinear {where}: g", err, REDUCTION_TOL)
+  state_err = rel_err(torch.cat(four), torch.cat(four_ref))
+  check(f"flip_bilinear {where}: a and lambda un-applied", state_err,
+        STATE_TOL)
+  bil = dict(err=err, state_err=state_err, max_abs_err=max_abs(g, g_ref),
+             g=float(g), g_plain=float(g_ref),
+             ms=cuda_ms(lambda: ha.flip_bilinear(*four, inv, d_rec)),
+             # The same bytes without the reduction: the un-apply of both
+             # batches alone.
+             parts_ms=cuda_ms(lambda: hs.flip_apply([four[2:], four[:2]],
+                                                    inv)),
+             plain_ms=cuda_ms(lambda: ha.flip_bilinear_plain(*four, inv,
+                                                             d_rec)),
+             # No single PyTorch call un-applies two states and reduces.
+             library_ms=None,
+             # Three record products an amplitude (~48 flops) and the
+             # bilinear (4); a and lambda read and written once.
+             **bound(52 * amps, 32 * amps))
+  del four, four_ref, planes
+  torch.cuda.empty_cache()
+  for name, rec_ in (("flip_apply", apply), ("flip_bilinear", bil)):
+    log(f"[kernels] {name} {where}: kernel {rec_['ms']:.4f} ms, plain "
+        f"{rec_['plain_ms']:.4f} ms, library {fmt_ms(rec_['library_ms'])}, "
+        f"bound {rec_['bound_ms']:.4f} ms ({rec_['bound_by']}; share "
+        f"{rec_['bound_ms'] / rec_['ms']:.1%})"
+        + (f", the un-apply of both batches alone (flip_apply) "
+           f"{rec_['parts_ms']:.4f} ms" if "parts_ms" in rec_ else "")
+        + f", max abs err {rec_['max_abs_err']:.3e}")
+  return apply, bil
+
+
+# The flip kernels' shapes: the "vqt qaia heis 20q" step's batch, and 24q
+# at the bench's headline batch.
+FLIP_SHAPES = ((N_QUBITS, 64), (N24, BATCH))
+
+
+def phase_flip(device):
+  """flip_apply and flip_bilinear against their plain versions on each
+  gate of `flip_gates` at FLIP_SHAPES (`check_flip`).  Returns the records
+  of the main path's own: XX on (6, 7) at 20q B=64."""
+  dgen = torch.Generator(device=device).manual_seed(SEED + 140)
+  main = None
+  for n, b in FLIP_SHAPES:
+    for label, gate in flip_gates(n).items():
+      recs = check_flip(device, n, b, label, gate, dgen)
+      if (n, b, label) == (N_QUBITS, 64, "XX (6,7)"):
+        main = recs
+  return main
+
+
+def phase_tf32_pin(device):
+  """One 24q/2L `adjoint.expectation` of the TFIM (segment by segment:
+  24q is outside K3's range, so L3's Pauli tiers and the diagonal
+  segments' parity sums run as torch matmuls) with the caller's TF32 flag
+  on and off: the engine pins fp32 inside, so the two agree within 1e-6
+  and the caller's flag comes back as it was."""
+  from qhbmlib_tpu_torch.models import circuit_utils
+  from qhbmlib_tpu_torch.ops import adjoint
+  from qhbmlib_tpu_torch.ops import paulis
+  pqc = circuit_utils.hardware_efficient_ansatz(N24, 2)
+  gen = torch.Generator().manual_seed(SEED + 150)
+  values = (torch.rand(pqc.num_symbols, generator=gen) * 2.0).to(device)
+  state = random_state(N24, device, SEED + 151)
+  op = paulis.tfim_1d(N24, device=device)
+  got = {}
+  for flag in (True, False):
+    torch.backends.cuda.matmul.allow_tf32 = flag
+    with torch.no_grad():
+      got[flag] = float(adjoint.expectation(pqc, values, state, op))
+    if torch.backends.cuda.matmul.allow_tf32 is not flag:
+      raise AssertionError("the engine did not restore the caller's TF32 "
+                           "flag")
+  torch.backends.cuda.matmul.allow_tf32 = False
+  log(f"[tf32 pin] 24q/2L <H> with the caller's TF32 on {got[True]:.8f}, "
+      f"off {got[False]:.8f}")
+  check("24q expectation, caller's TF32 on vs off",
+        abs(got[True] - got[False]) / abs(got[False]), 1e-6)
+
+
 def check_axis_apply(label, shapes, planes, graph=False):
   """axis_apply against its plain version on the [P, N, Q] views `shapes`
   [((p, n, q), (op_re, op_im))] of the planes (re, im), one launch a view,
@@ -729,7 +899,8 @@ def kernel_wrappers():
           "axis2_apply": hs.axis2_apply,
           "circuit_forward": hs.circuit_forward,
           "adjoint_sweep": ha.adjoint_sweep,
-          "stream_scale": hbm_probe.stream_scale}
+          "stream_scale": hbm_probe.stream_scale,
+          "flip_apply": hs.flip_apply, "flip_bilinear": ha.flip_bilinear}
 
 
 def reset_launches() -> None:
@@ -1757,35 +1928,29 @@ def phase_kernels_28q(device):
   check_diag(device, n, batch, rms, cms, dgen)
 
 
-def phase_vqt_heis20(device):
-  """"vqt heis 20q": the bench's 20q workload (`bench.WORKLOADS["20q"]`)
-  with the Heisenberg chain (`ladder.heisenberg`) as its target, whose
-  XX / YY on (6, 7) span the row blocks (0,7), (7,6) and on (12, 13) mix
-  row and column: a warm-up and one step with every count reset just
-  before and read just after, that step's gradient against the plain
-  versions within GRAD_TOL (`bench.precision_gate`), and <H> of one
-  sampled bitstring against the f64 oracle within ORACLE_TOL.  Returns
-  the launches."""
+def vqt_oracle_path(device, path, cfg, build, required):
+  """A warm-up and one step of the VQT workload `build` makes (`cfg`) with
+  every count reset just before and read just after, that step's gradient
+  against the plain versions within GRAD_TOL (`bench.precision_gate`), and
+  <H> of one sampled bitstring against the f64 oracle within ORACLE_TOL.
+  Returns the launches."""
   import numpy as np
   from qhbmlib_tpu_torch import bench
-  from qhbmlib_tpu_torch.benchmarks import ladder
   from qhbmlib_tpu_torch.ops import adjoint
   from qhbmlib_tpu_torch.ops import hopper_sv
   from qhbmlib_tpu_torch.ops import native_oracle
-  cfg = bench.WORKLOADS["20q"]
-  target = ladder.heisenberg(cfg["n"], device=device)
   traj = {}
   reset_launches()
-  bench.run_workload("vqt heis 20q", cfg, 1, device, traj,
-                     build=lambda cfg, dev: bench.build_train_step(
-                         cfg, dev, target=target))
+  sps = bench.run_workload(path, cfg, 1, device, traj, build=build)
   torch.cuda.synchronize()
-  launches = read_launches("vqt heis 20q", BENCH_PATHS["train 20q"],
-                           paired=True)
+  launches = read_launches(path, required, paired=True)
+  log(f"[{path}] {sps:.4f} steps/s (one step after the warm-up, host "
+      f"clock); launches per step (warm-up + 1 step): "
+      f"{ {k: v / 2 for k, v in launches.items() if v} }")
   gate = bench.precision_gate(traj)
-  check("vqt heis 20q gradient, kernels vs plain at 1 step",
+  check(f"{path} gradient, kernels vs plain at 1 step",
         gate["gate_grad_rel_err"], GRAD_TOL)
-  h = traj["model"]
+  h, target = traj["model"], traj["other"]
   circuit = h.q_inference.circuit
   bits = h.e_inference.sample(
       1, torch.Generator(device=device).manual_seed(SEED + 90))
@@ -1797,11 +1962,80 @@ def phase_vqt_heis20(device):
       circuit.pqc, hopper_sv.host_values(values).astype(np.float64),
       bits=bits.cpu().numpy()[0])
   want = native_oracle.expectation_f64(psi, target)
-  log(f"[vqt heis 20q] <H> of one sampled bitstring {got:.8f}, f64 oracle "
+  log(f"[{path}] <H> of one sampled bitstring {got:.8f}, f64 oracle "
       f"{want:.8f}")
-  check("vqt heis 20q <H> vs f64 oracle", abs(got - want) / abs(want),
+  check(f"{path} <H> vs f64 oracle", abs(got - want) / abs(want),
         ORACLE_TOL)
   return launches
+
+
+def phase_vqt_heis20(device):
+  """"vqt heis 20q": the bench's 20q workload (`bench.WORKLOADS["20q"]`)
+  with the Heisenberg chain (`ladder.heisenberg`) as its target, whose
+  XX / YY on (6, 7) span the row blocks (0,7), (7,6) and on (12, 13) mix
+  row and column (`vqt_oracle_path`).  Returns the launches."""
+  from qhbmlib_tpu_torch import bench
+  from qhbmlib_tpu_torch.benchmarks import ladder
+  cfg = bench.WORKLOADS["20q"]
+  target = ladder.heisenberg(cfg["n"], device=device)
+  return vqt_oracle_path(
+      device, "vqt heis 20q", cfg,
+      lambda cfg, dev: bench.build_train_step(cfg, dev, target=target),
+      BENCH_PATHS["train 20q"])
+
+
+# Kernels the QAIA paths must launch.  QAIA on the TFIM's shards: each
+# layer's 20 X-field PROTs fold into one 1q segment (K1's pass and the
+# (7,6) block's axis_apply; their transitions in the sweep), its ZZ and Z
+# PROTs into one diagonal segment.  QAIA on the Heisenberg chain's shards:
+# a layer's 19 XX and 19 YY PROTs are flip gates (one flip_apply each in
+# the forward, one flip_bilinear each in the sweep), its ZZ and Z PROTs one
+# diagonal segment; no 1q gate.
+TRAIN_QAIA = ["axis_apply", "axis2_apply", "diag_rotate", "qubit_transitions",
+              "parity_bilinear"]
+QAIA_HEIS = ["flip_apply", "flip_bilinear", "diag_rotate", "parity_bilinear"]
+
+
+def phase_train_qaia20(device):
+  """"train qaia 20q": the bench's 20q workload with QAIA on the TFIM's
+  shards, 4 layers (`bench.QAIA_WORKLOADS["qaia 20q"]`), a warm-up and
+  STEPS steps with every count reset just before and read just after,
+  steps/s; then the kernels' gradient against the plain versions at each
+  timed step, within GRAD_TOL.  Returns the launches."""
+  from qhbmlib_tpu_torch import bench
+  from qhbmlib_tpu_torch.ops import paulis
+  cfg = bench.QAIA_WORKLOADS["qaia 20q"]
+  traj = {}
+  reset_launches()
+  sps = bench.run_workload(
+      "qaia 20q", cfg, STEPS, device, traj,
+      build=lambda cfg, dev: bench.build_qaia_step(
+          cfg, dev, paulis.tfim_1d(cfg["n"], device=dev)))
+  torch.cuda.synchronize()
+  launches = read_launches("train qaia 20q", TRAIN_QAIA, paired=True)
+  per_step = {k: v / (STEPS + 1) for k, v in launches.items() if v}
+  log(f"[train qaia 20q] {sps:.4f} steps/s; launches per step (warm-up + "
+      f"{STEPS} steps): {per_step}")
+  gate = bench.precision_gate(traj)
+  check(f"train qaia 20q gradient, kernels vs plain at {STEPS} steps",
+        gate["gate_grad_rel_err"], GRAD_TOL)
+  return launches
+
+
+def phase_vqt_qaia_heis20(device):
+  """"vqt qaia heis 20q": the 20q workload with the Heisenberg chain as
+  target and QAIA on its XX, YY and ZZ shards, 2 layers
+  (`bench.QAIA_WORKLOADS["qaia heis 20q"]`): its XX and YY PROTs on
+  (6, 7) span the row blocks and on (12, 13) mix row and column, so
+  flip_apply and flip_bilinear run at 20q B=64 (`vqt_oracle_path`).
+  Returns the launches."""
+  from qhbmlib_tpu_torch import bench
+  from qhbmlib_tpu_torch.benchmarks import ladder
+  cfg = bench.QAIA_WORKLOADS["qaia heis 20q"]
+  target = ladder.heisenberg(cfg["n"], device=device)
+  return vqt_oracle_path(
+      device, "vqt qaia heis 20q", cfg,
+      lambda cfg, dev: bench.build_qaia_step(cfg, dev, target), QAIA_HEIS)
 
 
 SOURCES = {"stream_scale": "qhbmlib_tpu_torch/csrc/stream_kernels.cu"}
@@ -1814,6 +2048,10 @@ REPLACES = {
     "circuit_forward": "qhbmlib_tpu/ops/pallas_sv.py:667",
     "adjoint_sweep": "qhbmlib_tpu/ops/pallas_adjoint.py:480",
     "stream_scale": "benchmarks/hbm_probe.py:65",
+    "flip_apply": "qhbmlib_tpu/ops/statevector.py:604 apply_gate (XLA; no "
+                  "Pallas kernel)",
+    "flip_bilinear": "qhbmlib_tpu/ops/statevector.py:604 apply_gate (XLA; "
+                     "no Pallas kernel)",
 }
 
 
@@ -1884,6 +2122,7 @@ def main() -> int:
   phase_bilinear_steps(device)
   phase_diag(device)
   report["stream_scale"] = phase_k6(device)
+  report["flip_apply"], report["flip_bilinear"] = phase_flip(device)
   torch.cuda.empty_cache()
   phase_end_to_end(device)
   phase_small_reference(device)
@@ -1892,6 +2131,7 @@ def main() -> int:
   phase_single_small(device)
   phase_long_diag(device)
   phase_long_diag_batched(device)
+  phase_tf32_pin(device)
   # The main paths, each driven with every count at 0 just before it.
   _, paths = phase_bench(device)
   paths["train 16q"] = phase_train_16q(device)
@@ -1899,6 +2139,8 @@ def main() -> int:
     paths[f"train r2 {qubits}q"] = phase_train_r2(device, qubits)
   paths["single"] = phase_single_main(device)
   paths["vqt heis 20q"] = phase_vqt_heis20(device)
+  paths["train qaia 20q"] = phase_train_qaia20(device)
+  paths["vqt qaia heis 20q"] = phase_vqt_qaia_heis20(device)
   free_device_memory()
   phase_kernels_28q(device)
   phase_chunk_rule(device)

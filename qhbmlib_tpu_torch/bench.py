@@ -76,6 +76,16 @@ WORKLOADS = {
 QMHL_DATA = dict(data_layers=1, data_samples=32, data_max_unique=4)
 QMHL_WORKLOAD = {**WORKLOADS["24q"], **QMHL_DATA}
 INDEPENDENT_CACHE = _cuda.BUILD_DIR / "independent_anchor.json"
+# The 20q workload with QAIA (reference `models/circuit.py:226-276`) in the
+# ansatz's place, as the harness builds it (`baselines/train.py:207-209`,
+# its `circuit_init_*` RandomNormal(0, 0.1)): quantum terms the target's
+# shards (`pauli_shards`), classical terms the energy's Z shards.  With
+# the TFIM target at 4 layers its X-field PROTs fold into 1q segments; with
+# the Heisenberg chain at 2 layers its XX and YY PROTs are flip gates.
+QAIA_WORKLOADS = {
+    "qaia 20q": dict(WORKLOADS["20q"], target="tfim"),
+    "qaia heis 20q": dict(WORKLOADS["20q"], layers=2, target="heisenberg"),
+}
 
 
 def log(msg: str) -> None:
@@ -91,9 +101,10 @@ def flat_grads(h: qhbm.QHBM) -> torch.Tensor:
   return torch.cat([p.grad.reshape(-1) for p in h.parameters()])
 
 
-def _bench_model(cfg, device, exact: bool) -> qhbm.QHBM:
+def _bench_model(cfg, device, exact: bool, circuit=None) -> qhbm.QHBM:
   """The bench's model QHBM at cfg's shape: Bernoulli energy (seed 2), its
-  EBM (seed 11), the hardware-efficient ansatz (seed 3)."""
+  EBM (seed 11), the hardware-efficient ansatz (seed 3), or
+  `circuit(energy)` in its place."""
   n = cfg["n"]
   energy = models.BernoulliEnergy(
       list(range(n)), initializer=nn.RandomUniform(seed=2),
@@ -102,13 +113,17 @@ def _bench_model(cfg, device, exact: bool) -> qhbm.QHBM:
                                        initial_seed=11, exact=exact,
                                        max_unique_samples=cfg["max_unique"],
                                        device=device)
-  circuit = models.DirectQuantumCircuit(
-      models.hardware_efficient_ansatz(n, cfg["layers"]),
-      initializer=nn.RandomUniform(0, 2, seed=3), device=device)
-  return qhbm.QHBM(e_inf, qnn.AnalyticQuantumInference(circuit))
+  if circuit is None:
+    model_circuit = models.DirectQuantumCircuit(
+        models.hardware_efficient_ansatz(n, cfg["layers"]),
+        initializer=nn.RandomUniform(0, 2, seed=3), device=device)
+  else:
+    model_circuit = circuit(energy)
+  return qhbm.QHBM(e_inf, qnn.AnalyticQuantumInference(model_circuit))
 
 
-def build_train_step(cfg, device, exact: bool = False, target=None):
+def build_train_step(cfg, device, exact: bool = False, target=None,
+                     circuit=None):
   """The bench's VQT train step (bench.py:134-176) in the port, with
   seeded random weights (`_bench_model`).
 
@@ -116,10 +131,13 @@ def build_train_step(cfg, device, exact: bool = False, target=None):
   parameters and returns the loss and the flat gradient [theta, phi] from
   before the update, both on the device.  `exact` uses the full 2^n EBM
   support with expected counts (n <= 16) instead of sampling.  `target`
-  (a PauliSum on `device`) replaces the open-chain TFIM of bench.py."""
+  (a PauliSum on `device`) replaces the open-chain TFIM of bench.py;
+  `circuit` (energy -> QuantumCircuit on `device`, e.g. a QAIA on the
+  energy's operator shards, as `baselines/train.py:207-209` builds it)
+  replaces the hardware-efficient ansatz."""
   if target is None:
     target = paulis.tfim_1d(cfg["n"], device=device)
-  h = _bench_model(cfg, device, exact)
+  h = _bench_model(cfg, device, exact, circuit)
   loss_fn = vqt_loss.make_vqt(h, target)
   opt = torch.optim.Adam(h.parameters(), lr=1e-2)
 
@@ -132,6 +150,35 @@ def build_train_step(cfg, device, exact: bool = False, target=None):
     return loss.detach(), grads
 
   return h, target, train_step
+
+
+def pauli_shards(op: paulis.PauliSum):
+  """op's terms grouped by their one Pauli letter, X then Y then Z: a
+  TFIM's X-field and ZZ sums, a Heisenberg chain's XX, YY and ZZ sums."""
+  rows = op.code_rows()
+  shards, taken = [], 0
+  for code in (paulis.X, paulis.Y, paulis.Z):
+    idx = [t for t, row in enumerate(rows) if set(row) - {paulis.I} == {code}]
+    if idx:
+      pick = torch.tensor(idx)
+      shards.append(paulis.PauliSum(op.codes[pick],
+                                    op.coeffs[pick.to(op.coeffs.device)],
+                                    op.num_qubits))
+      taken += len(idx)
+  if taken != op.num_terms:
+    raise ValueError("pauli_shards takes terms of one Pauli letter each")
+  return shards
+
+
+def build_qaia_step(cfg, device, target: paulis.PauliSum):
+  """`build_train_step` with a QAIA of cfg["layers"] layers on `target`'s
+  shards (`pauli_shards`) and the energy's Z shards, weights
+  RandomNormal(0, 0.1, seed 3) (QAIA_WORKLOADS)."""
+  return build_train_step(cfg, device, target=target, circuit=(
+      lambda energy: models.QAIA(
+          pauli_shards(target), energy.operator_shards(cfg["n"]),
+          cfg["layers"], initializer=nn.RandomNormal(0.0, 0.1, seed=3),
+          device=device)))
 
 
 def build_qmhl_step(cfg, device, exact: bool = False):

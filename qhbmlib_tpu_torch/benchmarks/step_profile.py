@@ -8,7 +8,9 @@ and 16q/4L/500/64, whose lone row block (7,2) takes `axis_apply`'s N < 16
 route) it builds the train step (`bench.build_train_step`), and for the QMHL
 steps of QMHL_WORKLOADS ("qmhl 24q", `bench.build_qmhl_step`; "r2 8q"
 and "r2 11q", the JAX ladder's r2 rung, and "r5 28q", its r5 rung,
-`ladder.build_rung`), takes one
+`ladder.build_rung`) and for the QAIA steps of QAIA_WORKLOADS ("qaia 20q",
+"qaia heis 20q": `bench.build_qaia_step`, the TFIM or the Heisenberg
+chain), takes one
 warm-up step, then traces STEPS steps inside one `record_function` region
 that ends in a synchronize.  From the exported Chrome trace: the busy
 share, the union of the device intervals (kernels, copies, sets) inside
@@ -65,6 +67,8 @@ QMHL_WORKLOADS = {"qmhl 24q": bench.QMHL_WORKLOAD,
                   "r2 8q": dict(rung="r2_heis8_qmhl", qubits=8),
                   "r2 11q": dict(rung="r2_heis8_qmhl", qubits=11),
                   "r5 28q": dict(rung="r5_gwg28_qmhl", qubits=28)}
+# The profiled QAIA VQT steps (`bench.QAIA_WORKLOADS`).
+QAIA_WORKLOADS = bench.QAIA_WORKLOADS
 # The single-state call's host parts, in call order: (module, function).
 SINGLE_SPANS = (
     (hopper_sv, "host_values"), (hopper_sv, "forward_table"),
@@ -222,8 +226,8 @@ def profile_single(trace_dir: str, device="cuda", n: int = 20,
 
 def profile_workload(name: str, trace_dir: str) -> dict:
   """A warm-up step, then STEPS traced steps of the VQT workload `name` of
-  WORKLOADS or the QMHL workload of QMHL_WORKLOADS (a ladder rung where it
-  names one): the region's breakdown."""
+  WORKLOADS or QAIA_WORKLOADS or the QMHL workload of QMHL_WORKLOADS (a
+  ladder rung where it names one): the region's breakdown."""
   device = torch.device("cuda")
   cfg = QMHL_WORKLOADS.get(name, {})
   if "rung" in cfg:
@@ -231,6 +235,12 @@ def profile_workload(name: str, trace_dir: str) -> dict:
                                          device=device)
   elif name in QMHL_WORKLOADS:
     _, _, train_step = bench.build_qmhl_step(cfg, device)
+  elif name in QAIA_WORKLOADS:
+    cfg = QAIA_WORKLOADS[name]
+    target = (ladder.heisenberg(cfg["n"], device=device)
+              if cfg["target"] == "heisenberg" else
+              paulis.tfim_1d(cfg["n"], device=device))
+    _, _, train_step = bench.build_qaia_step(cfg, device, target)
   else:
     _, _, train_step = bench.build_train_step(WORKLOADS[name], device)
   train_step()  # warm-up: builds the kernels
@@ -263,7 +273,7 @@ def main(argv=None) -> None:
     sys.exit("step_profile: needs the CUDA card")
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
-  for name in [*WORKLOADS, *QMHL_WORKLOADS]:
+  for name in [*WORKLOADS, *QMHL_WORKLOADS, *QAIA_WORKLOADS]:
     if args.only is None or name in args.only:
       print(json.dumps(profile_workload(name, args.trace_dir)), flush=True)
       torch.cuda.empty_cache()

@@ -14,6 +14,11 @@
 //       -> qubit_transitions, diag_bilinear (qhbm_parity_bilinear: the
 //          diagonal stage's bilinears and its un-apply in one pass; K1 /
 //          K4's applies un-apply the 1q segments)
+// and, for the gates no Pallas kernel takes (CXP, XXP, YYP, PROTs with X
+// or Y factors on two or more qubits), which the reference applies one at
+// a time through XLA (qhbmlib_tpu/ops/statevector.py:604 apply_gate):
+//       -> flip_apply (the batched forward, an un-apply alone) and
+//          flip_bilinear (the batched sweep's stage: un-apply and gradient)
 // A 20-qubit state (8 MB as float32 re/im planes) sat whole in the TPU's
 // VMEM; on the H100 it cannot sit in one SM's 227 KB of shared memory, so
 // the batched engine makes each circuit segment one or two launches over the
@@ -663,6 +668,156 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial,
   }
   for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
   if (lane == 0) out[i] = s;
+}
+
+// ---------------------------------------------------------------------------
+// The flip class: out[x] = alpha[c(x)] s[x] + beta[c(x)] sigma(x) s[x ^ f]
+// ---------------------------------------------------------------------------
+//
+// On the flat amplitude index x of an n-qubit state (qubit q is bit
+// n-1-q), f the flip mask, c(x) = (x & ctrl) != 0 and sigma(x) =
+// (-1)^popcount(x & z).  One gate (or its inverse, or its derivative) is
+// one record: the masks and alpha[2], beta[2] (hopper_sv.flip_record).
+// Each thread owns amplitude pairs {x, x ^ f}, enumerated as pair index p
+// with a 0 inserted at f's top bit, in a grid-stride loop over the batch's
+// B * 2^(n-1) pairs: it reads both amplitudes and writes both, so the
+// update is in place.  Neighbouring threads own neighbouring x, and x ^ f
+// moves a warp's addresses by the same mask, so both loads coalesce.
+//
+// Bound: device memory -- 16 bytes read and written per amplitude of each
+// state for ~10 flop (flip_apply); flip_bilinear reads and writes a and
+// lambda, twice the bytes, and sums 2 Re conj(lam) dU a_before per block
+// in a fixed order (per-block partials, then sum_partials_kernel).
+// States of 1 to 30 qubits: an in-state index fits an int.
+constexpr int kFlipThreads = 256;
+constexpr size_t kFlipSmem = kFlipThreads / 32 * sizeof(float);
+
+struct FlipMasks {
+  int f;     // flip mask
+  int ctrl;  // control mask; 0 for none
+  int z;     // sign mask
+  int top;   // the position of f's highest bit
+};
+
+// alpha[c] = (ar[c], ai[c]), beta[c] = (br[c], bi[c]).
+struct FlipCoeffs {
+  float ar[2], ai[2], br[2], bi[2];
+};
+
+// x of pair index p: p with a 0 inserted at bit `top`; its partner is
+// x ^ f.
+__device__ __forceinline__ int flip_pair(int p, int top) {
+  return ((p >> top) << (top + 1)) | (p & ((1 << top) - 1));
+}
+
+__device__ __forceinline__ float flip_sign(int x, int z) {
+  return (__popc((unsigned)(x & z)) & 1) ? -1.f : 1.f;
+}
+
+// (x, y) <- (alpha s_x + beta sx s_y, alpha s_y + beta sy s_x) for the
+// pair's record entry c.
+__device__ __forceinline__ void flip_update(float& xr, float& xi, float& yr,
+                                            float& yi, const FlipCoeffs& k,
+                                            int c, float sx, float sy) {
+  const float ar = k.ar[c], ai = k.ai[c];
+  const float bxr = k.br[c] * sx, bxi = k.bi[c] * sx;
+  const float byr = k.br[c] * sy, byi = k.bi[c] * sy;
+  const float oxr = ar * xr - ai * xi + bxr * yr - bxi * yi;
+  const float oxi = ar * xi + ai * xr + bxr * yi + bxi * yr;
+  const float oyr = ar * yr - ai * yi + byr * xr - byi * xi;
+  const float oyi = ar * yi + ai * yr + byr * xi + byi * xr;
+  xr = oxr;
+  xi = oxi;
+  yr = oyr;
+  yi = oyi;
+}
+
+// flip_apply: one record on one (kTwo false) or two [B, 2^n] state batches,
+// in place.
+template <bool kTwo>
+__global__ void __launch_bounds__(kFlipThreads)
+    flip_apply_kernel(float* __restrict__ re0, float* __restrict__ im0,
+                      float* __restrict__ re1, float* __restrict__ im1,
+                      int B, int n, FlipMasks m, FlipCoeffs k) {
+  const int half = 1 << (n - 1);
+  const long long total = (long long)B * half;
+  for (long long j = (long long)blockIdx.x * kFlipThreads + threadIdx.x;
+       j < total; j += (long long)gridDim.x * kFlipThreads) {
+    const long long base = (j >> (n - 1)) << n;
+    const int x = flip_pair((int)(j & (half - 1)), m.top);
+    const int y = x ^ m.f;
+    const int c = (x & m.ctrl) != 0;
+    const float sx = flip_sign(x, m.z);
+    const float sy = flip_sign(y, m.z);
+    float xr = re0[base + x], xi = im0[base + x];
+    float yr = re0[base + y], yi = im0[base + y];
+    flip_update(xr, xi, yr, yi, k, c, sx, sy);
+    re0[base + x] = xr;
+    im0[base + x] = xi;
+    re0[base + y] = yr;
+    im0[base + y] = yi;
+    if (kTwo) {
+      xr = re1[base + x];
+      xi = im1[base + x];
+      yr = re1[base + y];
+      yi = im1[base + y];
+      flip_update(xr, xi, yr, yi, k, c, sx, sy);
+      re1[base + x] = xr;
+      im1[base + x] = xi;
+      re1[base + y] = yr;
+      im1[base + y] = yi;
+    }
+  }
+}
+
+// flip_bilinear: a <- U^-1 a and lambda <- U^-1 lambda in place (`inv`),
+// and this block's partial of 2 Re sum_b sum_x conj(lam[b, x]) (dU
+// a_before)[b, x] (`d` the record of dU) in partial[blockIdx.x]: each
+// thread sums its pairs in registers, the block its warps' sums in a fixed
+// order.
+__global__ void __launch_bounds__(kFlipThreads)
+    flip_bilinear_kernel(float* __restrict__ l_re, float* __restrict__ l_im,
+                         float* __restrict__ a_re, float* __restrict__ a_im,
+                         int B, int n, FlipMasks m, FlipCoeffs inv,
+                         FlipCoeffs d, float* __restrict__ partial) {
+  extern __shared__ float smem[];  // kFlipSmem bytes: the warps' sums
+  const int half = 1 << (n - 1);
+  const long long total = (long long)B * half;
+  float acc = 0.f;
+  for (long long j = (long long)blockIdx.x * kFlipThreads + threadIdx.x;
+       j < total; j += (long long)gridDim.x * kFlipThreads) {
+    const long long base = (j >> (n - 1)) << n;
+    const int x = flip_pair((int)(j & (half - 1)), m.top);
+    const int y = x ^ m.f;
+    const int c = (x & m.ctrl) != 0;
+    const float sx = flip_sign(x, m.z);
+    const float sy = flip_sign(y, m.z);
+    float axr = a_re[base + x], axi = a_im[base + x];
+    float ayr = a_re[base + y], ayi = a_im[base + y];
+    float lxr = l_re[base + x], lxi = l_im[base + x];
+    float lyr = l_re[base + y], lyi = l_im[base + y];
+    flip_update(axr, axi, ayr, ayi, inv, c, sx, sy);  // a_before
+    float dxr = axr, dxi = axi, dyr = ayr, dyi = ayi;
+    flip_update(dxr, dxi, dyr, dyi, d, c, sx, sy);  // dU a_before
+    acc += lxr * dxr + lxi * dxi + lyr * dyr + lyi * dyi;
+    flip_update(lxr, lxi, lyr, lyi, inv, c, sx, sy);
+    a_re[base + x] = axr;
+    a_im[base + x] = axi;
+    a_re[base + y] = ayr;
+    a_im[base + y] = ayi;
+    l_re[base + x] = lxr;
+    l_im[base + x] = lxi;
+    l_re[base + y] = lyr;
+    l_im[base + y] = lyi;
+  }
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (threadIdx.x % 32 == 0) smem[threadIdx.x / 32] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float sum = 0.f;
+    for (int w = 0; w < kFlipThreads / 32; ++w) sum += smem[w];
+    partial[blockIdx.x] = 2.f * sum;
+  }
 }
 
 // parity_bilinear_rows: the bilinears of K2's kBilin stage (the
@@ -2704,6 +2859,89 @@ int qhbm_axis2_apply(const float* x_re, const float* x_im, const float* a_re,
                        static_cast<cudaStream_t>(stream)>>>(
       x_re, x_im, a_re, a_im, b_re, b_im, y_re, y_im, P, k1, M, k2, Q,
       log_w);
+  return (int)cudaGetLastError();
+}
+
+// Blocks of the flip kernels' grid over B states of n qubits: one pair a
+// thread up to a wave of the diagonal kernels' blocks, then a grid-stride
+// loop; the rows of qhbm_flip_bilinear's `partial`.
+int qhbm_flip_blocks(int B, int n) {
+  if (B < 1 || n < 1 || n > 30) return 0;
+  const long long pairs = (long long)B << (n - 1);
+  const long long need = (pairs + kFlipThreads - 1) / kFlipThreads;
+  const long long wave = diag_wave();
+  return (int)(need < wave ? need : wave);
+}
+
+}  // extern "C"
+
+namespace {
+
+// The kernels' masks and coefficients of a record: f, ctrl, z and
+// coeffs[8] in host memory (re alpha[0..1], im alpha[0..1], re beta[0..1],
+// im beta[0..1]); false if f is empty or out of range.
+bool flip_args(int n, int f, int ctrl, int z, const float* coeffs,
+               FlipMasks* m, FlipCoeffs* k) {
+  if (n < 1 || n > 30 || f <= 0 || f >= (1 << n) || (ctrl & f) ||
+      ctrl < 0 || z < 0 || coeffs == nullptr) {
+    return false;
+  }
+  m->f = f;
+  m->ctrl = ctrl;
+  m->z = z;
+  m->top = 31 - __builtin_clz((unsigned)f);
+  for (int c = 0; c < 2; ++c) {
+    k->ar[c] = coeffs[c];
+    k->ai[c] = coeffs[2 + c];
+    k->br[c] = coeffs[4 + c];
+    k->bi[c] = coeffs[6 + c];
+  }
+  return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+// One flip record (masks f, ctrl, z; coeffs[8] in host memory) applied in
+// place to one (re1 == im1 == NULL) or two [B, 2^n] state batches.
+int qhbm_flip_apply(float* re0, float* im0, float* re1, float* im1, int B,
+                    int n, int f, int ctrl, int z, const float* coeffs,
+                    void* stream) {
+  FlipMasks m;
+  FlipCoeffs k;
+  if (B < 1 || !flip_args(n, f, ctrl, z, coeffs, &m, &k)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto kernel = re1 != nullptr ? flip_apply_kernel<true>
+                               : flip_apply_kernel<false>;
+  kernel<<<qhbm_flip_blocks(B, n), kFlipThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(re0, im0, re1, im1, B, n, m,
+                                                k);
+  return (int)cudaGetLastError();
+}
+
+// The batched sweep's flip stage on [B, 2^n] planes a and lambda: both
+// un-applied in place by the inverse record (coeffs[0..7]) and out[0] =
+// 2 Re sum conj(lam) dU a_before with the derivative record
+// (coeffs[8..15]), both in host memory.  `partial` is scratch of `blocks`
+// (>= qhbm_flip_blocks(B, n)) floats.
+int qhbm_flip_bilinear(float* l_re, float* l_im, float* a_re, float* a_im,
+                       int B, int n, int f, int ctrl, int z,
+                       const float* coeffs, float* partial, int blocks,
+                       float* out, void* stream) {
+  FlipMasks m;
+  FlipCoeffs inv, d;
+  if (B < 1 || !flip_args(n, f, ctrl, z, coeffs, &m, &inv) ||
+      !flip_args(n, f, ctrl, z, coeffs + 8, &m, &d)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int grid = qhbm_flip_blocks(B, n);
+  if (grid > blocks) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  flip_bilinear_kernel<<<grid, kFlipThreads, kFlipSmem, s>>>(
+      l_re, l_im, a_re, a_im, B, n, m, inv, d, partial);
+  sum_partials_kernel<<<1, 32, 0, s>>>(partial, grid, 1, out);
   return (int)cudaGetLastError();
 }
 

@@ -2,6 +2,7 @@
 Hamiltonians built from them."""
 
 from qhbmlib_tpu_torch.models.circuit import DirectQuantumCircuit
+from qhbmlib_tpu_torch.models.circuit import QAIA
 from qhbmlib_tpu_torch.models.circuit import QuantumCircuit
 from qhbmlib_tpu_torch.models.circuit_utils import hardware_efficient_ansatz
 from qhbmlib_tpu_torch.models.energy import BernoulliEnergy

@@ -17,6 +17,7 @@ from torch import nn
 from qhbmlib_tpu_torch import device as device_lib
 from qhbmlib_tpu_torch import nn as qnn_init
 from qhbmlib_tpu_torch.ops import circuit_ir as ir
+from qhbmlib_tpu_torch.ops import paulis
 
 
 class QuantumCircuit(nn.Module):
@@ -93,6 +94,55 @@ class DirectQuantumCircuit(QuantumCircuit):
 
   def symbol_values(self) -> torch.Tensor:
     return self.values
+
+
+class QAIA(QuantumCircuit):
+  """The quantum-classical ansatz with tied parameters (reference
+  `models/circuit.py:226-276`): each of `num_layers` layers applies
+  exp(-i gamma_{l,k} H_k) for each quantum term H_k, then
+  exp(-i eta_l theta_j C_j) for each classical term C_j, each term of a sum
+  as one PROT (`circuit_ir.exp_pauli_sum`).
+
+  Its parameters, in the reference's `trainable_variables` order: `etas`
+  [L], `thetas` [num_classical], `gammas` [L, num_quantum].  The symbol
+  values are layer-major, [gammas_l, etas_l * thetas] for each layer l, in
+  the reference's flat (unsorted) symbol order.  `initializer` draws all
+  three (default U[0, 2 pi), as the reference's); `device` None means the
+  CUDA card (`device.resolve`)."""
+
+  def __init__(self, quantum_h_terms: Sequence[paulis.PauliSum],
+               classical_h_terms: Sequence[paulis.PauliSum],
+               num_layers: int,
+               initializer: Optional[qnn_init.Initializer] = None,
+               name: Optional[str] = None, device=None):
+    device = device_lib.resolve(device)
+    initializer = initializer or qnn_init.RandomUniform(0, 2 * np.pi)
+    terms = list(quantum_h_terms) + list(classical_h_terms)
+    num_qubits = max(t.num_qubits for t in terms)
+    builder = ir.CircuitBuilder(num_qubits)
+    prefix = name or f"qaia{id(self)}"
+    flat_symbols = []
+    for layer in range(num_layers):
+      for kind, group in (("gamma", quantum_h_terms),
+                          ("eta", classical_h_terms)):
+        for k, term in enumerate(group):
+          sym = f"{prefix}_{kind}_{layer}_{k}"
+          # exp_pauli_sum reads the coefficients through numpy.
+          ir.exp_pauli_sum(paulis.PauliSum(term.codes,
+                                           term.coeffs.detach().cpu(),
+                                           term.num_qubits),
+                           symbol=sym, builder=builder)
+          flat_symbols.append(sym)
+    super().__init__(builder.build(), tuple(flat_symbols), name or "QAIA",
+                     device)
+    self.etas = nn.Parameter(initializer([num_layers], device))
+    self.thetas = nn.Parameter(initializer([len(classical_h_terms)], device))
+    self.gammas = nn.Parameter(initializer([num_layers,
+                                            len(quantum_h_terms)], device))
+
+  def symbol_values(self) -> torch.Tensor:
+    classical = self.etas[:, None] * self.thetas[None, :]  # [L, C]
+    return torch.cat([self.gammas, classical], dim=1).reshape(-1)
 
 
 class SumCircuit(QuantumCircuit):

@@ -46,8 +46,15 @@ class Hamiltonian:
 
   def set_params(self, params: Dict[str, torch.Tensor]) -> None:
     """Copies {'energy': tensor, 'circuit': tensor} (see convert.py) into
-    the single parameter of the energy and of the circuit."""
+    the parameters of the energy and of the circuit: a tensor into a
+    module's one parameter, a tuple of tensors into its parameters in
+    order (QAIA's etas, thetas, gammas)."""
     with torch.no_grad():
       for key, value in params.items():
-        (param,) = self.params[key]
-        param.copy_(value.reshape(param.shape))
+        values = value if isinstance(value, tuple) else (value,)
+        targets = self.params[key]
+        if len(values) != len(targets):
+          raise ValueError(f"params[{key!r}] holds {len(values)} tensors "
+                           f"for {len(targets)} parameters")
+        for param, v in zip(targets, values):
+          param.copy_(v.reshape(param.shape))

@@ -57,6 +57,10 @@ _SIGNATURES = {
     "qhbm_circuit_forward": [_P, _I, _I, _P, _I, _P, _P, _I, _P],
     "qhbm_adjoint_sweep": [_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _P],
     "qhbm_stream_scale": [_P, _P, _P, _I, _I, _P],
+    "qhbm_flip_blocks": [_I, _I],
+    "qhbm_flip_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "qhbm_flip_bilinear": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I,
+                           _P, _P],
 }
 
 _lock = threading.Lock()

@@ -175,7 +175,7 @@ def batched_expectations(circuit: ir.Circuit, symbol_values: torch.Tensor,
   observables are measured.
 
   Args:
-    circuit: static circuit IR (1q dense and diagonal gates).
+    circuit: static circuit IR (any gates).
     symbol_values: [num_symbols] parameters on the device to run on.
     init_bits: [B, n] int bitstrings; each becomes a basis initial state.
     ops: PauliSums to measure.
@@ -238,7 +238,7 @@ def batched_probabilities(circuit: ir.Circuit, symbol_values: torch.Tensor,
   """Computational-basis probabilities of U v_b for B given states.
 
   Args:
-    circuit: static circuit IR (1q dense and diagonal gates).
+    circuit: static circuit IR (any gates).
     symbol_values: [num_symbols] parameters on the states' device.
     init_planes: (re, im) float32 [B, R, C] planes of the states v_b (data:
       no gradient reaches them).
@@ -313,13 +313,27 @@ def _bwd_1q_segment(seg_gates, seg_angles, a, lam):
           sv.apply_majors_and_minor(lam, majors, minor_inv, plain=True))
 
 
+def _bwd_single(gate, angle, a, lam):
+  """Reverse step through one gate of the flip class, as the reference's
+  XLA sweep (adjoint.py:246-254): a <- U^-1 a, then dE/dangle =
+  2 Re sum conj(lam) dU a, then lam <- U^-1 lam; U^-1 = U(-angle)."""
+  a = sv.apply_gate(gate, -angle, a)
+  grads = []
+  if gate.slot >= 0:
+    d_psi = sv.apply_gate_dangle(gate, angle, a)
+    dangle = 2.0 * float(torch.sum(lam.conj() * d_psi).real)
+    grads.append((gate.slot, gate.coeff * dangle))
+  return grads, a, sv.apply_gate(gate, -angle, lam)
+
+
 def reverse_sweep(circuit: ir.Circuit, symbol_values, psi: torch.Tensor,
                   lam: torch.Tensor) -> torch.Tensor:
   """The segment-fused reverse sweep of one [R, C] state (the reference's
   `_xla_reverse_sweep`): the symbol gradient [num_symbols] of
   <psi| sum_t g_t P_t |psi> given lam = sum_t g_t P_t psi.  It is the
   plain version of K2 (`hopper_adjoint.adjoint_sweep`), torch ops only on
-  any device."""
+  any device; it takes every gate of the IR (flip-class gates one at a
+  time, `_bwd_single`)."""
   angles = sv.resolve_angles(circuit, hopper_sv.host_values(symbol_values))
   slots, contribs = [], []
   a = psi
@@ -331,9 +345,7 @@ def reverse_sweep(circuit: ir.Circuit, symbol_values, psi: torch.Tensor,
     elif cls == "diag":
       grads, a, lam = _bwd_diag_segment(seg_gates, seg_angles, a, lam)
     else:
-      raise NotImplementedError(
-          f"gate {seg_gates[0].kind!r} is neither a 1q dense nor a diagonal "
-          "gate; the reverse sweep does not take it yet")
+      grads, a, lam = _bwd_single(seg_gates[0], seg_angles[0], a, lam)
     slots.extend(s for s, _ in grads)
     contribs.extend(d for _, d in grads)
   grad = torch.zeros(circuit.num_symbols, dtype=torch.float64)
@@ -367,8 +379,9 @@ class _TermExpectations(torch.autograd.Function):
     lam = sv.apply_pauli_sum(psi, ones, term_weights=g)
     planes = [(t.real.contiguous(), t.imag.contiguous()) for t in (psi, lam)]
     if (psi.device.type == "cuda" and
-        not hopper_sv.single_admits(circuit.num_qubits)):
-      # Outside K2's range: the batched sweep's kernels at B = 1.
+        not hopper_sv.single_supported(circuit)):
+      # Outside K2's range (its qubit counts, no flip-class gate): the
+      # batched sweep's kernels at B = 1.
       grad = hopper_adjoint.adjoint_sweep_batched(
           circuit, ctx.values, *[tuple(t[None] for t in p) for p in planes])
     else:
@@ -384,8 +397,9 @@ def adjoint_term_expectations(circuit: ir.Circuit,
   psi = U(values)|init_state> for one [R, C] state of any content.
 
   Differentiable w.r.t. `symbol_values` by the adjoint method: the forward
-  is K3 and the backward K2 on the card for 8 <= n <= 20 qubits (the
-  segment kernels at B = 1 outside that range).  `init_state` is data."""
+  is K3 and the backward K2 on the card for circuits of 8 <= n <= 20
+  qubits with no gate of the flip class (`hopper_sv.single_supported`);
+  the segment kernels at B = 1 for the others.  `init_state` is data."""
   return _TermExpectations.apply(symbol_values, init_state, circuit,
                                  op.to(init_state.device))
 

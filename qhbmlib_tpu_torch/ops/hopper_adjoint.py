@@ -21,6 +21,13 @@ reverse:
       each state once for both (Im(conj(lam) a) does not change under the
       common rotation exp(-i theta)).
 
+A gate of the flip class (CXP, XXP, YYP, a PROT with X or Y factors on
+two or more qubits) is one `flip_bilinear` launch: it un-applies a and
+lambda and emits 2 Re sum conj(lam) dU a_before in the same pass, as the
+reference's XLA sweep does gate by gate (`_xla_reverse_sweep`,
+adjoint.py:246-254; no Pallas kernel takes these gates).  A flip gate with
+no symbol is one `hopper_sv.flip_apply` of both states.
+
 `adjoint_sweep` (K2, pallas_adjoint.py:480) runs the same stages for ONE
 state of 8 to 20 qubits in one cooperative launch over a stage table; its
 1q reductions are the same per-qubit 2x2 transitions (kTrans records).
@@ -229,6 +236,62 @@ def parity_bilinear(l_re, l_im, a_re, a_im, row_masks: Sequence[int],
 parity_bilinear.launches = 0
 
 
+def flip_bilinear_plain(l_re, l_im, a_re, a_im, inv: hopper_sv.FlipRecord,
+                        d_rec: hopper_sv.FlipRecord) -> torch.Tensor:
+  """[1] g = 2 Re sum_{b,x} conj(lam[b, x]) (dU a_before)[b, x] with
+  a_before = U^-1 a, through the engine's torch route
+  (`statevector.apply_gate` / `apply_gate_dangle`); then a and lambda
+  un-applied in place."""
+  hopper_sv.flip_apply_plain([(a_re, a_im)], inv)
+  d = sv.apply_gate_dangle(d_rec.gate, d_rec.angle,
+                           torch.complex(a_re, a_im))
+  g = 2.0 * torch.sum(l_re * d.real + l_im * d.imag)
+  hopper_sv.flip_apply_plain([(l_re, l_im)], inv)
+  return g.reshape(1).to(torch.float32)
+
+
+def flip_bilinear(l_re, l_im, a_re, a_im, inv: hopper_sv.FlipRecord,
+                  d_rec: hopper_sv.FlipRecord) -> torch.Tensor:
+  """The batched sweep's stage for one gate of the flip class over
+  [B, R, C] planes a and lambda (the states after the gate): returns [1]
+  g = 2 Re sum_b sum_x conj(lam[b, x]) (dU a_before)[b, x], a_before =
+  U^-1 a, and un-applies a and lambda in place (`inv` the record of U^-1,
+  `d_rec` of dU/dangle), in one pass that reads and writes each pair
+  {x, x ^ flip} once.  Per-block partials are summed in a fixed order
+  (`sum_partials_kernel`).  On the CPU it runs its plain version; on the
+  card it launches the kernel or raises."""
+  if l_re.device.type == "cpu":
+    return flip_bilinear_plain(l_re, l_im, a_re, a_im, inv, d_rec)
+  if l_re.device.type != "cuda":
+    raise ValueError(f"flip_bilinear: unsupported device {l_re.device}")
+  b, r, c = l_re.shape
+  n = (r * c).bit_length() - 1
+  if ((inv.flip, inv.ctrl, inv.zmask) != (d_rec.flip, d_rec.ctrl,
+                                          d_rec.zmask) or
+      not 1 <= n <= 30 or not 0 < inv.flip < (1 << n)):
+    raise ValueError("flip_bilinear: the two records must share their "
+                     f"masks on states of 1 to 30 qubits (n = {n})")
+  states = [l_re, l_im, a_re, a_im]
+  _cuda.require(states, l_re.device, [(b, r, c)] * 4)
+  if len({t.data_ptr() for t in states}) != 4:
+    raise ValueError("flip_bilinear: the un-apply needs four distinct planes")
+  lib = _cuda.library()
+  blocks = lib.qhbm_flip_blocks(b, n)
+  partial = torch.empty((blocks,), dtype=torch.float32, device=l_re.device)
+  out = torch.empty((1,), dtype=torch.float32, device=l_re.device)
+  coeffs = np.concatenate([inv.coeffs(), d_rec.coeffs()])
+  _cuda.check(lib.qhbm_flip_bilinear(
+      l_re.data_ptr(), l_im.data_ptr(), a_re.data_ptr(), a_im.data_ptr(), b,
+      n, inv.flip, inv.ctrl, inv.zmask, coeffs.ctypes.data,
+      partial.data_ptr(), blocks, out.data_ptr(), _cuda.stream_of(l_re)),
+              "flip_bilinear")
+  flip_bilinear.launches += 1
+  return out
+
+
+flip_bilinear.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # Reverse-stage preparation (mirrors pallas_adjoint._prepare_backward)
 # ---------------------------------------------------------------------------
@@ -280,8 +343,10 @@ def _backward_1q(seg_gates, seg_angles, nr: int, m: int):
 
 def backward_plan(circuit: ir.Circuit, symbol_values):
   """Host reverse stages, in sweep order, and the assembly plan:
-  ("bwd1q", gradient qubits, inverse ops) or ("bwddiag", (weights, row_masks,
-  col_masks)) with the FORWARD weights of the segment."""
+  ("bwd1q", gradient qubits, inverse ops), ("bwddiag", (weights, row_masks,
+  col_masks)) with the FORWARD weights of the segment, or ("bwddense",
+  record of U^-1, record of dU/dangle or None for a gate with no
+  symbol)."""
   n = circuit.num_qubits
   m = sv.minor_bits(n)
   nr = n - m
@@ -306,17 +371,22 @@ def backward_plan(circuit: ir.Circuit, symbol_values):
                               if g.slot >= 0),
       }))
     else:
-      raise NotImplementedError(
-          f"gate {circuit.gates[idxs[0]].kind!r} is neither a 1q dense nor a "
-          "diagonal gate; the adjoint sweeps do not take it yet")
+      gate, angle = seg_gates[0], seg_angles[0]
+      d_rec = (hopper_sv.flip_record(gate, angle, n, deriv=True)
+               if gate.slot >= 0 else None)
+      stages.append(("bwddense", hopper_sv.flip_record(gate, -angle, n),
+                     d_rec))
+      plan.append(("dense", {"slot": gate.slot, "coeff": gate.coeff}))
   return stages, plan
 
 
 def prepare_backward(circuit: ir.Circuit, symbol_values, device):
   """Reverse stages of the batched sweep and the assembly plan:
-  ("bwd1q", gradient qubits, passes) with device operators (`plan_passes`), or
+  ("bwd1q", gradient qubits, passes) with device operators (`plan_passes`),
   ("bwddiag", row_masks, col_masks, (cos, sin)) with the segment's forward
-  rotation planes.  Host operators and weights cross in one copy."""
+  rotation planes, or ("bwddense", inverse record, derivative record or
+  None) as `backward_plan` gives it.  Host operators and weights cross in
+  one copy."""
   n = circuit.num_qubits
   shape_rc = sv.state_shape(n)
   nr = n - sv.minor_bits(n)
@@ -325,7 +395,7 @@ def prepare_backward(circuit: ir.Circuit, symbol_values, device):
   for st in host_stages:
     if st[0] == "bwd1q":
       host.extend(t for _, op in st[2] for t in hopper_sv.split(op))
-    else:
+    elif st[0] == "bwddiag":
       host.append(torch.from_numpy(st[1][0]))
   moved = iter(hopper_sv.to_device(host, device))
   out = []
@@ -333,10 +403,12 @@ def prepare_backward(circuit: ir.Circuit, symbol_values, device):
     if st[0] == "bwd1q":
       ops = [(bits, (next(moved), next(moved))) for bits, _ in st[2]]
       out.append(("bwd1q", st[1], hopper_sv.plan_passes(ops, nr)))
-    else:
+    elif st[0] == "bwddiag":
       _, rms, cms = st[1]
       out.append(("bwddiag", rms, cms, hopper_sv.rotation_planes(
           next(moved), rms, cms, shape_rc)))
+    else:
+      out.append(st)
   return out, plan
 
 
@@ -344,11 +416,18 @@ def _assemble_grads(plan, outputs: List[torch.Tensor],
                     num_symbols: int) -> torch.Tensor:
   """Host-side per-gate gradient algebra on the sweep's reductions (CPU
   tensors, in stage order: a [Q, 2, 2] complex transition per gradient
-  qubit of each 1q stage that has any, a [K] bilinear per diagonal stage);
+  qubit of each 1q stage that has any, a [K] bilinear per diagonal stage,
+  a [1] g per flip gate with a symbol, its term (slot, coeff * g));
   mirrors pallas_adjoint._assemble_grads."""
   slots, contribs = [], []
   pos = 0
   for kind, info in plan:
+    if kind == "dense":
+      if info["slot"] >= 0:
+        slots.append(info["slot"])
+        contribs.append(info["coeff"] * float(outputs[pos][0]))
+        pos += 1
+      continue
     if kind == "1q":
       if not info["qubits"]:
         continue
@@ -405,8 +484,11 @@ def adjoint_sweep_batched(circuit: ir.Circuit, symbol_values, psi: Planes,
   n = (r * c).bit_length() - 1
   trans = qubit_transitions_plain if plain else qubit_transitions
   bilin = parity_bilinear_plain if plain else parity_bilinear
+  fbilin = flip_bilinear_plain if plain else flip_bilinear
+  fapply = hopper_sv.flip_apply_plain if plain else hopper_sv.flip_apply
   stages, plan = prepare_backward(circuit, symbol_values, device)
-  # The diagonal stages un-apply in place: copies of what must survive.
+  # The diagonal and flip stages un-apply in place: copies of what must
+  # survive.
   a, lm = [tuple(t if mine and t.is_contiguous() else
                  torch.clone(t, memory_format=torch.contiguous_format)
                  for t in pair) for pair, mine in zip((psi, lam), overwrite)]
@@ -417,9 +499,13 @@ def adjoint_sweep_batched(circuit: ir.Circuit, symbol_values, psi: Planes,
       if qubits:
         reductions.append(trans(*lm, *a, qubits))
       a, lm = hopper_sv.apply_passes(passes, [a, lm], n, plain)
-    else:
+    elif stage[0] == "bwddiag":
       _, rms, cms, planes = stage
       reductions.append(bilin(*lm, *a, rms, cms, planes))
+    elif stage[2] is not None:
+      reductions.append(fbilin(*lm, *a, stage[1], stage[2]))
+    else:
+      fapply([a, lm], stage[1])
   # One device->host copy for every reduction, then the tiny algebra.
   outputs = []
   if reductions:
@@ -438,7 +524,12 @@ def sweep_table(circuit: ir.Circuit, symbol_values, device):
   reversed segment, the kTrans / kBilin reductions from the current states
   (the 2x2 transitions of a 1q segment's gradient qubits, if it has any),
   then the un-apply (kAxis records of the inverse operators, or kDiag with
-  the negated weights)."""
+  the negated weights).  Raises for a circuit `hopper_sv.single_supported`
+  rejects (the kernel has no flip stage)."""
+  if not hopper_sv.flip_free(circuit):
+    raise ValueError("adjoint_sweep takes no gate of the flip class "
+                     "(hopper_sv.single_supported); use "
+                     "adjoint_sweep_batched at B = 1")
   host_stages, plan = backward_plan(circuit, symbol_values)
   table = hopper_sv.StageTable(circuit.num_qubits, torch.device(device))
   shapes = []
@@ -470,8 +561,10 @@ def adjoint_sweep(circuit: ir.Circuit, symbol_values, psi: Planes,
   """K2: the symbol gradient [num_symbols] of <psi| sum_t g_t P_t |psi> from
   the reverse sweep of ONE [R, C] state psi and lam = sum_t g_t P_t psi
   (float32 planes), in one cooperative launch for a CUDA state of 8 to 20
-  qubits (raises for other sizes).  For a CPU state or `plain=True` it runs
-  the plain version, the per-state sweep of `ops/adjoint.py`.
+  qubits with no gate of the flip class (raises for other circuits,
+  `hopper_sv.single_supported`).  For a CPU state or `plain=True` it runs
+  the plain version, the per-state sweep of `ops/adjoint.py`, which takes
+  every gate.
 
   Reductions and un-applies run in stage order as in
   pallas_adjoint._make_bwd_kernel; the inverse operators and the negated
@@ -485,8 +578,10 @@ def adjoint_sweep(circuit: ir.Circuit, symbol_values, psi: Planes,
   if dev.type != "cuda":
     raise ValueError(f"adjoint_sweep: unsupported device {dev}")
   n = circuit.num_qubits
-  if not hopper_sv.single_admits(n):
-    raise ValueError(f"adjoint_sweep takes 8 <= n <= 20 qubits, not {n}")
+  if not hopper_sv.single_supported(circuit):
+    raise ValueError(f"adjoint_sweep takes circuits of 8 <= n <= 20 qubits "
+                     f"with no gate of the flip class, not this {n}-qubit "
+                     "one")
   shape_rc = sv.state_shape(n)
   _cuda.require(list(psi) + list(lam), dev, [shape_rc] * 4)
   table, shapes, plan = sweep_table(circuit, symbol_values, dev)

@@ -14,7 +14,11 @@ does not fit one SM, so every segment is one or two launches over the
                   (`plan_passes`);
   diag segment -> one `diag_rotate` with the segment's shared planes (the
                   batched sweep un-applies it inside its diagonal stage's
-                  `hopper_adjoint.parity_bilinear` launch).
+                  `hopper_adjoint.parity_bilinear` launch);
+  flip gate    -> one `flip_apply` (CXP, XXP, YYP, a PROT with X or Y
+                  factors on two or more qubits: no Pallas kernel takes
+                  them, the reference applies them one at a time through
+                  XLA's `apply_gate`, statevector.py:604).
 
 `circuit_forward` (K3, `apply_circuit_pallas`, pallas_sv.py:667) runs the
 whole circuit on ONE state of 8 to 20 qubits in one cooperative launch that
@@ -29,6 +33,8 @@ tests and `chip_smoke.py` use it as the reference, the main path never does.
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -36,6 +42,7 @@ import torch
 
 from qhbmlib_tpu_torch.ops import _cuda
 from qhbmlib_tpu_torch.ops import circuit_ir as ir
+from qhbmlib_tpu_torch.ops import paulis
 from qhbmlib_tpu_torch.ops import statevector as sv
 
 Planes = Tuple[torch.Tensor, torch.Tensor]
@@ -189,6 +196,143 @@ axis2_apply.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# The flip class: CXP, XXP, YYP and PROTs with X or Y factors
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FlipRecord:
+  """One gate of the flip class (or its inverse, or its derivative) on the
+  flat amplitude index x of n-qubit states (qubit q is bit n-1-q):
+
+    out[x] = alpha[c(x)] s[x] + beta[c(x)] sigma(x) s[x ^ flip],
+
+  c(x) = 1 if x & ctrl else 0 (CXP's control; 0 for the other kinds) and
+  sigma(x) = (-1)^popcount(x & zmask).  alpha and beta are complex scalars
+  built in float64 from the float32 angle.  The kernels read
+  (flip, ctrl, zmask, alpha, beta); the plain version reads (gate, angle,
+  deriv): `statevector.apply_gate`, or `apply_gate_dangle` for a
+  derivative record."""
+  flip: int
+  ctrl: int
+  zmask: int
+  alpha: Tuple[complex, complex]
+  beta: Tuple[complex, complex]
+  gate: ir.Gate
+  angle: float
+  deriv: bool
+
+  def coeffs(self) -> np.ndarray:
+    """float32 [8]: re alpha[0..1], im alpha[0..1], re beta[0..1], im
+    beta[0..1], as the kernels take them."""
+    return np.asarray([z.real for z in self.alpha] +
+                      [z.imag for z in self.alpha] +
+                      [z.real for z in self.beta] +
+                      [z.imag for z in self.beta], np.float32)
+
+
+def _power_pair(phi: float, deriv: bool):
+  """(a, b) of cirq's G**t = exp(i*phi/2)(cos(phi/2) I - i sin(phi/2) G),
+  phi = pi*t, as a I + b G; with `deriv`, d/dt of them."""
+  e = complex(math.cos(phi / 2), math.sin(phi / 2))
+  a = e * math.cos(phi / 2)
+  b = -1j * e * math.sin(phi / 2)
+  if not deriv:
+    return a, b
+  return (math.pi * (0.5j * a - 0.5 * e * math.sin(phi / 2)),
+          math.pi * (0.5j * b - 0.5j * e * math.cos(phi / 2)))
+
+
+def flip_record(gate: ir.Gate, angle, n: int,
+                deriv: bool = False) -> FlipRecord:
+  """The flip form of U(angle) of `gate` on n-qubit states, or of
+  dU/dangle with `deriv`; U^-1 is flip_record(gate, -angle) (every gate
+  has U(angle)^-1 = U(-angle), `Gate.inverse`).
+
+    PROT        alpha = cos a, beta = -i sin a (-i)^#Y, flip = the X / Y
+                factors, zmask = the Z / Y factors (P|x> as
+                `statevector.apply_pauli_string`);
+    XXP, YYP    exp(i phi/2)(cos(phi/2) I - i sin(phi/2) G), phi = pi*t,
+                G = XX (zmask 0) or YY (zmask both bits, phase -1);
+    CXP         alpha = 1, beta = 0 where the control (qubits[0]) is 0,
+                X**t on the target where it is 1."""
+  a = float(np.float32(angle))
+  bit = lambda q: 1 << (n - 1 - q)
+  if gate.kind == ir.PROT:
+    flip = sum(bit(q) for q, p in zip(gate.qubits, gate.paulis)
+               if p in (paulis.X, paulis.Y))
+    zmask = sum(bit(q) for q, p in zip(gate.qubits, gate.paulis)
+                if p in (paulis.Z, paulis.Y))
+    phase = (-1j)**sum(1 for p in gate.paulis if p == paulis.Y)
+    if deriv:
+      al, be = -math.sin(a), -1j * math.cos(a) * phase
+    else:
+      al, be = math.cos(a), -1j * math.sin(a) * phase
+    return FlipRecord(flip, 0, zmask, (al, al), (be, be), gate, a, deriv)
+  if gate.kind in (ir.XXP, ir.YYP):
+    q0, q1 = gate.qubits
+    al, be = _power_pair(math.pi * a, deriv)
+    if gate.kind == ir.YYP:  # YY = (-i)^2 sigma(x) flip, zmask both bits
+      be = -be
+    zmask = bit(q0) | bit(q1) if gate.kind == ir.YYP else 0
+    return FlipRecord(bit(q0) | bit(q1), 0, zmask, (al, al), (be, be), gate,
+                      a, deriv)
+  if gate.kind == ir.CXP:
+    al, be = _power_pair(math.pi * a, deriv)
+    off = 0.0 if deriv else 1.0
+    return FlipRecord(bit(gate.qubits[1]), bit(gate.qubits[0]), 0,
+                      (off, al), (0.0, be), gate, a, deriv)
+  raise ValueError(f"gate {gate.kind!r} {gate.paulis} is not of the flip "
+                   "class")
+
+
+def flip_apply_plain(states: List[Planes], rec: FlipRecord) -> None:
+  """In place: every (re, im) [B, R, C] pair <- the record's operator
+  applied through the engine's torch route (`statevector.apply_gate`, or
+  `apply_gate_dangle` for a derivative record) on the complex view."""
+  fn = sv.apply_gate_dangle if rec.deriv else sv.apply_gate
+  for re, im in states:
+    out = fn(rec.gate, rec.angle, torch.complex(re, im))
+    re.copy_(out.real)
+    im.copy_(out.imag)
+
+
+def flip_apply(states: List[Planes], rec: FlipRecord) -> None:
+  """Applies one flip record IN PLACE to one or two [B, R, C] state
+  batches of float32 planes in one pass: each thread owns the amplitude
+  pair {x, x ^ flip}, reads both and writes both.  The batched forward's
+  flip stage (sign of the forward record), and the sweep's un-apply of a
+  and lambda for a gate with no symbol (the inverse record).  On the CPU
+  it runs its plain version; on the card it launches the kernel or
+  raises."""
+  re0, im0 = states[0]
+  if re0.device.type == "cpu":
+    flip_apply_plain(states, rec)
+    return
+  if re0.device.type != "cuda":
+    raise ValueError(f"flip_apply: unsupported device {re0.device}")
+  if len(states) not in (1, 2):
+    raise ValueError("flip_apply takes one or two state batches")
+  b, r, c = re0.shape
+  n = (r * c).bit_length() - 1
+  if not 1 <= n <= 30 or not 0 < rec.flip < (1 << n):
+    raise ValueError(f"flip_apply: {n}-qubit states (1 to 30), flip mask "
+                     f"{rec.flip:#x}")
+  flat = [t for pair in states for t in pair]
+  _cuda.require(flat, re0.device, [(b, r, c)] * len(flat))
+  re1, im1 = states[1] if len(states) == 2 else (None, None)
+  coeffs = rec.coeffs()
+  _cuda.check(_cuda.library().qhbm_flip_apply(
+      re0.data_ptr(), im0.data_ptr(),
+      None if re1 is None else re1.data_ptr(),
+      None if im1 is None else im1.data_ptr(), b, n, rec.flip, rec.ctrl,
+      rec.zmask, coeffs.ctypes.data, _cuda.stream_of(re0)), "flip_apply")
+  flip_apply.launches += 1
+
+
+flip_apply.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Host preparation (mirrors pallas_sv._prepare_segments{,_rot})
 # ---------------------------------------------------------------------------
 
@@ -258,8 +402,8 @@ def segment_ops(majors, minor, nr: int, m: int):
 
 def forward_plan(circuit: ir.Circuit, symbol_values):
   """Host stages in circuit order, shared by the batched and single-state
-  engines: ("1q", segment_ops) or ("diag", (weights [K] float32, row_masks,
-  col_masks))."""
+  engines: ("1q", segment_ops), ("diag", (weights [K] float32, row_masks,
+  col_masks)) or ("dense", FlipRecord) for a gate of the flip class."""
   n = circuit.num_qubits
   m = sv.minor_bits(n)
   nr = n - m
@@ -275,9 +419,7 @@ def forward_plan(circuit: ir.Circuit, symbol_values):
       plan.append(("diag", sv.diag_segment_weights(seg_gates, seg_angles, nr,
                                                    m)))
     else:
-      raise NotImplementedError(
-          f"gate {circuit.gates[idxs[0]].kind!r} is neither a 1q dense nor a "
-          "diagonal gate; the port's engines do not take it yet")
+      plan.append(("dense", flip_record(seg_gates[0], seg_angles[0], n)))
   return plan
 
 
@@ -362,6 +504,8 @@ def prepare_segments(circuit: ir.Circuit, symbol_values, device):
   """Forward stages of the batched engine, in circuit order:
     ("1q", passes)       -- `plan_passes` with device operators
     ("diag", (cos, sin)) -- the segment's shared rotation planes
+    ("dense", record)    -- a FlipRecord (its scalars go as kernel
+                            arguments)
   Operators and diagonal weights are built on the host from the values
   (`host_values`) and cross to `device` in one copy; the rotation planes
   are then built on `device`."""
@@ -373,7 +517,7 @@ def prepare_segments(circuit: ir.Circuit, symbol_values, device):
   for kind, body in plan:
     if kind == "1q":
       host.extend(t for _, op in body for t in split(op))
-    else:
+    elif kind == "diag":
       host.append(torch.from_numpy(body[0]))
   moved = iter(to_device(host, device))
   stages = []
@@ -381,21 +525,27 @@ def prepare_segments(circuit: ir.Circuit, symbol_values, device):
     if kind == "1q":
       stages.append(("1q", plan_passes(
           [(bits, (next(moved), next(moved))) for bits, _ in body], nr)))
-    else:
+    elif kind == "diag":
       _, rms, cms = body
       stages.append(("diag", rotation_planes(next(moved), rms, cms,
                                              shape_rc)))
+    else:
+      stages.append((kind, body))
   return stages
 
 
 def apply_stage(stage, planes: List[Planes],
                 plain: bool = False) -> List[Planes]:
   """Applies one prepared forward stage to each [B, R, C] plane pair;
-  diagonal stages rotate in place, 1q stages return new planes."""
+  diagonal and flip stages work in place, 1q stages return new planes."""
   kind, body = stage
   if kind == "diag":
     (diag_rotate_plain if plain else diag_rotate)(planes, body[0], body[1],
                                                   +1)
+    return planes
+  if kind == "dense":
+    for pair in planes:
+      (flip_apply_plain if plain else flip_apply)([pair], body)
     return planes
   b, r, c = planes[0][0].shape
   return apply_passes(body, planes, (r * c).bit_length() - 1, plain)
@@ -420,7 +570,7 @@ def apply_circuit_batched(circuit: ir.Circuit, symbol_values,
   states of any content (`init_planes`), exactly one of the two.
 
   Args:
-    circuit: circuit of 1q dense and diagonal gates.
+    circuit: circuit of any gates of the IR.
     symbol_values: [num_symbols] parameters, a tensor on any device or a
       host array (the operators are folded on the host).
     init_rowcol: [B, 2] (row, col) indices of the basis states in the
@@ -428,7 +578,7 @@ def apply_circuit_batched(circuit: ir.Circuit, symbol_values,
     plain: run the kernels' plain PyTorch versions (reference only).
     init_planes: (re, im) float32 [B, R, C] planes of the initial states,
       on the device the states should live on; not modified (the diagonal
-      stages rotate a contiguous copy in place).
+      and flip stages work on a contiguous copy in place).
 
   Returns:
     (re, im) float32 [B, R, C] planes of the final states.
@@ -464,14 +614,31 @@ MAX_FACTORS = 1024
 MAX_TRANS = 32
 
 
-def single_admits(n: int) -> bool:
-  return SINGLE_MIN_QUBITS <= n <= SINGLE_MAX_QUBITS
+def flip_free(circuit: ir.Circuit) -> bool:
+  """Whether the circuit has no gate of the flip class (no 'single'
+  segment)."""
+  return all(cls != "single" for cls, _ in sv.segment_circuit(circuit.gates))
+
+
+def single_supported(circuit: ir.Circuit) -> bool:
+  """Whether K3 / K2 take the circuit: 8 to 20 qubits and no gate of the
+  flip class, as the reference's `pallas_sv.supported` rejects a circuit
+  with a 'single' segment (pallas_sv.py:61-74).  The kernels have no flip
+  stage, as the Pallas kernels have no dense one; other circuits run
+  segment by segment at B = 1."""
+  return (SINGLE_MIN_QUBITS <= circuit.num_qubits <= SINGLE_MAX_QUBITS and
+          flip_free(circuit))
 
 
 def single_stages(circuit: ir.Circuit, symbol_values):
   """Host stages of `circuit_forward`, in order: ("axis", (start, k), op)
   for every folded operator and ("diag", weights, row_masks, col_masks)
-  for every diagonal segment (mirrors pallas_sv._prepare_segments)."""
+  for every diagonal segment (mirrors pallas_sv._prepare_segments); raises
+  for a circuit `single_supported` rejects."""
+  if not flip_free(circuit):
+    raise ValueError("the single-state kernels take no gate of the flip "
+                     "class (hopper_sv.single_supported); apply the circuit "
+                     "segment by segment")
   stages = []
   for kind, body in forward_plan(circuit, symbol_values):
     if kind == "1q":
@@ -638,17 +805,20 @@ def state_buffer(x: Planes) -> torch.Tensor:
 def circuit_forward(circuit: ir.Circuit, symbol_values, x: Planes,
                     plain: bool = False) -> Planes:
   """K3: the whole circuit on one [R, C] state given as float32 planes, in
-  ONE cooperative launch for a CUDA state of 8 to 20 qubits (raises for
-  other sizes); the plain version for a CPU state or `plain=True`.
-  Returns new planes."""
+  ONE cooperative launch for a CUDA state of 8 to 20 qubits and a circuit
+  with no gate of the flip class (raises for others, `single_supported`);
+  the plain version for a CPU state or `plain=True`.  Returns new
+  planes."""
   n = circuit.num_qubits
   dev = x[0].device
   if plain or dev.type == "cpu":
     return circuit_forward_plain(single_stages(circuit, symbol_values), x)
   if dev.type != "cuda":
     raise ValueError(f"circuit_forward: unsupported device {dev}")
-  if not single_admits(n):
-    raise ValueError(f"circuit_forward takes 8 <= n <= 20 qubits, not {n}")
+  if not single_supported(circuit):
+    raise ValueError(f"circuit_forward takes circuits of 8 <= n <= 20 "
+                     f"qubits with no gate of the flip class, not this "
+                     f"{n}-qubit one")
   shape_rc = sv.state_shape(n)
   _cuda.require(list(x), dev, [shape_rc] * 2)
   table = forward_table(circuit, symbol_values, dev)

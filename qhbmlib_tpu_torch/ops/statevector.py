@@ -11,8 +11,10 @@ dimensions, ``[..., R, C]``.
 
 Operator folds (the 2x2 / [C, C] products) run in full float32 on the host,
 as in the reference (`statevector.py:1203-1210`).  State-sized products use
-torch matmuls; the caller pins float32 precision on the card
-(`torch.backends.cuda.matmul.allow_tf32 = False`).
+torch matmuls in float32 whatever the caller's TF32 setting: the Pauli
+tiers and the parity sums (`expectation_terms`, `apply_pauli_sum`,
+`parity_outer_sum`) turn `torch.backends.cuda.matmul.allow_tf32` off while
+they run and restore the caller's flag (`fp32_matmuls`).
 
 Pauli tiers, as in the reference (`expectation_terms` :1454-1517,
 `apply_pauli_sum` :526-584): diagonal (I/Z) terms in one parity
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from qhbmlib_tpu_torch import device as device_lib
+from qhbmlib_tpu_torch import utils
 from qhbmlib_tpu_torch.ops import circuit_ir as ir
 from qhbmlib_tpu_torch.ops import paulis
 
@@ -44,6 +47,22 @@ MINOR_MAX = 7
 
 # Row qubits are processed in contiguous blocks of up to this many bits.
 _ROW_BLOCK_BITS = 7
+
+
+def fp32_matmuls(fn):
+  """`fn` with TF32 matmuls off on the card, the caller's
+  `torch.backends.cuda.matmul.allow_tf32` restored after it."""
+
+  @functools.wraps(fn)
+  def pinned(*args, **kwargs):
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+      return fn(*args, **kwargs)
+    finally:
+      torch.backends.cuda.matmul.allow_tf32 = flag
+
+  return pinned
 
 
 def minor_bits(n: int) -> int:
@@ -89,11 +108,14 @@ def basis_state(num_qubits: int, bits: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 _H = np.array([[1, 1], [1, -1]], dtype=np.complex64) / np.sqrt(2.0)
-# Generator G of each one-qubit dense kind (U = phase * exp(-i*phi/2*G)).
+# Generator G of each dense kind (U = phase * exp(-i*phi/2*G)).
 _GENERATOR = {
     ir.XP: paulis.PAULI_MATS[1], ir.YP: paulis.PAULI_MATS[2], ir.HP: _H,
     ir.RX: paulis.PAULI_MATS[1], ir.RY: paulis.PAULI_MATS[2],
     ir.RZ: paulis.PAULI_MATS[3],
+    ir.XXP: np.kron(paulis.PAULI_MATS[1], paulis.PAULI_MATS[1]),
+    ir.YYP: np.kron(paulis.PAULI_MATS[2], paulis.PAULI_MATS[2]),
+    ir.ZZP: np.kron(paulis.PAULI_MATS[3], paulis.PAULI_MATS[3]),
 }
 
 
@@ -129,10 +151,22 @@ def _involution_power(angle: torch.Tensor, mat: np.ndarray) -> torch.Tensor:
   return phase * (torch.cos(angle / 2) * eye - 1j * torch.sin(angle / 2) * g)
 
 
-def gate_matrix(kind: str, angle) -> torch.Tensor:
+def _pauli_string_mat(paulis_codes) -> np.ndarray:
+  """kron of the one-qubit Paulis of `paulis_codes`, the first most
+  significant."""
+  mat = np.ones((1, 1), np.complex64)
+  for code in paulis_codes:
+    mat = np.kron(mat, paulis.PAULI_MATS[code])
+  return mat
+
+
+def gate_matrix(kind: str, angle, paulis_codes=()) -> torch.Tensor:
   """Dense matrix of a gate given its resolved float32 angle parameter
-  (cirq exponent t for power gates, rotation angle for rotations).  Angles
-  of shape [...] give matrices [..., d, d]."""
+  (cirq exponent t for power gates, rotation angle for rotations, theta of
+  exp(-i*theta*P) for PROT with the Pauli codes `paulis_codes`), its axes
+  in the order of the gate's qubits (reference `gate_matrix`,
+  statevector.py:116-155).  Angles of shape [...] give matrices
+  [..., d, d]."""
   angle = torch.as_tensor(angle, dtype=torch.float32)
   if kind == ir.RX:
     return _one_qubit_rot(angle, "x")
@@ -140,43 +174,67 @@ def gate_matrix(kind: str, angle) -> torch.Tensor:
     return _one_qubit_rot(angle, "y")
   if kind == ir.RZ:
     return _one_qubit_rot(angle, "z")
-  if kind in (ir.XP, ir.YP, ir.HP):
+  if kind in _GENERATOR:
     return _involution_power(math.pi * angle, _GENERATOR[kind])
+  if kind == ir.PROT:
+    a = _c(angle)[..., None, None]
+    p = torch.as_tensor(_pauli_string_mat(paulis_codes))
+    return torch.cos(a) * torch.eye(p.shape[0], dtype=COMPLEX_DTYPE) - \
+        1j * torch.sin(a) * p
   ph = torch.exp(1j * math.pi * _c(angle))
   one = torch.ones_like(ph)
   if kind == ir.ZP:
     return _mat2(one, torch.zeros_like(ph), torch.zeros_like(ph), ph)
   if kind == ir.CZP:
     return torch.diag_embed(torch.stack([one, one, one, ph], -1))
-  raise NotImplementedError(f"no dense matrix for gate kind {kind!r} in the "
-                            "port yet")
+  if kind == ir.CXP:
+    out = torch.zeros(angle.shape + (4, 4), dtype=COMPLEX_DTYPE)
+    out[..., 0, 0] = 1.0
+    out[..., 1, 1] = 1.0
+    out[..., 2:, 2:] = _involution_power(math.pi * angle,
+                                         paulis.PAULI_MATS[1])
+    return out
+  raise ValueError(f"no dense matrix for gate kind {kind!r}")
 
 
-def gate_matrix_dangle(kind: str, angle) -> torch.Tensor:
-  """d gate_matrix / d angle for the one-qubit dense kinds.
+def gate_matrix_dangle(kind: str, angle, paulis_codes=()) -> torch.Tensor:
+  """d gate_matrix / d angle.
 
-  Rotations: U = exp(-i*theta/2*G) => dU = (-i/2) G U.  Power gates:
-  U = exp(i*phi/2) exp(-i*phi/2*G), phi = pi*t => dU = pi*(i/2)(I - G) U.
-  """
-  mat = gate_matrix(kind, angle)
-  g = torch.as_tensor(_GENERATOR[kind], dtype=COMPLEX_DTYPE)
+  Rotations: U = exp(-i*theta/2*G) => dU = (-i/2) G U.  PROT: U =
+  exp(-i*theta*P) => dU = -i P U.  Power gates: U = exp(i*phi/2)
+  exp(-i*phi/2*G), phi = pi*t => dU = pi*(i/2)(I - G) U (CXP on its
+  control-1 block, zero on the other)."""
+  mat = gate_matrix(kind, angle, paulis_codes)
   if kind in (ir.RX, ir.RY, ir.RZ):
-    return -0.5j * (g @ mat)
-  if kind in (ir.XP, ir.YP, ir.HP):
-    eye = torch.eye(2, dtype=COMPLEX_DTYPE)
-    return (0.5j * math.pi) * ((eye - g) @ mat)
-  raise NotImplementedError(f"no dense derivative for gate kind {kind!r}")
+    return -0.5j * (torch.as_tensor(_GENERATOR[kind], dtype=COMPLEX_DTYPE)
+                    @ mat)
+  if kind == ir.PROT:
+    return -1j * (torch.as_tensor(_pauli_string_mat(paulis_codes),
+                                  dtype=COMPLEX_DTYPE) @ mat)
+  if kind == ir.CXP:
+    out = torch.zeros_like(mat)
+    out[..., 2:, 2:] = gate_matrix_dangle(ir.XP, angle)
+    return out
+  if kind in (ir.ZP, ir.CZP):
+    g = np.diag(np.where(np.arange(mat.shape[-1]) == mat.shape[-1] - 1, -1,
+                         1)).astype(np.complex64)
+  else:
+    g = _GENERATOR[kind]
+  eye = torch.eye(mat.shape[-1], dtype=COMPLEX_DTYPE)
+  return (0.5j * math.pi) * ((eye - torch.as_tensor(g, dtype=COMPLEX_DTYPE))
+                             @ mat)
 
 
 def segment_matrices(gates, angles: np.ndarray, fn=None):
-  """[fn(gate.kind, angle)] for each gate, batched over the gates of one
-  kind (fn defaults to gate_matrix); `angles` are the gates' host angles."""
+  """[fn(gate.kind, angle, gate.paulis)] for each gate, batched over the
+  gates of one (kind, paulis) (fn defaults to gate_matrix); `angles` are
+  the gates' host angles."""
   fn = fn or gate_matrix
   angles = torch.as_tensor(np.asarray(angles, np.float32))
   out = [None] * len(gates)
-  for kind in sorted(set(g.kind for g in gates)):
-    idx = [i for i, g in enumerate(gates) if g.kind == kind]
-    mats = fn(kind, angles[idx])
+  for key in sorted(set((g.kind, g.paulis) for g in gates)):
+    idx = [i for i, g in enumerate(gates) if (g.kind, g.paulis) == key]
+    mats = fn(key[0], angles[idx], key[1])
     for j, i in enumerate(idx):
       out[i] = mats[j]
   return out
@@ -205,19 +263,27 @@ _DIAG_KINDS = frozenset({ir.ZP, ir.RZ, ir.CZP, ir.ZZP, ir.GPHASE})
 
 
 def _gate_class(gate: ir.Gate) -> str:
+  """'1q', 'diag' or 'single', as the reference's `_gate_class`, except
+  that a one-qubit PROT on X or Y is '1q': exp(-i*a*P) is then a 2x2 dense
+  gate, so a layer of X-field PROTs folds into one segment instead of a
+  flip pass a gate."""
   if gate.kind in _ONEQ_DENSE_KINDS:
     return "1q"
   if gate.kind in _DIAG_KINDS:
     return "diag"
   if gate.kind == ir.PROT and all(p == paulis.Z for p in gate.paulis):
     return "diag"
+  if gate.kind == ir.PROT and len(gate.qubits) == 1:
+    return "1q"
   return "single"
 
 
 @functools.lru_cache(maxsize=None)
 def segment_circuit(gates: Tuple[ir.Gate, ...]):
   """Greedy segmentation into fusable runs: [(cls, (gate_indices...)), ...]
-  with cls '1q' (1-qubit dense gates), 'diag' (diagonal gates) or 'single'."""
+  with cls '1q' (1-qubit dense gates), 'diag' (diagonal gates) or 'single'
+  (one gate of the flip class: CXP, XXP, YYP, a PROT with X or Y factors
+  on two or more qubits)."""
   segments = []
   i = 0
   while i < len(gates):
@@ -333,6 +399,7 @@ def _rows_matmul(s: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
   return out.reshape(lead + (s.shape[0], c))
 
 
+@fp32_matmuls
 def parity_outer_sum(weights: torch.Tensor, row_masks, col_masks,
                      shape_rc) -> torch.Tensor:
   """sum_k w_k * s(row & rm_k) (x) s(col & cm_k) as one matmul.
@@ -592,10 +659,21 @@ def _apply_diag_segment(gates, angles, state: torch.Tensor) -> torch.Tensor:
   return torch.complex(re, im).reshape(r, c)
 
 
+def _apply_flip_gate(gate, angle, state: torch.Tensor) -> torch.Tensor:
+  """One gate of the flip class: `flip_apply` at B = 1."""
+  from qhbmlib_tpu_torch.ops import hopper_sv  # hopper_sv imports this
+  r, c = state.shape
+  re, im = (t.reshape(1, r, c) for t in _planes_of(state))
+  hopper_sv.flip_apply([(re, im)], hopper_sv.flip_record(
+      gate, angle, num_qubits_of(state)))
+  return torch.complex(re, im).reshape(r, c)
+
+
 def _apply_circuit_torch(circuit: ir.Circuit, symbol_values,
                          state: torch.Tensor) -> torch.Tensor:
-  """Segment by segment: K1 / `axis_apply` passes for 1q segments and
-  `diag_rotate` for diagonal ones, at B = 1."""
+  """Segment by segment: K1 / `axis_apply` passes for 1q segments,
+  `diag_rotate` for diagonal ones and `flip_apply` for a gate of the flip
+  class, at B = 1."""
   from qhbmlib_tpu_torch.ops import hopper_sv  # hopper_sv imports this
   angles = resolve_angles(circuit, hopper_sv.host_values(symbol_values))
   for cls, idxs in segment_circuit(circuit.gates):
@@ -605,9 +683,7 @@ def _apply_circuit_torch(circuit: ir.Circuit, symbol_values,
     elif cls == "diag":
       state = _apply_diag_segment(seg_gates, angles[list(idxs)], state)
     else:
-      raise NotImplementedError(
-          f"gate {seg_gates[0].kind!r} is neither a 1q dense nor a diagonal "
-          "gate; the port's engine does not take it yet")
+      state = _apply_flip_gate(seg_gates[0], angles[idxs[0]], state)
   return state
 
 
@@ -615,16 +691,57 @@ def apply_circuit(circuit: ir.Circuit, symbol_values,
                   state: torch.Tensor) -> torch.Tensor:
   """U(values) applied to one [R, C] complex64 state of any content.
 
-  8 <= n <= 20 qubits: K3 (`hopper_sv.circuit_forward`), the whole circuit
-  in one cooperative launch on the card (its plain version on the CPU), as
-  the reference admits its VMEM-resident kernel.  Otherwise segment by
-  segment (`_apply_circuit_torch`).  `symbol_values` is a tensor on any
-  device or a host array: operators are folded on the host."""
+  A circuit of 8 <= n <= 20 qubits with no gate of the flip class
+  (`hopper_sv.single_supported`): K3 (`hopper_sv.circuit_forward`), the
+  whole circuit in one cooperative launch on the card (its plain version
+  on the CPU), as the reference admits its VMEM-resident kernel
+  (`pallas_sv.supported`).  Otherwise segment by segment
+  (`_apply_circuit_torch`), as the reference's XLA path.  `symbol_values`
+  is a tensor on any device or a host array: operators are folded on the
+  host."""
   from qhbmlib_tpu_torch.ops import hopper_sv  # hopper_sv imports this
-  if hopper_sv.single_admits(circuit.num_qubits):
+  if hopper_sv.single_supported(circuit):
     return torch.complex(*hopper_sv.circuit_forward(
         circuit, symbol_values, _planes_of(state)))
   return _apply_circuit_torch(circuit, symbol_values, state)
+
+
+def _prot_codes(gate: ir.Gate, n: int):
+  codes = [0] * n
+  for q, p in zip(gate.qubits, gate.paulis):
+    codes[q] = p
+  return codes
+
+
+def apply_gate(gate: ir.Gate, angle, state: torch.Tensor) -> torch.Tensor:
+  """One gate at its resolved angle on [..., R, C] states, with torch ops
+  (reference `apply_gate`, statevector.py:604-615): PROT as
+  cos(a) s - i sin(a) P s through `apply_pauli_string`, a global phase as
+  a multiply, the rest through `apply_dense`."""
+  a = _c(torch.as_tensor(angle, dtype=torch.float32))
+  if gate.kind == ir.PROT:
+    p_state = apply_pauli_string(state, _prot_codes(gate,
+                                                    num_qubits_of(state)))
+    return torch.cos(a) * state - 1j * torch.sin(a) * p_state
+  if gate.kind == ir.GPHASE:
+    return torch.exp(1j * a) * state
+  return apply_dense(gate_matrix(gate.kind, angle).to(state.device),
+                     gate.qubits, state)
+
+
+def apply_gate_dangle(gate: ir.Gate, angle,
+                      state: torch.Tensor) -> torch.Tensor:
+  """(dU/dangle)|psi> on [..., R, C] states (reference
+  `apply_gate_dangle`, statevector.py:618-630)."""
+  a = _c(torch.as_tensor(angle, dtype=torch.float32))
+  if gate.kind == ir.PROT:
+    p_state = apply_pauli_string(state, _prot_codes(gate,
+                                                    num_qubits_of(state)))
+    return -torch.sin(a) * state - 1j * torch.cos(a) * p_state
+  if gate.kind == ir.GPHASE:
+    return 1j * torch.exp(1j * a) * state
+  return apply_dense(gate_matrix_dangle(gate.kind, angle).to(state.device),
+                     gate.qubits, state)
 
 
 def cross_gram(lam: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -828,6 +945,7 @@ def _pauli_stack(rows, terms: Tuple[int, ...], nr: int, m: int, kind: str,
   return torch.as_tensor(np.stack(mats)).to(device)
 
 
+@fp32_matmuls
 def expectation_terms(state: torch.Tensor,
                       op: paulis.PauliSum) -> torch.Tensor:
   """Per-term real expectations <psi|P_t|psi>, shape [..., num_terms].
@@ -885,6 +1003,7 @@ def expectation_terms(state: torch.Tensor,
                                             for t in ts])), dev)]
 
 
+@fp32_matmuls
 def apply_pauli_sum(state: torch.Tensor, op: paulis.PauliSum,
                     term_weights: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
@@ -958,6 +1077,51 @@ def apply_pauli_string(state: torch.Tensor, codes: Sequence[int]
 def probabilities(state: torch.Tensor) -> torch.Tensor:
   """|psi|^2 over the standard basis, [..., 2^n] float32."""
   return to_vector(state).abs()**2
+
+
+def sample_indices(state: torch.Tensor, num_samples: int,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+  """Basis-state indices drawn from |psi|^2 of one [R, C] state by
+  inverse-CDF search with `generator` (on the state's device), int64
+  [num_samples] (reference `sample_indices`, statevector.py:1529)."""
+  return utils.categorical_indices_from_weights(probabilities(state),
+                                                num_samples, generator)
+
+
+def sample_bitstrings(state: torch.Tensor, num_samples: int,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
+  """Measurement bitstrings [num_samples, n] int8 from |psi|^2 (reference
+  `sample_bitstrings`, statevector.py:1536)."""
+  return index_to_bits(sample_indices(state, num_samples, generator),
+                       num_qubits_of(state))
+
+
+def simulate(circuit: ir.Circuit, symbol_values: torch.Tensor
+             ) -> torch.Tensor:
+  """U(values)|0...0> as an [R, C] state on the values' device (reference
+  `simulate`, statevector.py:1566)."""
+  return apply_circuit(circuit, symbol_values,
+                       zero_state(circuit.num_qubits, symbol_values.device))
+
+
+def simulate_from_bits(circuit: ir.Circuit, symbol_values: torch.Tensor,
+                       bits: torch.Tensor) -> torch.Tensor:
+  """U(values)|bits>: [R, C] for bits [n], [B, R, C] for bits [B, n]
+  (reference `simulate_from_bits`, statevector.py:1573), on the values'
+  device; a batch runs through the batched engine at once."""
+  from qhbmlib_tpu_torch.ops import hopper_sv  # hopper_sv imports this
+  n = circuit.num_qubits
+  bits = bits.to(symbol_values.device)
+  if bits.dim() == 1:
+    return apply_circuit(circuit, symbol_values, basis_state(n, bits))
+  m = minor_bits(n)
+  rowcol = torch.stack([bits_to_index(bits[:, :n - m], n - m),
+                        bits_to_index(bits[:, n - m:], m)], dim=1)
+  return torch.complex(*hopper_sv.apply_circuit_batched(circuit,
+                                                        symbol_values,
+                                                        rowcol))
 
 
 def unitary(circuit: ir.Circuit, symbol_values: torch.Tensor) -> torch.Tensor:

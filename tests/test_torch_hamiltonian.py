@@ -390,6 +390,14 @@ def test_convert_carries_nested_trees():
   np.testing.assert_array_equal(tree["data"]["phi"].numpy(),
                                 np.asarray(jh.params["phi"][0]))
   assert tree["target_coeffs"].shape == (3,)
-  with pytest.raises(ValueError, match="exactly one"):
-    convert.from_jax_params({"model": {"theta": [np.zeros(2)] * 2}},
-                            device=CPU)
+  # A group of several arrays (QAIA's phi) is a tuple of tensors; loading
+  # it into a module of one parameter raises, as does an empty group.
+  two = convert.from_jax_params({"model": {"theta": [np.zeros(4)] * 2}},
+                                device=CPU)
+  assert isinstance(two["model"]["theta"], tuple)
+  assert len(two["model"]["theta"]) == 2
+  h = _port_qhbm(jh, 4, 1, "p")
+  with pytest.raises(ValueError, match="holds 2 tensors for 1 parameters"):
+    h.set_params(two["model"])
+  with pytest.raises(ValueError, match="empty group"):
+    convert.from_jax_params({"model": {"theta": []}}, device=CPU)

@@ -129,9 +129,13 @@ def test_from_jax_params_and_set_params(jax_run):
   h, _ = _port_model(jax_run["params0"])
   np.testing.assert_array_equal(h.params["phi"][0].detach().numpy(),
                                 jax_run["params0"]["phi"][0])
-  with pytest.raises(ValueError, match="exactly one"):
-    convert.from_jax_params({"theta": [np.zeros(2), np.zeros(2)],
-                             "phi": [np.zeros(3)]}, device=CPU)
+  # A group of several arrays is a tuple of tensors (QAIA's phi); a
+  # module of one parameter refuses it.
+  two = convert.from_jax_params({"theta": [np.zeros(N), np.zeros(N)],
+                                 "phi": [np.zeros(3)]}, device=CPU)
+  assert isinstance(two["theta"], tuple) and len(two["theta"]) == 2
+  with pytest.raises(ValueError, match="holds 2 tensors for 1 parameters"):
+    h.set_params(two)
 
 
 def test_log_partition_and_entropy_match_jax():
