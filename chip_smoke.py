@@ -58,7 +58,17 @@ qaia 20q" (the 20q workload with QAIA on the TFIM's shards, 4 layers: a
 warm-up and three steps, the gradient against the plain versions), "vqt
 qaia heis 20q" (QAIA on the Heisenberg chain's shards, 2 layers: its XX
 and YY PROTs run the flip kernels; one step's gradient against the plain
-versions, <H> of one sampled bitstring against the f64 oracle), and last
+versions, <H> of one sampled bitstring against the f64 oracle), the JAX
+ladder's r1 rung ("train r1 2q": a warm-up and one step; its exact-EBM
+loss against a float64 free-energy oracle), its r3 rung at its own 16
+qubits ("train r3 16q": KOBE-2 VQT measured by `SampledQuantumInference`
+at 1000 shots, parameter-shift gradients: 188 shifted rows of 4 states
+through the batched forward, each row's shifted gate a correction on its
+slice; a warm-up and three timed steps, steps/s and peak memory; no sweep
+kernel may launch; every row's group probabilities against the plain
+versions, the shot-free shift gradient against the adjoint one, the
+step's sampled gradient within 6 standard errors of it, <H> against the
+f64 oracle), and last
 the JAX ladder's r5 rung at its own 28 qubits ("train r5 28q": KOBE-2
 sampled by 8 Gibbs-With-Gradients chains threaded through the steps, the
 data 4 states of 2 GB; a warm-up and three timed steps, peak memory and
@@ -68,7 +78,7 @@ the batch-chunk plan, the gradient against the plain versions, and
 times r5's kernels at their 28q shapes and measures the batch-chunking
 rule's state count at 24q, and before the main paths it checks that a
 24q expectation agrees within 1e-6 with the caller's TF32 flag on and off
-(the engine pins fp32).  On every train path
+(the engine pins fp32).  On every train path with an adjoint sweep
 `diag_rotate` must launch as often as `parity_bilinear`: once a diagonal
 segment in the forward and never in the sweep.  It fails if the VQT
 gate's gradient error reaches 1e-2, the QMHL, r2, r5, Heisenberg and
@@ -2038,6 +2048,313 @@ def phase_vqt_qaia_heis20(device):
       lambda cfg, dev: bench.build_qaia_step(cfg, dev, target), QAIA_HEIS)
 
 
+# Kernels the r1 step (2q: no row qubit, the minor operator alone takes
+# axis_apply at N = 4) must launch; a step runs one forward and one sweep.
+TRAIN_R1 = ["axis_apply", "diag_rotate", "qubit_transitions",
+            "parity_bilinear"]
+
+
+def r1_oracle(h, target) -> float:
+  """beta tr(rho H) - S of the r1 model in float64 without the port's
+  engine: U column by column by the C++ oracle, p(x) the Bernoulli
+  energy's exact distribution, rho = U diag(p) U^dagger."""
+  import numpy as np
+  from qhbmlib_tpu_torch.benchmarks import ladder
+  from qhbmlib_tpu_torch.ops import hopper_sv
+  from qhbmlib_tpu_torch.ops import native_oracle
+  circuit = h.q_inference.circuit
+  n = circuit.num_qubits
+  values = hopper_sv.host_values(circuit.resolved_values()).astype(np.float64)
+  bits = (np.arange(2**n)[:, None] >> np.arange(n - 1, -1, -1)) & 1
+  u = np.stack([native_oracle.simulate(circuit.pqc, values, bits=b)
+                for b in bits], axis=1)
+  theta = h.e_inference.energy.kernel.detach().cpu().double().numpy()
+  logits = -(1.0 - 2.0 * bits) @ theta
+  p = np.exp(logits - logits.max())
+  p /= p.sum()
+  rho = u @ np.diag(p) @ u.conj().T
+  return float(ladder.BETA * np.real(np.trace(rho @ target.dense())) +
+               np.sum(p * np.log(p)))
+
+
+def phase_train_r1(device):
+  """"train r1 2q": the JAX ladder's r1 rung (`ladder.build_rung(
+  "r1_tfim2_vqt")`: 2q TFIM VQT, Bernoulli EBM of 500 samples, HEA 2L) on
+  the card, a warm-up and one step with every count reset just before and
+  read just after.  Then, as the bench's gate does at the rung's own beta
+  (TF32 off): the timed step's loss and gradient through the kernels
+  against the plain versions (`AnalyticQuantumInference(plain=True)`) at
+  its parameters and EBM draw, within GRAD_TOL -- this holds the sweep's
+  kernels at 2q, where the minor operator is the whole state; and the rung
+  with its exact EBM: its loss against the float64 free-energy oracle
+  (`r1_oracle`) within ORACLE_TOL.  Returns the launches."""
+  from qhbmlib_tpu_torch import bench
+  from qhbmlib_tpu_torch.benchmarks import ladder
+  from qhbmlib_tpu_torch.inference import qhbm, qnn, vqt_loss
+  h, target, step = ladder.build_rung("r1_tfim2_vqt", device=device)
+  reset_launches()
+  step()
+  params = [p.detach().clone() for p in h.parameters()]
+  state = h.e_inference.generator.get_state()
+  t0 = time.perf_counter()
+  loss, grad = step()
+  torch.cuda.synchronize()
+  dt = time.perf_counter() - t0
+  launches = read_launches("train r1 2q", TRAIN_R1, paired=True)
+  log(f"[train r1 2q] one step {dt * 1e3:.2f} ms (host clock), loss "
+      f"{float(loss):.6f}; launches (warm-up + 1 step): "
+      f"{ {k: v for k, v in launches.items() if v} }")
+  with torch.no_grad():
+    for p, v in zip(h.parameters(), params):
+      p.copy_(v)
+      p.grad = None
+  h.e_inference.generator.set_state(state)
+  plain = qhbm.QHBM(h.e_inference, qnn.AnalyticQuantumInference(
+      h.q_inference.circuit, plain=True))
+  loss_p = vqt_loss.make_vqt(plain, target)(ladder.BETA)
+  loss_p.backward()
+  grad_p = bench.flat_grads(h)
+  log(f"[train r1 2q] timed step through the kernels: loss "
+      f"{float(loss):.8f}, plain {float(loss_p.detach()):.8f}")
+  check("train r1 2q gradient, kernels vs plain at 1 step",
+        rel_err(grad.cpu(), grad_p.cpu()), GRAD_TOL)
+  h, target, step = ladder.build_rung("r1_tfim2_vqt", exact=True,
+                                      device=device)
+  want = r1_oracle(h, target)
+  got = float(step()[0])
+  log(f"[train r1 2q] exact-EBM loss {got:.8f}, f64 oracle {want:.8f}")
+  check("train r1 2q exact-EBM loss vs f64 free-energy oracle",
+        abs(got - want) / abs(want), ORACLE_TOL)
+  return launches
+
+
+R3 = "r3_kobe16_vqt_shift"
+# The r3 step launches the batched forward's kernels only: its 16q 1q
+# segments take K1 on (0,7) x the minor and axis_apply at N = 4 on (7,2),
+# its shift corrections axis_apply at N = 2 (an XP row) and diag_rotate (a
+# ZP or CZ row).  A shift gradient runs no sweep.
+TRAIN_R3 = ["axis_apply", "axis2_apply", "diag_rotate"]
+NO_SWEEP = ["qubit_transitions", "parity_bilinear", "circuit_forward",
+            "adjoint_sweep"]
+# A sampled gradient component against the exact one, in standard errors.
+SHIFT_SIGMAS = 6.0
+# The sampled gradient's mean squared z over its P components (about 1 for
+# an honest sampler; a chi-square of P degrees of freedom over P, standard
+# deviation sqrt(2 / P)) may lie this many of its standard deviations from 1.
+CHI2_SIGMAS = 5.0
+
+
+def shot_variance(probs, masks, gk, states: int):
+  """[rows] sum over a row's states b of Var_x(f_b(x)), x drawn from the
+  row's group probabilities `probs` [rows * states, 2^n] and f_b(x) =
+  sum_t gk[b, t] (-1)^popcount(x & mask_t) the group's weighted parity
+  sum: one shot's variance of that state's group estimate.  float64."""
+  from qhbmlib_tpu_torch.inference import qnn
+  from qhbmlib_tpu_torch.ops import statevector
+  dim = probs.shape[1]
+  signs = statevector.parity_signs(qnn._flat_masks(masks), dim,
+                                   probs.device).double()
+  f = gk.double() @ signs  # [states, 2^n]
+  p = probs.double().reshape(-1, states, dim)
+  m1 = torch.einsum("rbx,bx->rb", p, f)
+  m2 = torch.einsum("rbx,bx->rb", p, f * f)
+  return (m2 - m1 * m1).sum(dim=1)
+
+
+def shift_sigma(pqc, row_var, shots):
+  """[num_symbols] standard errors of a sampled shift gradient: shifted row
+  r (`shift.shift_plan` order) adds weights[r] times its groups' estimates
+  to its slot, each a mean of `shots` draws of per-shot variance
+  row_var[r] (`shot_variance`, summed over groups); the rows, states and
+  groups draw independently."""
+  import numpy as np
+  from qhbmlib_tpu_torch.ops import shift
+  _, weights, slots = shift.shift_plan(pqc)
+  var = np.zeros(pqc.num_symbols)
+  np.add.at(var, slots, weights.astype(np.float64)**2 *
+            row_var.cpu().numpy() / shots)
+  return np.sqrt(var)
+
+
+def z_stats(z):
+  """(worst |z|, its index, mean z^2) of standard scores `z`."""
+  import numpy as np
+  z = np.abs(np.asarray(z))
+  return float(z.max()), int(z.argmax()), float(np.mean(z * z))
+
+
+def r3_restore(h, snap):
+  """Puts a recorded step's (parameters, EBM generator state) back into
+  `h` and returns that step's EBM (support, counts)."""
+  params, state = snap
+  with torch.no_grad():
+    for p, v in zip(h.parameters(), params):
+      p.copy_(v)
+  h.e_inference.generator.set_state(state)
+  return h.e_inference.support_and_counts()
+
+
+def phase_train_r3(device):
+  """"train r3 16q": the JAX ladder's r3 rung (`ladder.build_rung(
+  "r3_kobe16_vqt_shift")`) at its own 16q/2L: KOBE-2 under exact
+  categorical inference (100 samples, 4 unique states), the HEA measured
+  by `SampledQuantumInference` at 1000 shots with parameter-shift
+  gradients (188 shifted rows of 4 states through the batched forward and
+  its per-row corrections).  A warm-up and STEPS steps with every count
+  reset just before and read just after: steps/s (host clock after a
+  synchronize) and peak memory; axis2_apply, axis_apply and diag_rotate
+  launched, and no sweep kernel.  Then:
+    (iii) at each timed step's parameters and EBM support, its sampled
+          gradient against the shot-free one (means from the kernels'
+          probabilities), in standard errors from the exact per-shot
+          variances of those probabilities (`shot_variance`,
+          `shift_sigma`): over all STEPS x 94 components, each within
+          SHIFT_SIGMAS and their mean squared z within CHI2_SIGMAS of 1; a
+          control sampled at half the shots at the same points is read
+          against the same standard errors and printed.
+  At the last timed step's parameters and EBM support:
+    (i)   every row's group probabilities (base + 188 shifted rows, 756
+          states, both bases) through the kernels against the plain
+          versions within STATE_TOL (relative L2 a row);
+    (ii)  the shot-free shift gradient against the adjoint gradient
+          (`batched_expectations`) within GRAD_TOL;
+    (iv)  <H> of the first support state from exact probabilities against
+          `native_oracle` in float64 within ORACLE_TOL.
+  Returns the launches."""
+  import numpy as np
+  from qhbmlib_tpu_torch.benchmarks import ladder
+  from qhbmlib_tpu_torch.inference import qnn
+  from qhbmlib_tpu_torch.ops import adjoint
+  from qhbmlib_tpu_torch.ops import hopper_sv
+  from qhbmlib_tpu_torch.ops import native_oracle
+  from qhbmlib_tpu_torch.ops import shift
+  t0 = time.time()
+  h, target, step = ladder.build_rung(R3, device=device)
+  e_inf, q_inf = h.e_inference, h.q_inference
+  circuit = q_inf.circuit
+  pqc = circuit.pqc
+  log(f"[train r3 16q] rung built in {time.time() - t0:.2f} s: "
+      f"{pqc.num_gates} gates, {len(shift.shift_plan(pqc)[1])} shifted rows, "
+      f"{q_inf.expectation_samples} shots, at most "
+      f"{e_inf.max_unique_samples} states")
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats(device)
+  reset_launches()
+  t0 = time.perf_counter()
+  step()
+  torch.cuda.synchronize()
+  log(f"[train r3 16q] warm-up step {time.perf_counter() - t0:.3f} s")
+  snaps, grads = [], []
+  t0 = time.perf_counter()
+  for _ in range(STEPS):
+    snaps.append(([p.detach().clone() for p in h.parameters()],
+                  e_inf.generator.get_state()))
+    loss, g = step()
+    grads.append(g)
+  torch.cuda.synchronize()
+  dt = time.perf_counter() - t0
+  peak = torch.cuda.max_memory_allocated(device)
+  launches = read_launches("train r3 16q", TRAIN_R3)
+  swept = {k: launches[k] for k in NO_SWEEP if launches[k]}
+  if swept:
+    raise AssertionError(f"train r3 16q: the shift gradient ran the adjoint "
+                         f"path: {swept}")
+  log(f"[train r3 16q] {STEPS / dt:.4f} steps/s ({STEPS} steps in "
+      f"{dt:.3f} s, host clock), peak memory {peak / 2**30:.2f} GiB, final "
+      f"loss {float(loss):.6f}; launches per step (warm-up + {STEPS} "
+      f"steps): { {k: v / (STEPS + 1) for k, v in launches.items() if v} }")
+  plan, _ = qnn.measurement_plan(pqc, (target,))
+  offsets = shift.shift_plan(pqc)[0]
+  rows = np.concatenate([np.zeros((1, pqc.num_gates), np.float32), offsets])
+  shots = q_inf.expectation_samples
+  perm = circuit._perm.cpu()
+  half_gen = torch.Generator(device=device).manual_seed(SEED + 15)
+  # (iii) each timed step's sampled gradient, and the half-shots control,
+  # against the shot-free one in exact standard errors.
+  zs, zs_half, sigmas = [], [], []
+  for k, (snap, grad) in enumerate(zip(snaps, grads)):
+    support, counts = r3_restore(h, snap)
+    bits = support.to(torch.int8)
+    values = circuit.resolved_values().detach()
+    rowcol = adjoint.bits_to_rowcol(bits, pqc.num_qubits)
+    w = (counts / counts.sum()).to(device)
+    g = ladder.BETA * w[:, None] * target.coeffs[None, :]
+    t0 = time.perf_counter()
+    psi = hopper_sv.apply_circuit_shifted(pqc, values, rowcol, rows)
+    torch.cuda.synchronize()
+    if k == 0:
+      log(f"[train r3 16q] shifted batch of {psi[0].shape[0]} states "
+          f"through the kernels: {(time.perf_counter() - t0) * 1e3:.2f} ms "
+          "(host clock, first call of these shapes)")
+    row_var = torch.zeros(len(rows), dtype=torch.float64, device=device)
+    for rotation, masks, idx in plan[0]:
+      row_var += shot_variance(qnn.group_probabilities(psi, rotation), masks,
+                               g[:, list(idx)], len(bits))
+    sigma = shift_sigma(pqc, row_var[1:], shots)
+    exact = qnn.term_means_gradient(pqc, values, rowcol, plan, g).double()
+    sampled = grad[-circuit.values.numel():].double().cpu()[perm]  # slots
+    half = qnn.term_means_gradient(pqc, values, rowcol, plan, g, shots // 2,
+                                   half_gen).double().cpu()
+    zs.append((sampled - exact.cpu()).numpy() / sigma)
+    zs_half.append((half - exact.cpu()).numpy() / sigma)
+    sigmas.append(sigma)
+    if k < len(snaps) - 1:
+      del psi
+  worst, at, chi2 = z_stats(np.concatenate(zs))
+  h_worst, h_at, h_chi2 = z_stats(np.concatenate(zs_half))
+  num_z = sum(len(z) for z in zs)
+  chi2_tol = CHI2_SIGMAS * np.sqrt(2.0 / num_z)
+  per = pqc.num_symbols
+  log(f"[train r3 16q] sampled gradients vs shot-free at {len(zs)} steps, "
+      f"{num_z} components at {shots} shots: worst z {worst:.3f} (step "
+      f"{at // per}, symbol {at % per}; limit {SHIFT_SIGMAS}), mean z^2 "
+      f"{chi2:.3f} (limit 1 +/- {chi2_tol:.3f}); median standard error "
+      f"{np.median(np.concatenate(sigmas)):.4e}; control at {shots // 2} "
+      f"shots against the same standard errors: worst z {h_worst:.3f} (step "
+      f"{h_at // per}, symbol {h_at % per}), mean z^2 {h_chi2:.3f}")
+  if not worst < SHIFT_SIGMAS:
+    raise AssertionError(f"train r3 16q: a sampled gradient component lies "
+                         f"{worst:.2f} standard errors from the exact one")
+  if not abs(chi2 - 1.0) < chi2_tol:
+    raise AssertionError(f"train r3 16q: the sampled gradients' mean z^2 "
+                         f"is {chi2:.3f}, not within {chi2_tol:.3f} of 1")
+  # (i) at the last timed step: every row's group probabilities, kernels
+  # against plain.
+  psi_p = hopper_sv.apply_circuit_shifted(pqc, values, rowcol, rows,
+                                          plain=True)
+  err = 0.0
+  for rotation, _, _ in plan[0]:
+    got = qnn.group_probabilities(psi, rotation)
+    want = qnn.group_probabilities(psi_p, rotation, plain=True)
+    err = max(err, float((torch.linalg.vector_norm(got - want, dim=1) /
+                          torch.linalg.vector_norm(want, dim=1)).max()))
+    del got, want
+  del psi, psi_p
+  check(f"train r3 16q group probabilities of {len(rows)} rows x "
+        f"{len(bits)} states ({len(plan[0])} bases), kernels vs plain",
+        err, STATE_TOL)
+  # (ii) the shot-free shift gradient against the adjoint one.
+  leaf = values.clone().requires_grad_()
+  adj = adjoint.batched_expectations(pqc, leaf, bits, (target,))[:, 0]
+  (ladder.BETA * (w * adj).sum()).backward()
+  check("train r3 16q shot-free shift gradient vs adjoint gradient",
+        rel_err(exact.cpu(), leaf.grad.double().cpu()), GRAD_TOL)
+  # (iv) <H> of the first support state against the f64 oracle.
+  means = qnn.shifted_term_means(pqc, values, rowcol[:1],
+                                 np.zeros([1, pqc.num_gates], np.float32),
+                                 plan)[0, 0]
+  got = float((means * target.coeffs).sum())
+  psi0 = native_oracle.simulate(
+      pqc, hopper_sv.host_values(values).astype(np.float64),
+      bits=bits.cpu().numpy()[0])
+  want = native_oracle.expectation_f64(psi0, target)
+  log(f"[train r3 16q] <H> of the first support state {got:.8f}, f64 "
+      f"oracle {want:.8f}")
+  check("train r3 16q <H> vs f64 oracle", abs(got - want) / abs(want),
+        ORACLE_TOL)
+  return launches
+
+
 SOURCES = {"stream_scale": "qhbmlib_tpu_torch/csrc/stream_kernels.cu"}
 REPLACES = {
     "axis_apply": "qhbmlib_tpu/ops/pallas_sv.py:459",
@@ -2141,6 +2458,8 @@ def main() -> int:
   paths["vqt heis 20q"] = phase_vqt_heis20(device)
   paths["train qaia 20q"] = phase_train_qaia20(device)
   paths["vqt qaia heis 20q"] = phase_vqt_qaia_heis20(device)
+  paths["train r1 2q"] = phase_train_r1(device)
+  paths["train r3 16q"] = phase_train_r3(device)
   free_device_memory()
   phase_kernels_28q(device)
   phase_chunk_rule(device)

@@ -8,9 +8,12 @@ and 16q/4L/500/64, whose lone row block (7,2) takes `axis_apply`'s N < 16
 route) it builds the train step (`bench.build_train_step`), and for the QMHL
 steps of QMHL_WORKLOADS ("qmhl 24q", `bench.build_qmhl_step`; "r2 8q"
 and "r2 11q", the JAX ladder's r2 rung, and "r5 28q", its r5 rung,
-`ladder.build_rung`) and for the QAIA steps of QAIA_WORKLOADS ("qaia 20q",
+`ladder.build_rung`), for the QAIA steps of QAIA_WORKLOADS ("qaia 20q",
 "qaia heis 20q": `bench.build_qaia_step`, the TFIM or the Heisenberg
-chain), takes one
+chain) and for the VQT rungs of RUNG_WORKLOADS ("r3 16q", the JAX ladder's
+r3 rung: parameter-shift gradients, its step also split by SHIFT_SPANS
+into host folds, shared stages, per-row corrections and sampling,
+`span_split`), takes one
 warm-up step, then traces STEPS steps inside one `record_function` region
 that ends in a synchronize.  From the exported Chrome trace: the busy
 share, the union of the device intervals (kernels, copies, sets) inside
@@ -41,6 +44,7 @@ import torch
 
 from qhbmlib_tpu_torch import bench
 from qhbmlib_tpu_torch.benchmarks import ladder
+from qhbmlib_tpu_torch.inference import qnn
 from qhbmlib_tpu_torch.models import circuit_utils
 from qhbmlib_tpu_torch.ops import adjoint
 from qhbmlib_tpu_torch.ops import hopper_adjoint
@@ -69,6 +73,18 @@ QMHL_WORKLOADS = {"qmhl 24q": bench.QMHL_WORKLOAD,
                   "r5 28q": dict(rung="r5_gwg28_qmhl", qubits=28)}
 # The profiled QAIA VQT steps (`bench.QAIA_WORKLOADS`).
 QAIA_WORKLOADS = bench.QAIA_WORKLOADS
+# The profiled VQT rungs of the JAX ladder: r3 at its own 16 qubits (KOBE-2,
+# 4 unique states, HEA 2L, 1000 shots, parameter-shift gradients), its
+# step split by SHIFT_SPANS.
+RUNG_WORKLOADS = {"r3 16q": dict(rung="r3_kobe16_vqt_shift", qubits=16)}
+# The r3 step's parts: the host folds (`prepare_segments`) and corrections
+# (`shift_corrections`), the shared stages (`apply_stage`: every forward
+# stage over the whole batch, measurement suffixes included), the per-row
+# corrections (`apply_correction`) and the draws with their parities
+# (`_sampled_means`).
+SHIFT_SPANS = ((hopper_sv, "prepare_segments"),
+               (hopper_sv, "shift_corrections"), (hopper_sv, "apply_stage"),
+               (hopper_sv, "apply_correction"), (qnn, "_sampled_means"))
 # The single-state call's host parts, in call order: (module, function).
 SINGLE_SPANS = (
     (hopper_sv, "host_values"), (hopper_sv, "forward_table"),
@@ -157,6 +173,33 @@ def host_split(events, calls: int, name: str = SINGLE_REGION) -> dict:
           "rest_ms": ((t1 - t0) - union_us(covered)) / 1e3 / calls}
 
 
+def span_split(events, steps: int, spans, name: str = REGION) -> dict:
+  """Per (module, function) of `spans` inside the region `name`, a step:
+  its host ms (the union of its annotated intervals), the device ms of the
+  kernels, copies and sets launched inside it (matched by correlation id)
+  and their count; "rest" the device work launched outside every span."""
+  t0, t1 = region_of(events, name)
+  inside = [e for e in events if t0 <= e.get("ts", -1) <= t1]
+  dev = {e["args"]["correlation"]: e for e in inside
+         if e.get("cat") in DEVICE_CATS and "correlation" in e.get("args", {})}
+  launches = [e for e in inside if e.get("cat") in RUNTIME_CATS
+              and e.get("args", {}).get("correlation") in dev]
+  out, claimed = {}, set()
+  for _, fn in spans:
+    iv = [(e["ts"], e["ts"] + e["dur"]) for e in inside
+          if e.get("cat") == "user_annotation" and e.get("name") == fn]
+    ids = {e["args"]["correlation"] for e in launches
+           if any(s <= e["ts"] <= t for s, t in iv)}
+    claimed |= ids
+    out[fn] = {"host_ms": union_us(iv) / 1e3 / steps,
+               "device_ms": sum(dev[i]["dur"] for i in ids) / 1e3 / steps,
+               "launches": len(ids) / steps}
+  rest = set(dev) - claimed
+  out["rest"] = {"device_ms": sum(dev[i]["dur"] for i in rest) / 1e3 / steps,
+                 "launches": len(rest) / steps}
+  return out
+
+
 @contextlib.contextmanager
 def traced_spans(spans=SINGLE_SPANS):
   """Runs each (module, function) of `spans` inside a record_function of its
@@ -229,7 +272,7 @@ def profile_workload(name: str, trace_dir: str) -> dict:
   WORKLOADS or QAIA_WORKLOADS or the QMHL workload of QMHL_WORKLOADS (a
   ladder rung where it names one): the region's breakdown."""
   device = torch.device("cuda")
-  cfg = QMHL_WORKLOADS.get(name, {})
+  cfg = QMHL_WORKLOADS.get(name, RUNG_WORKLOADS.get(name, {}))
   if "rung" in cfg:
     _, _, train_step = ladder.build_rung(cfg["rung"], qubits=cfg["qubits"],
                                          device=device)
@@ -247,7 +290,8 @@ def profile_workload(name: str, trace_dir: str) -> dict:
   torch.cuda.synchronize()
   acts = [torch.profiler.ProfilerActivity.CPU,
           torch.profiler.ProfilerActivity.CUDA]
-  with torch.profiler.profile(activities=acts) as prof:
+  spans = SHIFT_SPANS if name in RUNG_WORKLOADS else ()
+  with traced_spans(spans), torch.profiler.profile(activities=acts) as prof:
     with torch.profiler.record_function(REGION):
       for _ in range(STEPS):
         train_step()
@@ -258,8 +302,9 @@ def profile_workload(name: str, trace_dir: str) -> dict:
   prof.export_chrome_trace(path)
   with open(path) as f:
     events = json.load(f)["traceEvents"]
+  split = {"split": span_split(events, STEPS, spans)} if spans else {}
   return {"workload": name, "steps": STEPS, **breakdown(events, STEPS),
-          "trace": path, "card": bench.card(device)}
+          **split, "trace": path, "card": bench.card(device)}
 
 
 def main(argv=None) -> None:
@@ -273,7 +318,8 @@ def main(argv=None) -> None:
     sys.exit("step_profile: needs the CUDA card")
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
-  for name in [*WORKLOADS, *QMHL_WORKLOADS, *QAIA_WORKLOADS]:
+  for name in [*WORKLOADS, *QMHL_WORKLOADS, *QAIA_WORKLOADS,
+               *RUNG_WORKLOADS]:
     if args.only is None or name in args.only:
       print(json.dumps(profile_workload(name, args.trace_dir)), flush=True)
       torch.cuda.empty_cache()

@@ -9,4 +9,5 @@ from qhbmlib_tpu_torch.inference.qmhl_loss import make_qmhl
 from qhbmlib_tpu_torch.inference.qmhl_loss import make_qmhl_with_state
 from qhbmlib_tpu_torch.inference.qnn import AnalyticQuantumInference
 from qhbmlib_tpu_torch.inference.qnn import QuantumInference
+from qhbmlib_tpu_torch.inference.qnn import SampledQuantumInference
 from qhbmlib_tpu_torch.inference.vqt_loss import make_vqt

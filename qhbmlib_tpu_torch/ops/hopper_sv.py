@@ -400,14 +400,16 @@ def segment_ops(majors, minor, nr: int, m: int):
   return ops
 
 
-def forward_plan(circuit: ir.Circuit, symbol_values):
+def forward_plan(circuit: ir.Circuit, symbol_values, angle_offsets=None):
   """Host stages in circuit order, shared by the batched and single-state
   engines: ("1q", segment_ops), ("diag", (weights [K] float32, row_masks,
-  col_masks)) or ("dense", FlipRecord) for a gate of the flip class."""
+  col_masks)) or ("dense", FlipRecord) for a gate of the flip class.
+  `angle_offsets` ([num_gates]) is added to the resolved angles."""
   n = circuit.num_qubits
   m = sv.minor_bits(n)
   nr = n - m
-  angles = sv.resolve_angles(circuit, host_values(symbol_values))
+  angles = sv.resolve_angles(circuit, host_values(symbol_values),
+                             angle_offsets)
   plan = []
   for cls, idxs in sv.segment_circuit(circuit.gates):
     seg_gates = [circuit.gates[i] for i in idxs]
@@ -596,6 +598,159 @@ def apply_circuit_batched(circuit: ir.Circuit, symbol_values,
 
 
 # ---------------------------------------------------------------------------
+# The shifted batch: many rows of angle offsets in one forward
+# ---------------------------------------------------------------------------
+
+def _chain_products(mats: np.ndarray, chains) -> np.ndarray:
+  """[len(chains), 2, 2] complex128 products of consecutive runs of
+  `mats` [M, 2, 2] of the given lengths, each run in gate order."""
+  out, pos = [], 0
+  for length in chains:
+    prod = mats[pos]
+    for j in range(pos + 1, pos + length):
+      prod = mats[j] @ prod
+    out.append(prod)
+    pos += length
+  return np.stack(out)
+
+
+def shift_corrections(circuit: ir.Circuit, base: np.ndarray,
+                      shifted: np.ndarray):
+  """Per forward stage, the host corrections that turn the base forward of
+  every row into its shifted one: a list a stage of
+    ("axis", rows, qubits, V [P, 2, 2] complex128),
+    ("diag", rows, W [Rs, K] float32, row_masks, col_masks) or
+    ("dense", rows, [FlipRecord]).
+
+  Every gate of the IR is a one-parameter group, G(a + d) = G(d) G(a), so a
+  row whose angles differ from `base` ([G] float32) at some gates needs,
+  after the stage that holds them: in a 1q segment, for each qubit q of a
+  shifted gate, the 2x2 V = U_q(shifted) U_q(base)^-1, U_q the product of
+  the segment's 2x2s on q (a later gate on q conjugates the shift, and V
+  carries it; complex128 from the float32 gate matrices); in a diagonal
+  segment its parity weights at the angle differences (zero for the
+  unshifted gates, which commute); for a flip gate its record at the
+  angle difference.  `shifted` is [rows, G] float32; rows equal to `base`
+  get nothing."""
+  n = circuit.num_qubits
+  m = sv.minor_bits(n)
+  nr = n - m
+  moved = shifted != base[None, :]
+  out = []
+  for cls, idxs in sv.segment_circuit(circuit.gates):
+    idxs = list(idxs)
+    seg_gates = [circuit.gates[i] for i in idxs]
+    rows = np.nonzero(moved[:, idxs].any(axis=1))[0]
+    fixes = []
+    if cls == "1q" and len(rows):
+      chain = {}
+      for j, g in enumerate(seg_gates):
+        chain.setdefault(g.qubits[0], []).append(j)
+      pairs = [(r, q) for r in rows for q in sorted(
+          {seg_gates[j].qubits[0] for j in np.nonzero(moved[r, idxs])[0]})]
+      qubits = sorted({q for _, q in pairs})
+      picks = [(None, j) for q in qubits for j in chain[q]]
+      picks += [(r, j) for r, q in pairs for j in chain[q]]
+      mats = sv.segment_matrices(
+          [seg_gates[j] for _, j in picks],
+          np.asarray([base[idxs[j]] if r is None else shifted[r, idxs[j]]
+                      for r, j in picks], np.float32))
+      mats = np.asarray(torch.stack(mats), np.complex128)
+      prods = _chain_products(mats, [len(chain[q]) for q in qubits] +
+                              [len(chain[q]) for _, q in pairs])
+      inv = dict(zip(qubits, np.linalg.inv(prods[:len(qubits)])))
+      v = prods[len(qubits):] @ np.stack([inv[q] for _, q in pairs])
+      fixes.append(("axis", [int(r) for r, _ in pairs],
+                    [q for _, q in pairs], v))
+    elif cls == "diag" and len(rows):
+      coeffs, rms, cms, owner = sv.diag_segment_triples(seg_gates, nr, m)
+      diff = (shifted[rows][:, idxs].astype(np.float64) -
+              base[idxs].astype(np.float64))
+      w = (np.asarray(coeffs) * diff[:, np.asarray(owner, np.int64)])
+      fixes.append(("diag", [int(r) for r in rows], w.astype(np.float32),
+                    rms, cms))
+    elif cls == "single" and len(rows):
+      g = idxs[0]
+      fixes.append(("dense", [int(r) for r in rows], [
+          flip_record(circuit.gates[g], float(shifted[r, g]) - float(base[g]),
+                      n) for r in rows]))
+    out.append(fixes)
+  return out
+
+
+def apply_circuit_shifted(circuit: ir.Circuit, symbol_values,
+                          init_rowcol: torch.Tensor, angle_offsets,
+                          plain: bool = False) -> Planes:
+  """Evolves B basis states through the circuit once for each row of
+  `angle_offsets` [rows, num_gates]: row r, state b is U(angles +
+  offsets[r])|b>, what `statevector.apply_circuit(..., angle_offsets=row)`
+  gives each state, for every row in one batch.
+
+  The rows x B states are laid out [rows * B, R, C], row r's states at
+  [r * B, (r + 1) * B).  Every stage's shared operators (the base angles)
+  run over the whole batch with the batched forward's launches
+  (`prepare_segments`, `apply_stage`); after a stage, each row whose
+  offsets touch it gets its correction (`shift_corrections`,
+  `apply_correction`) on its own B-state slice.  The corrections'
+  operators and weights are built on the host and all cross to the device
+  in one copy; no row folds the circuit again.  `plain=True` runs the
+  kernels' plain versions (reference only).  Returns (re, im) float32
+  [rows * B, R, C]."""
+  shape_rc = sv.state_shape(circuit.num_qubits)
+  offsets = np.asarray(angle_offsets, np.float32).reshape(
+      -1, circuit.num_gates)
+  values = host_values(symbol_values)
+  base = sv.resolve_angles(circuit, values)
+  fixes = shift_corrections(circuit, base,
+                            sv.resolve_angles(circuit, values, offsets))
+  host = []
+  for fix in (f for stage_fixes in fixes for f in stage_fixes):
+    if fix[0] == "axis":
+      host.extend(split(torch.from_numpy(fix[3].astype(np.complex64))))
+    elif fix[0] == "diag":
+      host.append(torch.from_numpy(fix[2]))
+  device = init_rowcol.device
+  moved = iter(to_device(host, device))
+  planes = [basis_planes(init_rowcol.repeat(offsets.shape[0], 1), shape_rc)]
+  stages = prepare_segments(circuit, values, device)
+  for stage, stage_fixes in zip(stages, fixes):
+    planes = apply_stage(stage, planes, plain)
+    for fix in stage_fixes:
+      apply_correction(fix, planes[0], init_rowcol.shape[0], moved, plain)
+  return planes[0]
+
+
+def apply_correction(fix, planes: Planes, b: int, moved,
+                     plain: bool = False) -> None:
+  """One stage's corrections of one kind (`shift_corrections`) IN PLACE on
+  the [rows * B, R, C] planes, each on its row's B-state slice, its device
+  operators or weights taken from the iterator `moved`: `axis_apply` at
+  N = 2 on the qubit's [B * 2^q, 2, 2^(n-1-q)] view (written back), one
+  `diag_rotate` a row with the row's planes (all rows' planes built in one
+  `rotation_planes`), or `flip_apply`."""
+  re, im = planes
+  _, r, c = re.shape
+  n = (r * c).bit_length() - 1
+  kind, rows = fix[0], fix[1]
+  slices = [(re[i * b:(i + 1) * b], im[i * b:(i + 1) * b]) for i in rows]
+  if kind == "axis":
+    v_re, v_im = next(moved), next(moved)
+    fn = axis_apply_plain if plain else axis_apply
+    for k, (x, q) in enumerate(zip(slices, fix[2])):
+      y = fn(*x, v_re[k], v_im[k], b << q, 2, 2**(n - 1 - q))
+      x[0].copy_(y[0])
+      x[1].copy_(y[1])
+  elif kind == "diag":
+    cos_t, sin_t = rotation_planes(next(moved), fix[3], fix[4], (r, c))
+    rotate = diag_rotate_plain if plain else diag_rotate
+    for k, x in enumerate(slices):
+      rotate([x], cos_t[k], sin_t[k], +1)
+  else:
+    for x, rec in zip(slices, fix[2]):
+      (flip_apply_plain if plain else flip_apply)([x], rec)
+
+
+# ---------------------------------------------------------------------------
 # K3: the whole circuit on one state, one cooperative launch
 # ---------------------------------------------------------------------------
 
@@ -630,7 +785,7 @@ def single_supported(circuit: ir.Circuit) -> bool:
           flip_free(circuit))
 
 
-def single_stages(circuit: ir.Circuit, symbol_values):
+def single_stages(circuit: ir.Circuit, symbol_values, angle_offsets=None):
   """Host stages of `circuit_forward`, in order: ("axis", (start, k), op)
   for every folded operator and ("diag", weights, row_masks, col_masks)
   for every diagonal segment (mirrors pallas_sv._prepare_segments); raises
@@ -640,7 +795,7 @@ def single_stages(circuit: ir.Circuit, symbol_values):
                      "class (hopper_sv.single_supported); apply the circuit "
                      "segment by segment")
   stages = []
-  for kind, body in forward_plan(circuit, symbol_values):
+  for kind, body in forward_plan(circuit, symbol_values, angle_offsets):
     if kind == "1q":
       stages.extend(("axis", bits, op) for bits, op in body)
     else:
@@ -747,11 +902,13 @@ class StageTable:
     return len(self._records)
 
 
-def forward_table(circuit: ir.Circuit, symbol_values, device) -> StageTable:
+def forward_table(circuit: ir.Circuit, symbol_values, device,
+                  angle_offsets=None) -> StageTable:
   """The stage table of `circuit_forward`: one kAxis record per folded
-  operator, one kDiag per diagonal segment."""
+  operator, one kDiag per diagonal segment (angles shifted by
+  `angle_offsets` where given)."""
   table = StageTable(circuit.num_qubits, torch.device(device))
-  for stage in single_stages(circuit, symbol_values):
+  for stage in single_stages(circuit, symbol_values, angle_offsets):
     if stage[0] == "axis":
       table.axis(stage[1], stage[2])
     else:
@@ -803,16 +960,17 @@ def state_buffer(x: Planes) -> torch.Tensor:
 
 
 def circuit_forward(circuit: ir.Circuit, symbol_values, x: Planes,
-                    plain: bool = False) -> Planes:
+                    plain: bool = False, angle_offsets=None) -> Planes:
   """K3: the whole circuit on one [R, C] state given as float32 planes, in
   ONE cooperative launch for a CUDA state of 8 to 20 qubits and a circuit
   with no gate of the flip class (raises for others, `single_supported`);
-  the plain version for a CPU state or `plain=True`.  Returns new
-  planes."""
+  the plain version for a CPU state or `plain=True`.  `angle_offsets`
+  ([num_gates]) shifts the angles.  Returns new planes."""
   n = circuit.num_qubits
   dev = x[0].device
   if plain or dev.type == "cpu":
-    return circuit_forward_plain(single_stages(circuit, symbol_values), x)
+    return circuit_forward_plain(
+        single_stages(circuit, symbol_values, angle_offsets), x)
   if dev.type != "cuda":
     raise ValueError(f"circuit_forward: unsupported device {dev}")
   if not single_supported(circuit):
@@ -821,7 +979,7 @@ def circuit_forward(circuit: ir.Circuit, symbol_values, x: Planes,
                      f"{n}-qubit one")
   shape_rc = sv.state_shape(n)
   _cuda.require(list(x), dev, [shape_rc] * 2)
-  table = forward_table(circuit, symbol_values, dev)
+  table = forward_table(circuit, symbol_values, dev, angle_offsets)
   buf = state_buffer(x)
   launch_circuit_forward(table, buf, sweep_blocks(dev, 1))
   slot = 2 * (table.axis_stages % 2)

@@ -240,18 +240,23 @@ def segment_matrices(gates, angles: np.ndarray, fn=None):
   return out
 
 
-def resolve_angles(circuit: ir.Circuit, symbol_values) -> np.ndarray:
+def resolve_angles(circuit: ir.Circuit, symbol_values,
+                   angle_offsets=None) -> np.ndarray:
   """[num_gates] float32 host angles: coeff * values[slot] + shift, or shift
-  alone for constant gates, in float32 arithmetic as the reference."""
+  alone for constant gates, in float32 arithmetic as the reference, plus
+  `angle_offsets[g]` for gate g where given ([num_gates], the parameter
+  shift's hook; reference statevector.py:1386-1390)."""
   vals = np.asarray(symbol_values, np.float32)
   gates = circuit.gates
   slots = np.asarray([g.slot for g in gates], np.int64)
   coeff = np.asarray([g.coeff for g in gates], np.float32)
   shift = np.asarray([g.shift for g in gates], np.float32)
-  if not len(vals):
-    return shift
-  return np.where(slots >= 0, coeff * vals[np.maximum(slots, 0)] + shift,
-                  shift).astype(np.float32)
+  angles = shift if not len(vals) else np.where(
+      slots >= 0, coeff * vals[np.maximum(slots, 0)] + shift,
+      shift).astype(np.float32)
+  if angle_offsets is None:
+    return angles
+  return angles + np.asarray(angle_offsets, np.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -670,12 +675,14 @@ def _apply_flip_gate(gate, angle, state: torch.Tensor) -> torch.Tensor:
 
 
 def _apply_circuit_torch(circuit: ir.Circuit, symbol_values,
-                         state: torch.Tensor) -> torch.Tensor:
+                         state: torch.Tensor,
+                         angle_offsets=None) -> torch.Tensor:
   """Segment by segment: K1 / `axis_apply` passes for 1q segments,
   `diag_rotate` for diagonal ones and `flip_apply` for a gate of the flip
   class, at B = 1."""
   from qhbmlib_tpu_torch.ops import hopper_sv  # hopper_sv imports this
-  angles = resolve_angles(circuit, hopper_sv.host_values(symbol_values))
+  angles = resolve_angles(circuit, hopper_sv.host_values(symbol_values),
+                          angle_offsets)
   for cls, idxs in segment_circuit(circuit.gates):
     seg_gates = [circuit.gates[i] for i in idxs]
     if cls == "1q":
@@ -687,8 +694,8 @@ def _apply_circuit_torch(circuit: ir.Circuit, symbol_values,
   return state
 
 
-def apply_circuit(circuit: ir.Circuit, symbol_values,
-                  state: torch.Tensor) -> torch.Tensor:
+def apply_circuit(circuit: ir.Circuit, symbol_values, state: torch.Tensor,
+                  angle_offsets=None) -> torch.Tensor:
   """U(values) applied to one [R, C] complex64 state of any content.
 
   A circuit of 8 <= n <= 20 qubits with no gate of the flip class
@@ -698,12 +705,14 @@ def apply_circuit(circuit: ir.Circuit, symbol_values,
   (`pallas_sv.supported`).  Otherwise segment by segment
   (`_apply_circuit_torch`), as the reference's XLA path.  `symbol_values`
   is a tensor on any device or a host array: operators are folded on the
-  host."""
+  host.  `angle_offsets` ([num_gates], optional) is added to each gate's
+  resolved angle on the host (`resolve_angles`)."""
   from qhbmlib_tpu_torch.ops import hopper_sv  # hopper_sv imports this
   if hopper_sv.single_supported(circuit):
     return torch.complex(*hopper_sv.circuit_forward(
-        circuit, symbol_values, _planes_of(state)))
-  return _apply_circuit_torch(circuit, symbol_values, state)
+        circuit, symbol_values, _planes_of(state),
+        angle_offsets=angle_offsets))
+  return _apply_circuit_torch(circuit, symbol_values, state, angle_offsets)
 
 
 def _prot_codes(gate: ir.Gate, n: int):

@@ -116,13 +116,42 @@ def categorical_indices(logits: torch.Tensor, num_samples: int,
 def categorical_indices_from_weights(weights: torch.Tensor, num_samples: int,
                                      generator: Optional[torch.Generator] = None
                                      ) -> torch.Tensor:
-  """`categorical_indices` on unnormalized non-negative weights: u uniform
-  in [0, total), the index its right-side insertion point into the
-  cumulative sum.  u can round up to the total itself, where right-side
-  insertion gives len(weights), so the last index is clamped as the
-  reference's is (`utils/__init__.py:257-264`)."""
-  cdf = torch.cumsum(weights.reshape(-1).to(torch.float32), 0)
-  u = torch.rand((num_samples,), generator=generator, device=cdf.device,
-                 dtype=torch.float32) * cdf[-1]
+  """`categorical_indices` on unnormalized non-negative weights [K]: the
+  one-row case of `categorical_rows`; int64 [num_samples]."""
+  return categorical_rows(weights.reshape(1, -1), num_samples, generator)[0]
+
+
+def categorical_rows(weights: torch.Tensor, num_samples: int,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+  """`num_samples` draws from each row of unnormalized non-negative weights
+  [rows, K], int64 [rows, num_samples]: one uniform u in [0, total) a draw
+  against the row's float32 cumulative sum, the index its right-side
+  insertion point.  u can round up to the total itself, where right-side
+  insertion gives K, so the last index is clamped as the reference's is
+  (`utils/__init__.py:257-264`).  The distribution is the reference's; its
+  two-level block search (`utils/__init__.py:234`) is not copied.  A
+  float32 cumsum over 2^28 entries drifts (as the reference's does); at
+  2^16 a row it is exact to ~1e-7 of the total."""
+  cdf = torch.cumsum(weights.to(torch.float32), 1)
+  u = torch.rand((weights.shape[0], num_samples), generator=generator,
+                 device=cdf.device, dtype=torch.float32) * cdf[:, -1:]
   idx = torch.searchsorted(cdf, u, right=True)
-  return torch.clamp(idx, max=cdf.shape[0] - 1)
+  return torch.clamp(idx, max=cdf.shape[1] - 1)
+
+
+def parities(indices: torch.Tensor, masks: torch.Tensor,
+             num_bits: int) -> torch.Tensor:
+  """popcount(indices & mask) & 1 for every index [...] and mask [T] of
+  `num_bits` bits: [..., T] of 0 / 1 (int32 below 32 bits, else int64),
+  the number the reference computes as `bits @ masks.T % 2` from a
+  [shots, n] bit tensor.  XOR-folds the halves down to one bit."""
+  dtype = torch.int32 if num_bits < 32 else torch.int64
+  v = indices.to(dtype)[..., None] & masks.to(dtype)
+  shift = 1
+  while shift < num_bits:
+    shift <<= 1
+  while shift > 1:
+    shift >>= 1
+    v = v ^ (v >> shift)
+  return v & 1

@@ -369,7 +369,7 @@ def test_port_imports_no_jax():
       "bad = sorted(m for m in sys.modules if m.split('.')[0] in roots)\n"
       "assert not bad, bad\n"
       "assert len(names) >= 20, names\n"
-      "for want in ('baselines.utils', 'benchmarks.ladder', "
+      "for want in ('baselines.utils', 'benchmarks.ladder', 'ops.shift', "
       "'data.thermal_data'):\n"
       "  assert pkg.__name__ + '.' + want in names, want\n"
       "print(len(names))\n")

@@ -131,3 +131,36 @@ def test_compare_trees_runs_this_tree_s_phases():
   assert ct.shown("kernels", out) == "[check] a ok\n[kernels] b"
   assert (ct.shown("bench", out) == ct.shown("pauli", out) ==
           ct.shown("train16q", out) == "{\"value\": 1}")
+
+
+def test_span_split_attributes_device_work_by_launch():
+  """Kernels go to the span whose host interval holds their launch (by
+  correlation id), whenever they run; the rest is unclaimed."""
+  def launch(ts, cid):
+    return {"name": "cudaLaunchKernel", "cat": "cuda_runtime", "ts": ts,
+            "dur": 5, "args": {"correlation": cid}}
+
+  def kernel(ts, dur, cid):
+    return {"name": "k", "cat": "kernel", "ts": ts, "dur": dur,
+            "args": {"correlation": cid}}
+
+  events = [
+      {"name": sp.REGION, "cat": "user_annotation", "ts": 0, "dur": 1000},
+      {"name": "apply_stage", "cat": "user_annotation", "ts": 10, "dur": 40},
+      {"name": "apply_stage", "cat": "user_annotation", "ts": 300,
+       "dur": 20},
+      {"name": "_sampled_means", "cat": "user_annotation", "ts": 100,
+       "dur": 50},
+      launch(20, 1), launch(310, 2), launch(120, 3), launch(500, 4),
+      kernel(200, 30, 1), kernel(400, 10, 2), kernel(450, 7, 3),
+      kernel(600, 3, 4),
+  ]
+  spans = ((None, "apply_stage"), (None, "_sampled_means"),
+           (None, "shift_corrections"))
+  out = sp.span_split(events, 1, spans)
+  assert out["apply_stage"] == pytest.approx(
+      {"host_ms": 0.06, "device_ms": 0.04, "launches": 2})
+  assert out["_sampled_means"] == pytest.approx(
+      {"host_ms": 0.05, "device_ms": 0.007, "launches": 1})
+  assert out["shift_corrections"]["launches"] == 0
+  assert out["rest"] == pytest.approx({"device_ms": 0.003, "launches": 1})
