@@ -68,7 +68,15 @@ slice; a warm-up and three timed steps, steps/s and peak memory; no sweep
 kernel may launch; every row's group probabilities against the plain
 versions, the shot-free shift gradient against the adjoint one, the
 step's sampled gradient within 6 standard errors of it, <H> against the
-f64 oracle), and last
+f64 oracle), the port's
+experiment harness ("train harness 8q": `baselines.train.run_experiment`
+on its default config at an 8-site TFIM ring, the whole 1300-step VQT
+beta sweep; steps/s, peak memory, every loss finite, beta 0.5 ending at
+fidelity >= 0.88 and relative entropy <= 0.35 and each later beta's
+relative entropy falling tenfold, bounds from the JAX harness's CPU run;
+the last checkpoint's fidelity against the logged one; one step's
+gradient at beta 0.5's checkpoint against the plain versions, and at the
+last one both arms' circuit gradient against a float64 one), and last
 the JAX ladder's r5 rung at its own 28 qubits ("train r5 28q": KOBE-2
 sampled by 8 Gibbs-With-Gradients chains threaded through the steps, the
 data 4 states of 2 GB; a warm-up and three timed steps, peak memory and
@@ -2355,6 +2363,233 @@ def phase_train_r3(device):
   return launches
 
 
+# Kernels the harness's 8q VQT step must launch: as r2 8q's, the only row
+# block of an 8q state pairs with the minor operator, so each 1q segment is
+# one axis2_apply pass.
+TRAIN_HARNESS = ["axis2_apply", "diag_rotate", "qubit_transitions",
+                 "parity_bilinear"]
+# Bounds on the harness's 8q beta sweep that hold across random streams,
+# from the JAX package's harness (`baselines.train.run_experiment`) run once
+# on a CPU at the same configuration with seed 42: beta 0.5's fidelity read
+# 0.900-0.932 at every logged step from 100 on and its last relative
+# entropy 0.1730; the later betas' relative entropies fell from 10.27,
+# 19.10 and 24.07 at their step 0 to 0.45, 0.84 and 0.83.
+HARNESS_FIDELITY_MIN = 0.88  # beta 0.5's last logged fidelity
+HARNESS_REL_ENTROPY_MAX = 0.35  # beta 0.5's last relative entropy
+HARNESS_REL_ENTROPY_FALL = 10.0  # later betas: last < step 0 / this
+HARNESS_SEED = 42
+# Float32 rounding alone puts both arms' gradients ~1e-4 from the float64
+# one at the last beta's checkpoint (one state, a small gradient against
+# beta <H>); there the kernels' error may be at most this many times the
+# plain versions', or GRAD_TOL if larger.
+HARNESS_F64_FACTOR = 2.0
+
+
+def harness_config():
+  """The harness's default config (KOBE-2, analytic EBM of 500 samples,
+  HEA 7L, analytic QNN, Adam 0.1, 1000 steps at beta 0.5, then 100 at each
+  of 1.083, 1.667, 2.25) on an 8-site TFIM ring, bias 1.0, with
+  TensorBoard off and the fidelity and relative entropy every 100 steps."""
+  from qhbmlib_tpu_torch.baselines import config as config_lib
+  config = config_lib.get_config()
+  config.dataset.num_rows = 8
+  config.dataset.num_cols = 1
+  config.logging.tensorboard = False
+  config.logging.expensive_downsample = 100
+  return config
+
+
+def harness_metrics(results, label):
+  """{tag: [(step, value)]} of a data point's train metrics."""
+  path = os.path.join(results, "metrics", label, "train_model_trial_0",
+                      "metrics.jsonl")
+  out = {}
+  with open(path) as f:
+    for line in f:
+      rec = json.loads(line)
+      if "value" in rec:
+        out.setdefault(rec["tag"], []).append((rec["step"], rec["value"]))
+  return out
+
+
+def harness_restore(results, config, label, device):
+  """(modular Hamiltonian, QHBM, beta, target) of data point `label`: a
+  fresh model with the point's checkpointed parameters."""
+  from qhbmlib_tpu_torch.baselines import train
+  shards = train.get_tfim_hamiltonian(config.dataset.bias, config, device)
+  mh, h = train.get_initial_qhbm(shards, config, "qhbm", seed=0,
+                                 device=device)
+  h.set_params(train.load_params(os.path.join(
+      results, "checkpoints", label, "trial_0"), device))
+  return mh, h, float(label[5:].replace("p", ".")), shards[0] + shards[1]
+
+
+def harness_grad(h, target, beta, gen, plain):
+  """(loss, flat float64 CPU gradient [theta, phi]) of the harness's VQT
+  loss at `beta`, its EBM draw from `gen` reseeded with SEED, through the
+  kernels or (`plain`) their plain versions."""
+  from qhbmlib_tpu_torch import bench
+  from qhbmlib_tpu_torch.inference import qhbm, qnn, vqt_loss
+  for p in h.parameters():
+    p.grad = None
+  gen.manual_seed(SEED)
+  model = h if not plain else qhbm.QHBM(h.e_inference,
+                                        qnn.AnalyticQuantumInference(
+                                            h.q_inference.circuit,
+                                            plain=True))
+  loss, _ = vqt_loss.make_vqt_with_state(model, target)(beta, gen)
+  loss.backward()
+  torch.cuda.synchronize()
+  return float(loss.detach()), bench.flat_grads(h).double().cpu()
+
+
+def harness_phi_grad_f64(h, target, beta, support, counts):
+  """(float64 gradient of the VQT loss in the circuit's parameters, states
+  used): beta sum_x w_x d<H>_x / dphi over the draw's states x of weight
+  w_x = counts / total, each derivative a central difference of step 1e-5
+  of `native_oracle`'s float64 <H>, without the port's engine."""
+  import numpy as np
+  from qhbmlib_tpu_torch.ops import native_oracle
+  circuit = h.q_inference.circuit
+  values = circuit.values.detach().double().cpu().numpy()
+  perm = circuit._perm.cpu().numpy()
+  w = (counts / counts.sum()).double().cpu().numpy()
+  bits = support.cpu().numpy().astype(np.int64)
+  states = np.nonzero(w)[0]
+  target = target.to("cpu")
+  grad = np.zeros_like(values)
+  for j in range(len(values)):
+    for sign in (1.0, -1.0):
+      v = values.copy()
+      v[j] += sign * 1e-5
+      grad[j] += sign * sum(
+          w[i] * native_oracle.expectation_f64(
+              native_oracle.simulate(circuit.pqc, v[perm], bits=bits[i]),
+              target) for i in states)
+  return torch.tensor(beta * grad / 2e-5), len(states)
+
+
+def phase_harness(device):
+  """"train harness 8q": the port's experiment harness
+  (`baselines.train.run_experiment`) on `harness_config()`, its whole VQT
+  beta sweep (1300 steps), into a temporary directory, with every launch
+  count reset just before and read just after: steps/s over the sweep and
+  over beta 0.5's steps after the first (host clock; a step includes its
+  metrics), peak memory, each beta's first and last fidelity and relative
+  entropy.  It fails unless every logged loss is finite, beta 0.5 ends at
+  a fidelity of at least HARNESS_FIDELITY_MIN and a relative entropy of at
+  most HARNESS_REL_ENTROPY_MAX, and each later beta's relative entropy
+  falls below 1 / HARNESS_REL_ENTROPY_FALL of its step-0 value.  Then
+  beta 0.5's and the last beta's checkpoints are restored into fresh
+  models: the last one's fidelity against the logged one; at beta 0.5's,
+  one step's gradient at a fixed EBM draw through the kernels against
+  `AnalyticQuantumInference(plain=True)` within GRAD_TOL; at the last
+  one, one step's launches (TRAIN_HARNESS, paired) and its circuit
+  gradient through the kernels and plain against a float64 one
+  (`harness_phi_grad_f64`), the kernels' error within GRAD_TOL or
+  HARNESS_F64_FACTOR times the plain versions'.  Returns the launches."""
+  import math
+  import tempfile
+  from qhbmlib_tpu_torch.baselines import train
+  from qhbmlib_tpu_torch.inference import qhbm_utils
+  config = harness_config()
+  times = {}
+
+  def on_step(label, step):
+    del step
+    times.setdefault(label, []).append(time.perf_counter())
+
+  with tempfile.TemporaryDirectory() as out:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    results = train.run_experiment(config, out, seed=HARNESS_SEED,
+                                   device=device, on_step=on_step)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    launches = read_launches("train harness 8q", TRAIN_HARNESS)
+    steps = sum(len(t) for t in times.values())
+    first = times["beta_0p5"]
+    log(f"[train harness 8q] {steps} steps in {dt:.3f} s: {steps / dt:.4f} "
+        f"steps/s over the sweep, {(len(first) - 1) / (first[-1] - first[0]):.4f}"
+        f" over beta 0.5's steps after the first (host clock, metrics "
+        f"included), peak memory {peak / 2**20:.1f} MiB; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    labels = list(times)
+    for i, label in enumerate(labels):
+      m = harness_metrics(results, label)
+      losses = [v for _, v in m["loss"]]
+      if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train harness 8q: a {label} loss is not "
+                             "finite")
+      (f0, fid0), (f1, fid1) = m["fidelity"][0], m["fidelity"][-1]
+      rel0, rel1 = m["relative_entropy"][0][1], m["relative_entropy"][-1][1]
+      log(f"[train harness 8q] {label}: {len(losses)} steps, loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f} (target "
+          f"{m['target_loss'][0][1]:.6f}); fidelity {fid0:.6f} (step {f0}) "
+          f"-> {fid1:.6f} (step {f1}); relative entropy {rel0:.6f} -> "
+          f"{rel1:.6f}")
+      if i == 0:
+        if not (fid1 >= HARNESS_FIDELITY_MIN and
+                rel1 <= HARNESS_REL_ENTROPY_MAX):
+          raise AssertionError(
+              f"train harness 8q: beta 0.5 ends at fidelity {fid1:.4f} "
+              f"(limit >= {HARNESS_FIDELITY_MIN}), relative entropy "
+              f"{rel1:.4f} (limit <= {HARNESS_REL_ENTROPY_MAX})")
+      elif not rel1 < rel0 / HARNESS_REL_ENTROPY_FALL:
+        raise AssertionError(
+            f"train harness 8q: {label}'s relative entropy fell from "
+            f"{rel0:.4f} only to {rel1:.4f}")
+    # Beta 0.5's and the last beta's checkpoints, each in a fresh model.
+    first = harness_restore(results, config, labels[0], device)
+    last = harness_restore(results, config, labels[-1], device)
+    logged = harness_metrics(results, labels[-1])["fidelity"][-1][1]
+  mh, h, beta, target = last
+  target_dm = train.compute_data_point_metrics(
+      beta=beta, target_hamiltonian_matrix=target.dense())[0]
+  fid = qhbm_utils.fidelity(mh, target_dm)
+  log(f"[train harness 8q] {labels[-1]}'s checkpoint restored: fidelity "
+      f"{fid:.8f}, logged {logged:.8f}")
+  check(f"train harness 8q {labels[-1]} checkpoint's fidelity vs logged",
+        abs(fid - logged) / logged, STATE_TOL)
+  # One step at beta 0.5's trained parameters and a fixed EBM draw,
+  # through the kernels against the plain versions.
+  _, h0, beta0, target0 = first
+  gen = torch.Generator(device=device).manual_seed(SEED)
+  (loss_k, grad_k), (loss_p, grad_p) = (
+      harness_grad(h0, target0, beta0, gen, plain) for plain in (False, True))
+  log(f"[train harness 8q] one step at {labels[0]}'s checkpoint: loss "
+      f"{loss_k:.8f} through the kernels, {loss_p:.8f} plain")
+  check(f"train harness 8q gradient at {labels[0]}'s checkpoint, kernels vs "
+        "plain", rel_err(grad_k, grad_p), GRAD_TOL)
+  # At the last beta's, where the EBM holds few states and the gradient is
+  # small against beta <H>: both arms against the float64 gradient.
+  reset_launches()
+  (loss_k, grad_k), (loss_p, grad_p) = (
+      harness_grad(h, target, beta, gen, plain) for plain in (False, True))
+  read_launches(f"train harness 8q, one step at {labels[-1]}'s checkpoint",
+                TRAIN_HARNESS, paired=True)
+  gen.manual_seed(SEED)
+  support, counts, _ = h.e_inference.support_counts_state(gen)
+  phi64, states = harness_phi_grad_f64(h, target, beta, support, counts)
+  nphi = phi64.numel()
+  err_k, err_p = rel_err(grad_k[-nphi:], phi64), rel_err(grad_p[-nphi:],
+                                                          phi64)
+  log(f"[train harness 8q] one step at {labels[-1]}'s checkpoint ({states} "
+      f"states in its EBM draw): loss {loss_k:.8f} through the kernels, "
+      f"{loss_p:.8f} plain; gradient kernels vs plain "
+      f"{rel_err(grad_k, grad_p):.3e}; phi gradient (norm "
+      f"{float(phi64.norm()):.4e}) vs float64: kernels {err_k:.3e}, plain "
+      f"{err_p:.3e}")
+  check(f"train harness 8q phi gradient at {labels[-1]}'s checkpoint, "
+        f"kernels vs float64 (limit max(GRAD_TOL, {HARNESS_F64_FACTOR} x the "
+        "plain versions' error))", err_k,
+        max(GRAD_TOL, HARNESS_F64_FACTOR * err_p))
+  return launches
+
+
 SOURCES = {"stream_scale": "qhbmlib_tpu_torch/csrc/stream_kernels.cu"}
 REPLACES = {
     "axis_apply": "qhbmlib_tpu/ops/pallas_sv.py:459",
@@ -2460,6 +2695,7 @@ def main() -> int:
   paths["vqt qaia heis 20q"] = phase_vqt_qaia_heis20(device)
   paths["train r1 2q"] = phase_train_r1(device)
   paths["train r3 16q"] = phase_train_r3(device)
+  paths["train harness 8q"] = phase_harness(device)
   free_device_memory()
   phase_kernels_28q(device)
   phase_chunk_rule(device)

@@ -13,7 +13,9 @@ and "r2 11q", the JAX ladder's r2 rung, and "r5 28q", its r5 rung,
 chain) and for the VQT rungs of RUNG_WORKLOADS ("r3 16q", the JAX ladder's
 r3 rung: parameter-shift gradients, its step also split by SHIFT_SPANS
 into host folds, shared stages, per-row corrections and sampling,
-`span_split`), takes one
+`span_split`) and for the experiment harness's steps of HARNESS_WORKLOADS
+("harness 8q": `baselines.train`'s vanilla Adam step on its default
+config at an 8-site TFIM ring, with its per-step metrics), takes one
 warm-up step, then traces STEPS steps inside one `record_function` region
 that ends in a synchronize.  From the exported Chrome trace: the busy
 share, the union of the device intervals (kernels, copies, sets) inside
@@ -43,6 +45,8 @@ import numpy as np
 import torch
 
 from qhbmlib_tpu_torch import bench
+from qhbmlib_tpu_torch.baselines import config as harness_config
+from qhbmlib_tpu_torch.baselines import train as harness
 from qhbmlib_tpu_torch.benchmarks import ladder
 from qhbmlib_tpu_torch.inference import qnn
 from qhbmlib_tpu_torch.models import circuit_utils
@@ -77,6 +81,10 @@ QAIA_WORKLOADS = bench.QAIA_WORKLOADS
 # 4 unique states, HEA 2L, 1000 shots, parameter-shift gradients), its
 # step split by SHIFT_SPANS.
 RUNG_WORKLOADS = {"r3 16q": dict(rung="r3_kobe16_vqt_shift", qubits=16)}
+# The profiled steps of the experiment harness (`baselines.train`): its
+# default config (KOBE-2, analytic EBM of 500 samples, HEA 7L, Adam 0.1) on
+# a num_rows x num_cols TFIM ring, at the sweep's first beta.
+HARNESS_WORKLOADS = {"harness 8q": dict(num_rows=8, num_cols=1, beta=0.5)}
 # The r3 step's parts: the host folds (`prepare_segments`) and corrections
 # (`shift_corrections`), the shared stages (`apply_stage`: every forward
 # stage over the whole batch, measurement suffixes included), the per-row
@@ -267,13 +275,46 @@ def profile_single(trace_dir: str, device="cuda", n: int = 20,
           "card": bench.card(device)}
 
 
+def harness_step(cfg, device, log_dir: str):
+  """The harness's train step at `cfg` of HARNESS_WORKLOADS: one vanilla
+  step (`harness.make_vanilla_step`, seed 42) and its per-step metrics
+  (`harness.log_step`) into the MetricsWriter `train_step.writer` on
+  `log_dir`."""
+  config = harness_config.get_config()
+  config.dataset.num_rows = cfg["num_rows"]
+  config.dataset.num_cols = cfg["num_cols"]
+  shards = harness.get_tfim_hamiltonian(config.dataset.bias, config, device)
+  _, h = harness.get_initial_qhbm(shards, config, "qhbm", seed=42,
+                                  device=device)
+  optimizer = harness.get_optimizer(config.training.optimizer,
+                                    config.training.learning_rate,
+                                    h.parameters())
+  step = harness.make_vanilla_step(h, shards[0] + shards[1], cfg["beta"],
+                                   optimizer)
+  writer = harness.MetricsWriter(log_dir, tensorboard=False)
+  count = [0]
+
+  def train_step():
+    loss, grads, _ = step(None)
+    harness.log_step(writer, config.logging, count[0], loss, h.params, grads)
+    count[0] += 1
+
+  train_step.writer = writer
+  return train_step
+
+
 def profile_workload(name: str, trace_dir: str) -> dict:
   """A warm-up step, then STEPS traced steps of the VQT workload `name` of
-  WORKLOADS or QAIA_WORKLOADS or the QMHL workload of QMHL_WORKLOADS (a
-  ladder rung where it names one): the region's breakdown."""
+  WORKLOADS, QAIA_WORKLOADS or HARNESS_WORKLOADS or the QMHL workload of
+  QMHL_WORKLOADS (a ladder rung where it names one): the region's
+  breakdown."""
   device = torch.device("cuda")
   cfg = QMHL_WORKLOADS.get(name, RUNG_WORKLOADS.get(name, {}))
-  if "rung" in cfg:
+  if name in HARNESS_WORKLOADS:
+    train_step = harness_step(
+        HARNESS_WORKLOADS[name], device,
+        os.path.join(trace_dir, f"{name.replace(' ', '_')}_metrics"))
+  elif "rung" in cfg:
     _, _, train_step = ladder.build_rung(cfg["rung"], qubits=cfg["qubits"],
                                          device=device)
   elif name in QMHL_WORKLOADS:
@@ -319,7 +360,7 @@ def main(argv=None) -> None:
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   for name in [*WORKLOADS, *QMHL_WORKLOADS, *QAIA_WORKLOADS,
-               *RUNG_WORKLOADS]:
+               *RUNG_WORKLOADS, *HARNESS_WORKLOADS]:
     if args.only is None or name in args.only:
       print(json.dumps(profile_workload(name, args.trace_dir)), flush=True)
       torch.cuda.empty_cache()

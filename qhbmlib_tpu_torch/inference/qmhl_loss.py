@@ -58,3 +58,12 @@ def make_qmhl_with_state(data: quantum_data.QuantumData,
     return data_exp + log_z, new_state
 
   return loss_fn
+
+
+def qmhl(data: quantum_data.QuantumData, input_qhbm: qhbm_module.QHBM,
+         generator: Optional[torch.Generator] = None) -> torch.Tensor:
+  """The QMHL loss's value at the current parameters (reference
+  `qmhl_loss.py:49`); `generator` overrides the model's log Z draw.  For
+  gradients, call `make_qmhl`'s loss and `backward()`."""
+  with torch.no_grad():
+    return make_qmhl(data, input_qhbm)((None, generator))

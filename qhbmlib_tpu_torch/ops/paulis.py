@@ -30,6 +30,16 @@ PAULI_MATS = (
 )
 
 
+def concat_coeffs(parts) -> torch.Tensor:
+  """Concatenates coefficient vectors (tensors, arrays or scalars) into one
+  float32 tensor on the device of the first tensor among them, the CPU if
+  none is one (reference `ops/paulis.py:40`)."""
+  device = next((p.device for p in parts if isinstance(p, torch.Tensor)),
+                torch.device("cpu"))
+  return torch.cat([torch.atleast_1d(torch.as_tensor(
+      p, dtype=torch.float32, device=device)) for p in parts])
+
+
 @dataclasses.dataclass(eq=False)
 class PauliSum:
   """Sum of Pauli strings: sum_t coeffs[t] * prod_q P(codes[t, q]) on qubit q.
@@ -57,8 +67,7 @@ class PauliSum:
     if self.num_qubits != other.num_qubits:
       raise ValueError("PauliSums must act on the same number of qubits.")
     return PauliSum(torch.cat([self.codes, other.codes]),
-                    torch.cat([self.coeffs,
-                               other.coeffs.to(self.coeffs.device)]),
+                    concat_coeffs([self.coeffs, other.coeffs]),
                     self.num_qubits)
 
   def __mul__(self, scalar) -> "PauliSum":

@@ -354,10 +354,11 @@ def test_weighted_average_matches_jax():
 # -- the port imports no jax -------------------------------------------------
 
 def test_port_imports_no_jax():
-  """Every module of qhbmlib_tpu_torch (its own `baselines/` and
-  `benchmarks/ladder.py` among them) imports with jax, the JAX package and
-  the repo's jax-importing `baselines/` and `benchmarks/` absent from
-  sys.modules (the card's machine has no jax)."""
+  """Every module of qhbmlib_tpu_torch (its own `baselines/` harness and
+  `benchmarks/ladder.py` among them) imports with jax, the JAX package,
+  the repo's jax-importing `baselines/` and `benchmarks/`, and the JAX
+  harness's absl, ml_collections, optax and orbax absent from sys.modules
+  (the card's machine has none of them)."""
   code = (
       "import importlib, pkgutil, sys\n"
       "import qhbmlib_tpu_torch as pkg\n"
@@ -365,12 +366,14 @@ def test_port_imports_no_jax():
       "pkg.__name__ + '.')]\n"
       "for name in names:\n"
       "  importlib.import_module(name)\n"
-      "roots = ('jax', 'qhbmlib_tpu', 'baselines', 'benchmarks')\n"
+      "roots = ('jax', 'qhbmlib_tpu', 'baselines', 'benchmarks', 'absl', "
+      "'ml_collections', 'optax', 'orbax')\n"
       "bad = sorted(m for m in sys.modules if m.split('.')[0] in roots)\n"
       "assert not bad, bad\n"
       "assert len(names) >= 20, names\n"
-      "for want in ('baselines.utils', 'benchmarks.ladder', 'ops.shift', "
-      "'data.thermal_data'):\n"
+      "for want in ('baselines.utils', 'baselines.train', "
+      "'baselines.config', 'baselines.launch', 'benchmarks.ladder', "
+      "'ops.shift', 'data.thermal_data'):\n"
       "  assert pkg.__name__ + '.' + want in names, want\n"
       "print(len(names))\n")
   out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -164,3 +164,23 @@ def test_span_split_attributes_device_work_by_launch():
       {"host_ms": 0.05, "device_ms": 0.007, "launches": 1})
   assert out["shift_corrections"]["launches"] == 0
   assert out["rest"] == pytest.approx({"device_ms": 0.003, "launches": 1})
+
+
+def test_harness_step_runs_on_cpu(tmp_path):
+  """The harness workload's step: the trainer's vanilla step on its 8q
+  config, each step's metrics written as the trainer writes them."""
+  import json
+  import torch
+  torch.set_num_threads(1)
+  step = sp.harness_step(sp.HARNESS_WORKLOADS["harness 8q"], "cpu",
+                         str(tmp_path))
+  step()
+  step()
+  step.writer.close()
+  with open(tmp_path / "metrics.jsonl") as f:
+    recs = [json.loads(line) for line in f]
+  losses = [r for r in recs if r["tag"] == "loss"]
+  assert [r["step"] for r in losses] == [0, 1]
+  assert losses[1]["value"] < losses[0]["value"]
+  assert {"variables/stats", "grads/stats", "grad_norm"} <= {
+      r["tag"] for r in recs}
