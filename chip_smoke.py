@@ -76,7 +76,18 @@ fidelity >= 0.88 and relative entropy <= 0.35 and each later beta's
 relative entropy falling tenfold, bounds from the JAX harness's CPU run;
 the last checkpoint's fidelity against the logged one; one step's
 gradient at beta 0.5's checkpoint against the plain versions, and at the
-last one both arms' circuit gradient against a float64 one), and last
+last one both arms' circuit gradient against a float64 one), the
+harness's other methods and loss on that config ("train harness natural
+8q": 3 natural-gradient steps at beta 0.5, the first step's BKM
+information matrix through the kernels against the plain versions;
+"train harness mirror 8q": 2 mirror-descent outer steps of 100 inner
+steps at beta 0.5, each outer step's first divergence against -log Z of
+its anchor; "train harness qvartz 8q": QVARTZ uncut, 1000 VQT steps at
+beta 1.0 and three Trotter time steps of 100 QMHL steps, each time
+point's fidelity and D(target || model) within bounds from a JAX CPU
+run, one QMHL step's gradient at the last checkpoint against the plain
+versions), the ladder's command line in subprocesses (r2 at 8q exits 0
+with its steps/s, r4 prints its error and exits 1), and last
 the JAX ladder's r5 rung at its own 28 qubits ("train r5 28q": KOBE-2
 sampled by 8 Gibbs-With-Gradients chains threaded through the steps, the
 data 4 states of 2 GB; a warm-up and three timed steps, peak memory and
@@ -1849,7 +1860,7 @@ def r5_gate(h, data, snaps) -> float:
       gen.set_state(state)
     for p in h.parameters() + data.qhbm.parameters():
       p.grad = None
-    loss, _ = loss_fn(model_state=chain)
+    loss, _ = loss_fn(state=(None, chain))
     loss.backward()
     grad_p = bench.flat_grads(h)
     log(f"[r5 gate] loss kernels {float(loss_k):.8f}, plain "
@@ -2412,15 +2423,23 @@ def harness_metrics(results, label):
   return out
 
 
-def harness_restore(results, config, label, device):
-  """(modular Hamiltonian, QHBM, beta, target) of data point `label`: a
-  fresh model with the point's checkpointed parameters."""
+def harness_model(config, device, params):
+  """(TFIM shards, modular Hamiltonian, QHBM): a fresh harness model on
+  the card carrying `params` ({'theta': [...], 'phi': [...]})."""
   from qhbmlib_tpu_torch.baselines import train
   shards = train.get_tfim_hamiltonian(config.dataset.bias, config, device)
   mh, h = train.get_initial_qhbm(shards, config, "qhbm", seed=0,
                                  device=device)
-  h.set_params(train.load_params(os.path.join(
-      results, "checkpoints", label, "trial_0"), device))
+  h.set_params(params)
+  return shards, mh, h
+
+
+def harness_restore(results, config, label, device):
+  """(modular Hamiltonian, QHBM, beta, target) of data point `label`: a
+  fresh model with the point's checkpointed parameters."""
+  from qhbmlib_tpu_torch.baselines import train
+  shards, mh, h = harness_model(config, device, train.load_params(
+      os.path.join(results, "checkpoints", label, "trial_0"), device))
   return mh, h, float(label[5:].replace("p", ".")), shards[0] + shards[1]
 
 
@@ -2590,6 +2609,380 @@ def phase_harness(device):
   return launches
 
 
+@contextlib.contextmanager
+def wrapped(module, name: str, wrapper):
+  """`module.name` replaced by wrapper(original) inside the block."""
+  original = getattr(module, name)
+  setattr(module, name, wrapper(original))
+  try:
+    yield
+  finally:
+    setattr(module, name, original)
+
+
+def harness_run(path, config, device):
+  """`run_experiment(config)` of the harness into a temporary directory,
+  every launch count reset just before and read just after (TRAIN_HARNESS
+  required).  Returns (step_times {label: host clock at each step's end},
+  metrics {label: harness_metrics}, inner {label: {tag: [(index, value)]}}
+  of the mirror inner loop, launches, seconds, checkpoints {label:
+  params} on the card)."""
+  import tempfile
+  from qhbmlib_tpu_torch.baselines import train
+  times = {}
+
+  def on_step(label, step):
+    del step
+    times.setdefault(label, []).append(time.perf_counter())
+
+  with tempfile.TemporaryDirectory() as out:
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    results = train.run_experiment(config, out, seed=HARNESS_SEED,
+                                   device=device, on_step=on_step)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches(path, TRAIN_HARNESS)
+    metrics = {label: harness_metrics(results, label) for label in times}
+    inner = {}
+    for label in times:
+      inner_file = os.path.join(results, "metrics", label,
+                                "train_model_trial_0", "train_inner",
+                                "metrics.jsonl")
+      if os.path.exists(inner_file):
+        with open(inner_file) as f:
+          for rec in map(json.loads, f):
+            if "value" in rec:
+              inner.setdefault(label, {}).setdefault(rec["tag"], []).append(
+                  (rec["step"], rec["value"]))
+    ckpts = {label: train.load_params(os.path.join(
+        results, "checkpoints", label, "trial_0"), device)
+             for label in times}
+  return times, metrics, inner, launches, dt, ckpts
+
+
+def step_seconds(times) -> list:
+  """Seconds of each step after the first (host clock at the steps' ends)."""
+  return [round(b - a, 4) for a, b in zip(times, times[1:])]
+
+
+def all_finite(values) -> bool:
+  import math
+  return all(math.isfinite(v) for v in values)
+
+
+def harness_point_config(method, steps):
+  """`harness_config()` at one beta, 0.5 (cut from four), for `steps`
+  steps (cut from 1000) of `method`."""
+  config = harness_config()
+  config.training.method = method
+  config.dataset.beta_steps = 1
+  config.dataset.beta_min = config.dataset.beta_max = 0.5
+  config.training.init_steps = steps
+  return config
+
+
+# Natural steps on "train harness natural 8q": each builds the information
+# matrix from 4 Pp shifted <K_copy> evaluations (Pp = 161 at 8q/7L), row
+# after row.
+NATURAL_STEPS = 3
+
+
+def phase_harness_natural(device):
+  """"train harness natural 8q": `run_experiment` on `harness_config()`
+  with the natural gradient (Adam 0.1, the harness's lstsq and
+  regularizer defaults), one beta, 0.5, NATURAL_STEPS steps (cut from
+  1000), the exact metrics every step.  Logs the seconds of each step
+  after the first (host clock; a step includes its metrics) and the
+  launches a step and of one information matrix; fails unless every loss
+  is finite and K1, `diag_rotate`, K5 and `parity_bilinear` launched.  The
+  first step's information matrix, recorded as the path built it (the
+  initial parameters, the draw of the step's generator), must be finite
+  and symmetric and agree within GRAD_TOL with one built through
+  `AnalyticQuantumInference(plain=True)` at the same parameters, sampler
+  state and generator state.  Returns the launches."""
+  from qhbmlib_tpu_torch.baselines import train
+  from qhbmlib_tpu_torch.inference import qhbm, qnn
+  path = "train harness natural 8q"
+  config = harness_point_config("natural", NATURAL_STEPS)
+  config.logging.expensive_downsample = 1
+  first = {}
+
+  def recording(make):
+    def make_recorded(qhbm_obj, mh_copy, num_samples):
+      fn = make(qhbm_obj, mh_copy, num_samples)
+
+      def info_matrix(generator=None, ebm_state=None):
+        if first:
+          return fn(generator, ebm_state)
+        first.update(gen=generator.get_state(), state=ebm_state,
+                     params={k: [p.detach().clone() for p in v]
+                             for k, v in qhbm_obj.params.items()})
+        before = {k: f.launches for k, f in kernel_wrappers().items()}
+        t0 = time.perf_counter()
+        first["im"] = fn(generator, ebm_state)
+        torch.cuda.synchronize()
+        first["seconds"] = time.perf_counter() - t0
+        first["launches"] = {k: f.launches - before[k]
+                             for k, f in kernel_wrappers().items()
+                             if f.launches > before[k]}
+        return first["im"]
+
+      return info_matrix
+    return make_recorded
+
+  with wrapped(train, "make_information_matrix", recording):
+    times, metrics, _, launches, dt, _ = harness_run(path, config, device)
+  (label,) = times
+  m = metrics[label]
+  losses = [v for _, v in m["loss"]]
+  if len(losses) != NATURAL_STEPS or not all_finite(losses):
+    raise AssertionError(f"{path}: losses {losses}")
+  log(f"[{path}] {NATURAL_STEPS} natural steps (cut from 1000 and four "
+      f"betas to one: beta 0.5) in {dt:.3f} s; seconds of each step after "
+      f"the first {step_seconds(times[label])} (host clock, its metrics "
+      f"included); the first step's information matrix alone "
+      f"{first['seconds']:.3f} s, launching {first['launches']}; launches "
+      f"a step { {k: v / NATURAL_STEPS for k, v in launches.items() if v} }")
+  log(f"[{path}] loss {losses[0]:.6f} -> {losses[-1]:.6f} (target "
+      f"{m['target_loss'][0][1]:.6f}); fidelity {m['fidelity'][0][1]:.6f} "
+      f"-> {m['fidelity'][-1][1]:.6f}; relative entropy "
+      f"{m['relative_entropy'][0][1]:.6f} -> "
+      f"{m['relative_entropy'][-1][1]:.6f}; reg {m['reg'][0][1]:.6f}; "
+      f"information matrix eigenvalues {m['info_matrix_min_eigval'][0][1]:.4e}"
+      f" .. {m['info_matrix_max_eigval'][0][1]:.4e}; natural gradient norm "
+      f"{m['natural_grad_norm'][0][1]:.6f}")
+  # The first step's matrix again, through the plain versions.
+  shards, _, h = harness_model(config, device, first["params"])
+  mh_copy, _ = train.get_initial_qhbm(shards, config, "qhbm_copy",
+                                      device=device)
+  plain = qhbm.QHBM(h.e_inference, qnn.AnalyticQuantumInference(
+      h.q_inference.circuit, plain=True))
+  gen = torch.Generator(device=device)
+  gen.set_state(first["gen"])
+  t0 = time.perf_counter()
+  im_plain = train.make_information_matrix(
+      plain, mh_copy, config.training.num_samples)(gen, first["state"])
+  torch.cuda.synchronize()
+  im = first["im"]
+  pt = sum(p.numel() for p in h.params["theta"])
+  log(f"[{path}] first step's information matrix {tuple(im.shape)} (Pt = "
+      f"{pt}), plain versions in {time.perf_counter() - t0:.3f} s; largest "
+      f"|entry| of the EBM block {float(im[:pt, :pt].abs().max()):.4e}, the "
+      f"cross block {float(im[pt:, :pt].abs().max()):.4e}, the QNN block "
+      f"{float(im[pt:, pt:].abs().max()):.4e}")
+  if not (bool(torch.isfinite(im).all()) and torch.equal(im, im.T)):
+    raise AssertionError(f"{path}: the information matrix is not finite "
+                         "and symmetric")
+  check(f"{path} first step's information matrix, kernels vs plain",
+        rel_err(im.cpu(), im_plain.cpu()), GRAD_TOL)
+  return launches
+
+
+# Outer steps on "train harness mirror 8q", each of the default 100 inner
+# steps.
+MIRROR_STEPS = 2
+# Inner step 0 starts at the anchor, where f_vqt = <K_anchor> - E_anchor is
+# 0 on every state: div = -log Z of the anchor's EBM whatever the draw.
+MIRROR_DIV_TOL = 1e-4
+
+
+def phase_harness_mirror(device):
+  """"train harness mirror 8q": `run_experiment` on `harness_config()`
+  with mirror descent (Adam at `inner_learning_rate`, the default
+  `num_inner_steps`), one beta, 0.5, MIRROR_STEPS outer steps (cut from
+  1000).  Logs the outer and inner steps/s (host clock, metrics
+  included); fails unless every loss and inner loss is finite, each outer
+  step's inner step 0 `div` equals -log Z of the anchor's EBM (exact, read
+  at the step's start) within MIRROR_DIV_TOL relative, and K1,
+  `diag_rotate`, K5 and `parity_bilinear` launched.  Returns the
+  launches."""
+  from qhbmlib_tpu_torch.baselines import train
+  path = "train harness mirror 8q"
+  config = harness_point_config("mirror", MIRROR_STEPS)
+  inner_steps = config.training.num_inner_steps
+  anchors = []
+
+  def recording(make):
+    def make_recorded(qhbm_obj, *args, **kwargs):
+      step = make(qhbm_obj, *args, **kwargs)
+
+      def recorded(state, index):
+        with torch.no_grad():
+          anchors.append(float(qhbm_obj.e_inference.log_partition_forward()))
+        return step(state, index)
+
+      return recorded
+    return make_recorded
+
+  with wrapped(train, "make_train_step", recording):
+    times, metrics, inner, launches, dt, _ = harness_run(path, config,
+                                                         device)
+  (label,) = times
+  losses = [v for _, v in metrics[label]["loss"]]
+  inner_losses = [v for _, v in inner[label]["inner_loss"]]
+  divs = dict(inner[label]["div"])
+  if (len(losses) != MIRROR_STEPS or not all_finite(losses) or
+      len(inner_losses) != MIRROR_STEPS * inner_steps or
+      not all_finite(inner_losses)):
+    raise AssertionError(f"{path}: {len(losses)} losses, "
+                         f"{len(inner_losses)} inner losses, not all finite")
+  outer = step_seconds(times[label])
+  log(f"[{path}] {MIRROR_STEPS} outer steps of {inner_steps} inner steps "
+      f"(cut from 1000 outer steps and four betas to one: beta 0.5) in "
+      f"{dt:.3f} s: {MIRROR_STEPS * inner_steps / dt:.4f} inner steps/s, "
+      f"{MIRROR_STEPS / dt:.4f} outer steps/s over the path, the second "
+      f"outer step {outer} s (host clock, metrics included); launches an "
+      f"outer step { {k: v / MIRROR_STEPS for k, v in launches.items() if v} }")
+  log(f"[{path}] loss {losses[0]:.6f} -> {losses[-1]:.6f}; inner loss "
+      f"{inner_losses[0]:.6f} -> {inner_losses[-1]:.6f}; fidelity "
+      f"{metrics[label]['fidelity'][-1][1]:.6f}")
+  for s, lz in enumerate(anchors):
+    div0 = divs[s * inner_steps]
+    log(f"[{path}] outer step {s}: inner step 0's div {div0:.8f}, -log Z "
+        f"of the anchor's EBM {-lz:.8f}")
+    check(f"{path} outer step {s}: inner step 0's div vs -log Z",
+          abs(div0 + lz) / abs(lz), MIRROR_DIV_TOL)
+  return launches
+
+
+# Bounds on the QVARTZ sequence's time points that hold across random
+# streams, from the JAX package's harness (`baselines.train.run_experiment`)
+# run once on a CPU at the same configuration (`harness_config()` with
+# training.loss "qvartz", seed 42, no checkpoints; 889 s): beta 1.0 ended
+# at fidelity 0.8498 and D(model || target) 0.3389; the time points 1.0,
+# 2.0, 3.0 went from fidelity 0.0529, 0.0645, 0.0994 and D(target ||
+# model) 23.63, 6.674, 4.980 at their step 0 (a fresh Adam a point) to
+# 0.5859, 0.4664, 0.3237 and 1.267, 1.690, 2.193 at their last, a fall
+# of 2.27x at the least.  The port's own CPU runs at seeds 42 and 43 (other
+# streams) ended them at 0.4078, 0.4043, 0.3844 and 4.070, 2.733, 2.106
+# (its beta 1.0 had spiked at step 900 and ended at 0.4625), and 0.6314,
+# 0.4576, 0.3394 and 0.8041, 1.475, 1.882; falls of 2.75x at the least.
+# A QMHL step that did not learn stays near its step 0.
+QVARTZ_FIDELITY_MIN = 0.2
+QVARTZ_REL_ENTROPY_MAX = 5.0
+QVARTZ_REL_ENTROPY_FALL = 1.5  # last < step 0 / this
+
+
+def qmhl_grad(h, data, gen, plain):
+  """(loss, flat float64 CPU gradient [theta, phi]) of the QMHL loss of
+  model `h` on `data`, both draws from `gen` reseeded with SEED, the
+  data's circuit through the kernels or (`plain`) their plain versions."""
+  from qhbmlib_tpu_torch.data import qhbm_data
+  from qhbmlib_tpu_torch.inference import qhbm, qmhl_loss, qnn
+  if plain:
+    d = data.qhbm
+    data = qhbm_data.QHBMData(qhbm.QHBM(d.e_inference,
+                                        qnn.AnalyticQuantumInference(
+                                            d.q_inference.circuit,
+                                            plain=True)))
+  gen.manual_seed(SEED)
+  loss, _ = qmhl_loss.make_qmhl_with_state(data, h)((gen, gen))
+  grads = torch.autograd.grad(loss, h.parameters())
+  torch.cuda.synchronize()
+  return float(loss.detach()), torch.cat(
+      [g.reshape(-1) for g in grads]).double().cpu()
+
+
+def phase_harness_qvartz(device):
+  """"train harness qvartz 8q": `run_experiment` on `harness_config()`
+  with the QVARTZ loss, uncut: beta 1.0 by VQT for 1000 steps, then three
+  Trotter time steps of 100 vanilla QMHL steps each, the data of each the
+  previous model followed by the Trotter channel (constant gates).  Logs
+  steps/s for the beta point and the time points (host clock, metrics
+  included); fails unless every loss is finite, each time point's last
+  fidelity is at least QVARTZ_FIDELITY_MIN and its D(target || model) at
+  most QVARTZ_REL_ENTROPY_MAX and below its step 0's over
+  QVARTZ_REL_ENTROPY_FALL, and K1, `diag_rotate`, K5 and
+  `parity_bilinear` launched.  Then at the last time point's checkpoint
+  (its data from the one before): one QMHL step's gradient at a fixed
+  draw through the kernels against the plain versions within GRAD_TOL, its
+  launches paired.  Returns the launches."""
+  from qhbmlib_tpu_torch.baselines import train
+  path = "train harness qvartz 8q"
+  config = harness_config()
+  config.training.loss = "qvartz"
+  times, metrics, _, launches, dt, ckpts = harness_run(path, config, device)
+  labels = list(times)
+  steps = sum(len(t) for t in times.values())
+  beta_s = times[labels[0]][-1] - times[labels[0]][0]
+  time_s = times[labels[-1]][-1] - times[labels[1]][0]
+  log(f"[{path}] {steps} steps in {dt:.3f} s ({steps / dt:.4f} steps/s): "
+      f"{labels[0]}'s VQT {(len(times[labels[0]]) - 1) / beta_s:.4f} steps/s "
+      f"after the first, the time points' QMHL "
+      f"{(sum(len(times[l]) for l in labels[1:]) - 1) / time_s:.4f} steps/s "
+      f"(host clock, metrics included); launches "
+      f"{ {k: v for k, v in launches.items() if v} }")
+  for label in labels:
+    m = metrics[label]
+    losses = [v for _, v in m["loss"]]
+    if not all_finite(losses):
+      raise AssertionError(f"{path}: a {label} loss is not finite")
+    fid, rel = m["fidelity"][-1][1], m["relative_entropy"][-1][1]
+    log(f"[{path}] {label}: {len(losses)} steps, loss {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f} (target {m['target_loss'][0][1]:.6f}); fidelity "
+        f"{m['fidelity'][0][1]:.6f} -> {fid:.6f}; relative entropy "
+        f"{m['relative_entropy'][0][1]:.6f} -> {rel:.6f}")
+    rel0 = m["relative_entropy"][0][1]
+    if label.startswith("time_") and not (
+        fid >= QVARTZ_FIDELITY_MIN and rel <= QVARTZ_REL_ENTROPY_MAX and
+        rel < rel0 / QVARTZ_REL_ENTROPY_FALL):
+      raise AssertionError(
+          f"{path}: {label} ends at fidelity {fid:.4f} (limit >= "
+          f"{QVARTZ_FIDELITY_MIN}), D(target || model) {rel:.4f} (limits <= "
+          f"{QVARTZ_REL_ENTROPY_MAX} and < its step 0's {rel0:.4f} / "
+          f"{QVARTZ_REL_ENTROPY_FALL})")
+  # One QMHL step at the last checkpoint, its data from the one before.
+  shards, _, h = harness_model(config, device, ckpts[labels[-1]])
+  data = train.evolved_data(ckpts[labels[-2]],
+                            train.get_tfim_unitary(*shards, config), shards,
+                            config, device)
+  gen = torch.Generator(device=device)
+  reset_launches()
+  loss_k, grad_k = qmhl_grad(h, data, gen, plain=False)
+  read_launches(f"{path}, one QMHL step at {labels[-1]}'s checkpoint",
+                TRAIN_HARNESS, paired=True)
+  loss_p, grad_p = qmhl_grad(h, data, gen, plain=True)
+  log(f"[{path}] one QMHL step at {labels[-1]}'s checkpoint: loss "
+      f"{loss_k:.8f} through the kernels, {loss_p:.8f} plain; gradient norm "
+      f"{float(grad_p.norm()):.4e}")
+  check(f"{path} QMHL gradient at {labels[-1]}'s checkpoint, kernels vs "
+        "plain", rel_err(grad_k, grad_p), GRAD_TOL)
+  return launches
+
+
+def phase_ladder_cli():
+  """The ladder's command line (`benchmarks.run_ladder`) in subprocesses
+  from the checkout's root: r2 at 8q for 3 steps must exit 0 with one
+  JSON line whose steps/s is finite; r4 (which waits for parallel/) must
+  print its error line and exit 1."""
+  import math
+  import subprocess
+  root = os.path.dirname(os.path.abspath(__file__))
+
+  def run(*args):
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "qhbmlib_tpu_torch.benchmarks.run_ladder",
+         *args], cwd=root, capture_output=True, text=True, timeout=300,
+        check=False)
+    lines = [json.loads(x) for x in out.stdout.splitlines()
+             if x.startswith("{")]
+    log(f"[ladder cli] {' '.join(args)}: exit {out.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s: {lines}")
+    return out, lines
+
+  out, lines = run("--rung", "r2_heis8_qmhl", "--steps", "3")
+  if (out.returncode != 0 or len(lines) != 1 or
+      not math.isfinite(lines[0].get("steps_per_sec", math.nan))):
+    raise AssertionError(f"ladder cli r2: exit {out.returncode}, {lines}; "
+                         f"stderr {out.stderr[-2000:]}")
+  out, lines = run("--rung", "r4_tfim24_sharded_vqt")
+  if out.returncode != 1 or len(lines) != 1 or "error" not in lines[0]:
+    raise AssertionError(f"ladder cli r4: exit {out.returncode}, {lines}")
+
+
 SOURCES = {"stream_scale": "qhbmlib_tpu_torch/csrc/stream_kernels.cu"}
 REPLACES = {
     "axis_apply": "qhbmlib_tpu/ops/pallas_sv.py:459",
@@ -2696,6 +3089,10 @@ def main() -> int:
   paths["train r1 2q"] = phase_train_r1(device)
   paths["train r3 16q"] = phase_train_r3(device)
   paths["train harness 8q"] = phase_harness(device)
+  paths["train harness natural 8q"] = phase_harness_natural(device)
+  paths["train harness mirror 8q"] = phase_harness_mirror(device)
+  paths["train harness qvartz 8q"] = phase_harness_qvartz(device)
+  phase_ladder_cli()
   free_device_memory()
   phase_kernels_28q(device)
   phase_chunk_rule(device)

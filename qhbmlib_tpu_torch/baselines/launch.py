@@ -8,8 +8,8 @@ module's `get_sweep()`, each with its own output directory, at most
         [--sweep_filter training.method=vanilla ...] [--retries 1] \\
         [--device cuda|cpu] [--dry_run]
 
-Points whose method or loss is not ported yet (natural, mirror, qvartz)
-fail with NotImplementedError; filter them out with `--sweep_filter`.
+Every point of the sweep (the losses "vqt" and "qvartz" by the methods
+"vanilla", "natural" and "mirror") runs; `--sweep_filter` picks a subset.
 """
 
 from __future__ import annotations

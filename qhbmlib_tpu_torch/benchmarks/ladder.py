@@ -196,7 +196,7 @@ def _build_r5(smoke: bool, qubits, device, unique_cap: int):
 
   def train_step():
     opt.zero_grad(set_to_none=True)
-    loss, ebm_state["model"] = loss_fn(model_state=ebm_state["model"])
+    loss, (_, ebm_state["model"]) = loss_fn(state=(None, ebm_state["model"]))
     loss.backward()
     grads = bench.flat_grads(h)
     opt.step()

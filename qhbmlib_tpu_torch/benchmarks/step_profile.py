@@ -15,8 +15,11 @@ r3 rung: parameter-shift gradients, its step also split by SHIFT_SPANS
 into host folds, shared stages, per-row corrections and sampling,
 `span_split`) and for the experiment harness's steps of HARNESS_WORKLOADS
 ("harness 8q": `baselines.train`'s vanilla Adam step on its default
-config at an 8-site TFIM ring, with its per-step metrics), takes one
-warm-up step, then traces STEPS steps inside one `record_function` region
+config at an 8-site TFIM ring, with its per-step metrics; "harness natural
+8q": its natural-gradient step, the information matrix's 644 shifted
+<K_copy> evaluations and the solve, one step traced), takes one
+warm-up step, then traces STEPS steps (or the workload's own `steps`)
+inside one `record_function` region
 that ends in a synchronize.  From the exported Chrome trace: the busy
 share, the union of the device intervals (kernels, copies, sets) inside
 the region over the region's wall time -- the profiler stretches the wall,
@@ -84,7 +87,11 @@ RUNG_WORKLOADS = {"r3 16q": dict(rung="r3_kobe16_vqt_shift", qubits=16)}
 # The profiled steps of the experiment harness (`baselines.train`): its
 # default config (KOBE-2, analytic EBM of 500 samples, HEA 7L, Adam 0.1) on
 # a num_rows x num_cols TFIM ring, at the sweep's first beta.
-HARNESS_WORKLOADS = {"harness 8q": dict(num_rows=8, num_cols=1, beta=0.5)}
+HARNESS_WORKLOADS = {
+    "harness 8q": dict(num_rows=8, num_cols=1, beta=0.5, method="vanilla"),
+    "harness natural 8q": dict(num_rows=8, num_cols=1, beta=0.5,
+                               method="natural", steps=1),
+}
 # The r3 step's parts: the host folds (`prepare_segments`) and corrections
 # (`shift_corrections`), the shared stages (`apply_stage`: every forward
 # stage over the whole batch, measurement suffixes included), the per-row
@@ -276,27 +283,31 @@ def profile_single(trace_dir: str, device="cuda", n: int = 20,
 
 
 def harness_step(cfg, device, log_dir: str):
-  """The harness's train step at `cfg` of HARNESS_WORKLOADS: one vanilla
-  step (`harness.make_vanilla_step`, seed 42) and its per-step metrics
-  (`harness.log_step`) into the MetricsWriter `train_step.writer` on
-  `log_dir`."""
+  """The harness's train step at `cfg` of HARNESS_WORKLOADS: one step of
+  `cfg["method"]` (`harness.make_train_step`, seed 42) and its per-step
+  metrics (`harness.log_step`, and a natural step's `log_natural`) into
+  the MetricsWriter `train_step.writer` on `log_dir`."""
   config = harness_config.get_config()
   config.dataset.num_rows = cfg["num_rows"]
   config.dataset.num_cols = cfg["num_cols"]
+  config.training.method = cfg["method"]
   shards = harness.get_tfim_hamiltonian(config.dataset.bias, config, device)
   _, h = harness.get_initial_qhbm(shards, config, "qhbm", seed=42,
                                   device=device)
   optimizer = harness.get_optimizer(config.training.optimizer,
                                     config.training.learning_rate,
                                     h.parameters())
-  step = harness.make_vanilla_step(h, shards[0] + shards[1], cfg["beta"],
-                                   optimizer)
+  step = harness.make_train_step(
+      h, optimizer, config, target_hamiltonian=shards[0] + shards[1],
+      beta=cfg["beta"], target_hamiltonian_shards=shards)
   writer = harness.MetricsWriter(log_dir, tensorboard=False)
   count = [0]
 
   def train_step():
-    loss, grads, _ = step(None)
+    loss, grads, _, extra = step(None, count[0])
     harness.log_step(writer, config.logging, count[0], loss, h.params, grads)
+    if extra is not None:
+      harness.log_natural(writer, config.logging, count[0], extra)
     count[0] += 1
 
   train_step.writer = writer
@@ -310,6 +321,7 @@ def profile_workload(name: str, trace_dir: str) -> dict:
   breakdown."""
   device = torch.device("cuda")
   cfg = QMHL_WORKLOADS.get(name, RUNG_WORKLOADS.get(name, {}))
+  steps = HARNESS_WORKLOADS.get(name, {}).get("steps", STEPS)
   if name in HARNESS_WORKLOADS:
     train_step = harness_step(
         HARNESS_WORKLOADS[name], device,
@@ -334,7 +346,7 @@ def profile_workload(name: str, trace_dir: str) -> dict:
   spans = SHIFT_SPANS if name in RUNG_WORKLOADS else ()
   with traced_spans(spans), torch.profiler.profile(activities=acts) as prof:
     with torch.profiler.record_function(REGION):
-      for _ in range(STEPS):
+      for _ in range(steps):
         train_step()
       torch.cuda.synchronize()
   os.makedirs(trace_dir, exist_ok=True)
@@ -343,8 +355,8 @@ def profile_workload(name: str, trace_dir: str) -> dict:
   prof.export_chrome_trace(path)
   with open(path) as f:
     events = json.load(f)["traceEvents"]
-  split = {"split": span_split(events, STEPS, spans)} if spans else {}
-  return {"workload": name, "steps": STEPS, **breakdown(events, STEPS),
+  split = {"split": span_split(events, steps, spans)} if spans else {}
+  return {"workload": name, "steps": steps, **breakdown(events, steps),
           **split, "trace": path, "card": bench.card(device)}
 
 

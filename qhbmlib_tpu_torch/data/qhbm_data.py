@@ -21,3 +21,13 @@ class QHBMData(quantum_data.QuantumData):
                   ) -> torch.Tensor:
     """The QHBM's expectation of one observable, squeezed to a scalar."""
     return self.qhbm.expectation(observable, generator).squeeze(0)
+
+  def expectation_with_state(self, observable,
+                             generator: Optional[torch.Generator] = None,
+                             state=None):
+    """(expectation, new sampler state): the QHBM's
+    `expectation_with_state`, squeezed to a scalar (reference
+    `QHBMData.expectation_pure`, qhbm_data.py:25)."""
+    value, new_state = self.qhbm.expectation_with_state(observable, generator,
+                                                        state)
+    return value.squeeze(0), new_state

@@ -18,3 +18,10 @@ class QuantumData(abc.ABC):
                   ) -> torch.Tensor:
     """Expectation of an observable against this dataset (a scalar for a
     Hamiltonian or one PauliSum)."""
+
+  def expectation_with_state(self, observable,
+                             generator: Optional[torch.Generator] = None,
+                             state=None):
+    """(expectation, new sampler state) for a train step that threads the
+    data's sampler state; data without one pass `state` through."""
+    return self.expectation(observable, generator), state

@@ -116,6 +116,13 @@ class EnergyInference(abc.ABC):
     support, counts = self.support_and_counts(generator)
     return support, counts, state
 
+  def sample_with_state(self, state, num_samples: int,
+                        generator: Optional[torch.Generator] = None):
+    """(samples [num_samples, n] int8, new sampler state): raw samples for
+    a train step that threads the sampler's state (reference ebm.py:157);
+    stateless samplers pass `state` through."""
+    return self.sample(num_samples, generator), state
+
   def log_partition_with_state(self, generator=None, state=None):
     """(log Z with the eq. C2 gradient, new sampler state), as
     `log_partition` with the state threaded (reference ebm.py:178-188): the
@@ -366,10 +373,14 @@ class GibbsWithGradientsInference(EnergyInference):
       return chain_state.new_zeros((0,) + tuple(chain_state.shape)), state
     return torch.stack(samples), state
 
-  def sample_with_state(self, chain_state: torch.Tensor, num_samples: int,
+  def sample_with_state(self, chain_state: Optional[torch.Tensor],
+                        num_samples: int,
                         generator: Optional[torch.Generator] = None):
     """(samples [num_samples, n], new chain state): ceil(num_samples / C)
-    steps, each step's chains in order."""
+    steps from `chain_state` (the stored chain if None), each step's
+    chains in order; no burn-in."""
+    if chain_state is None:
+      chain_state = self._chain_state
     steps = -(-num_samples // self.num_chains)
     samples, final = self.run_chains(chain_state, steps, generator)
     return samples.reshape(-1, samples.shape[-1])[:num_samples], final
@@ -408,8 +419,7 @@ class GibbsWithGradientsInference(EnergyInference):
     num_expectation_samples draws of the chains from `state` (the stored
     chain if None), deduped to max_unique_samples rows; no burn-in."""
     samples, new_state = self.sample_with_state(
-        self._chain_state if state is None else state,
-        self.num_expectation_samples, generator)
+        state, self.num_expectation_samples, generator)
     uniq, _, counts = utils.unique_bitstrings_with_counts(
         samples, size=self.max_unique_samples)
     return uniq.to(torch.float32), counts.to(torch.float32), new_state

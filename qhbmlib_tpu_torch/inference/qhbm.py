@@ -14,6 +14,7 @@ import torch
 
 from qhbmlib_tpu_torch import utils
 from qhbmlib_tpu_torch.inference import ebm
+from qhbmlib_tpu_torch.inference import estimators
 from qhbmlib_tpu_torch.inference import qnn
 from qhbmlib_tpu_torch.models import hamiltonian as hamiltonian_model
 
@@ -55,11 +56,11 @@ class QHBM:
   def set_params(self, params: Dict[str, torch.Tensor]) -> None:
     """Copies {'theta': tensor, 'phi': tensor} (see convert.py) into
     the parameters of the energy and of the circuit: a tensor into a
-    module's one parameter, a tuple of tensors into its parameters in
-    order (QAIA's etas, thetas, gammas)."""
+    module's one parameter, a tuple or list of tensors (as `params`) into
+    its parameters in order (QAIA's etas, thetas, gammas)."""
     with torch.no_grad():
       for key, value in params.items():
-        values = value if isinstance(value, tuple) else (value,)
+        values = value if isinstance(value, (tuple, list)) else (value,)
         targets = self.params[key]
         if len(values) != len(targets):
           raise ValueError(f"params[{key!r}] holds {len(values)} tensors "
@@ -86,3 +87,19 @@ class QHBM:
     return self._e_inference.expectation(
         lambda bits: q_inf.expectation(bits, observables, dedup=False),
         generator)
+
+  def expectation_with_state(self, observables: qnn.Observable,
+                             generator: Optional[torch.Generator] = None,
+                             state=None):
+    """([n_ops] expectations, new sampler state): `expectation` with the
+    EBM sampler's state threaded as a train step threads it (reference
+    `expectation_pure(..., ebm_state=)`, qhbm.py:91): the support is drawn
+    from `state` (a GWG chain state; None continues the stored chain
+    without advancing it) with no burn-in.  Gradients reach the energy's
+    parameters (eq. A5), the circuit's and the observable's."""
+    e_inf = self._e_inference
+    support, counts, new_state = e_inf.support_counts_state(generator, state)
+    values = self._q_inference.expectation(support.to(torch.int8),
+                                           observables, dedup=False)
+    return estimators.sampled_expectation(e_inf.energy, e_inf.theta, values,
+                                          support, counts), new_state

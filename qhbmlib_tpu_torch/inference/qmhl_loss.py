@@ -38,24 +38,29 @@ def make_qmhl(data: quantum_data.QuantumData, input_qhbm: qhbm_module.QHBM):
 
 def make_qmhl_with_state(data: quantum_data.QuantumData,
                          input_qhbm: qhbm_module.QHBM):
-  """The QMHL loss of a train step that threads the model sampler's state,
-  as the reference's jitted step does (`make_qmhl`'s pure loss with
-  `ebm_state`, qmhl_loss.py:30-46): no burn-in, whatever the parameters.
+  """The QMHL loss of a train step that threads both sampler states, as
+  the reference's jitted step does (`make_qmhl`'s pure loss with the
+  (data, model) `ebm_state` pair, qmhl_loss.py:30-46): no burn-in,
+  whatever the parameters.
 
-  Returns loss_fn(generators=None, model_state=None) -> (loss, new model
-  state): `model_state` is the model EBM's sampler state (a GWG chain
-  state; None continues the stored one) and log Z draws its support, then
-  its Monte Carlo samples, from the model's generator.  The data's
-  expectation uses its own sampler as `make_qmhl` does."""
+  Returns loss_fn(generators=None, state=None) -> (loss, (new data state,
+  new model state)).  `state` is the (data, model) pair of sampler states
+  (a GWG chain state, or None: a stateless sampler's, or a chain's stored
+  state continued without advancing it).  The data's expectation draws its
+  support from the data's generator (`QuantumData.expectation_with_state`);
+  log Z its support, then its Monte Carlo samples, from the model's."""
   model_k = input_qhbm.modular_hamiltonian
   e_inf = input_qhbm.e_inference
 
   def loss_fn(generators: Optional[Sequence[torch.Generator]] = None,
-              model_state=None):
+              state=None):
     data_gen, model_gen = generators or (None, None)
-    data_exp = data.expectation(model_k, data_gen)
-    log_z, new_state = e_inf.log_partition_with_state(model_gen, model_state)
-    return data_exp + log_z, new_state
+    data_state, model_state = state or (None, None)
+    data_exp, data_state = data.expectation_with_state(model_k, data_gen,
+                                                       data_state)
+    log_z, model_state = e_inf.log_partition_with_state(model_gen,
+                                                        model_state)
+    return data_exp + log_z, (data_state, model_state)
 
   return loss_fn
 

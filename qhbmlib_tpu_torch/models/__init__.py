@@ -1,6 +1,7 @@
 """Model parameterizations as nn.Modules (energies, circuits) and
 Hamiltonians built from them."""
 
+from qhbmlib_tpu_torch.models.circuit import ConstantCircuit
 from qhbmlib_tpu_torch.models.circuit import DirectQuantumCircuit
 from qhbmlib_tpu_torch.models.circuit import QAIA
 from qhbmlib_tpu_torch.models.circuit import QuantumCircuit

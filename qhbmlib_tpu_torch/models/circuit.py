@@ -96,6 +96,24 @@ class DirectQuantumCircuit(QuantumCircuit):
     return self.values
 
 
+class ConstantCircuit(QuantumCircuit):
+  """A circuit of constant gates only (the reference's symbol-free
+  `QuantumCircuit(u, (), [], [])`, `baselines/train.py:724`): no
+  parameters, an empty `symbol_values()`.  Summed after a parameterized
+  circuit it appends its gates to that circuit's (a Trotter channel)."""
+
+  def __init__(self, pqc: ir.Circuit, name: Optional[str] = None,
+               device=None):
+    device = device_lib.resolve(device)
+    super().__init__(pqc, (), name or "ConstantCircuit", device)
+    self.register_buffer("_no_values",
+                         torch.zeros([0], dtype=torch.float32, device=device),
+                         persistent=False)
+
+  def symbol_values(self) -> torch.Tensor:
+    return self._no_values
+
+
 class QAIA(QuantumCircuit):
   """The quantum-classical ansatz with tied parameters (reference
   `models/circuit.py:226-276`): each of `num_layers` layers applies

@@ -11,10 +11,13 @@ the JAX package's (`baselines/`), on the CPU at 2-4 qubits.
     final parameters within 1e-4 (`LOSS_ATOL`, as `test_torch_vqt.py`).
   * A 3q `run_experiment` writes the JAX run's directories and JSONL tags;
     the data points' target entropy and log Z agree within 1e-9.
-  * The port alone: the reference's vanilla smoke and convergence tests
-    (`tests/baselines/test_train.py`), kill-and-resume of a VQT sweep, a GWG
-    run threading its chain, the CLI in a subprocess, the launcher, and the
-    unported methods and loss raising NotImplementedError.
+  * The port alone: the reference's smoke and convergence tests
+    (`tests/baselines/test_train.py`) for every method and both losses,
+    kill-and-resume of a VQT sweep and of a QVARTZ sequence, GWG runs
+    threading their chains, QVARTZ's dataset-only mode, the CLI and the
+    ladder CLI in subprocesses, the launcher, and ValueError for an unknown
+    method or loss.  (The natural, mirror and QVARTZ steps against the
+    JAX trainer: `test_torch_harness_methods.py`.)
 """
 
 import json
@@ -517,14 +520,256 @@ def test_overrides_cast_to_the_default_type():
       ttrain.apply_overrides(config, [bad])
 
 
-@pytest.mark.parametrize("key,value", [("training.method", "natural"),
-                                       ("training.method", "mirror"),
-                                       ("training.loss", "qvartz")])
-def test_unported_methods_and_loss_raise(tmp_path, key, value):
+@pytest.mark.parametrize("key,value", [("training.method", "adagrad"),
+                                       ("training.method", "Natural"),
+                                       ("training.loss", "qmhl")])
+def test_unknown_method_or_loss_raises(tmp_path, key, value):
+  """A method or loss the harness does not have raises ValueError before
+  anything is written; every point of the sweep is known."""
   config = _small_config(**{key: value})
-  with pytest.raises(NotImplementedError, match="queue 1 item 8b"):
+  with pytest.raises(ValueError, match=value):
     ttrain.run_experiment(config, str(tmp_path / "x"), device=CPU)
   assert not os.path.exists(tmp_path / "x")
+  for point in tconfig.get_sweep():
+    known = tconfig.get_config()
+    ttrain.apply_overrides(known, [f"--{k}={v}" for k, v in point.items()])
+    ttrain.check_config(known)
+
+
+# ---------------------------------------------------------------------------
+# The natural gradient, mirror descent and QVARTZ: the port's own runs (the
+# rest of the reference's tests/baselines/test_train.py)
+# ---------------------------------------------------------------------------
+
+QVARTZ_SMALL = {"training.loss": "qvartz", "dataset.time_steps": 2,
+                "training.num_inner_steps": 2}
+
+
+@pytest.mark.parametrize("method", ["natural", "mirror"])
+def test_vqt_methods_run(tmp_path, method):
+  config = _small_config(**{"training.method": method,
+                            "training.num_inner_steps": 2})
+  results = ttrain.run_experiment(config, str(tmp_path / method), seed=2,
+                                  device=CPU)
+  losses = _read_metrics(results, "beta_0p5", "loss")
+  assert len(losses) == 2
+  assert all(np.isfinite(l) for l in losses)
+  fid = _read_metrics(results, "beta_0p5", "fidelity")
+  assert fid and 0.0 <= fid[-1] <= 1.0 + 1e-6
+  model_dir = os.path.join(results, "metrics", "beta_0p5",
+                           "train_model_trial_0")
+  tags = {r.get("tag") for r in _records(os.path.join(model_dir,
+                                                      "metrics.jsonl"))}
+  if method == "natural":
+    assert {"info_matrix_eigvals/stats", "info_matrix_min_eigval",
+            "info_matrix_max_eigval", "info_matrix_cond_number", "reg",
+            "natural_grads/stats", "natural_grad_norm"} <= tags
+  else:
+    inner = _records(os.path.join(model_dir, "train_inner",
+                                  "metrics.jsonl"))
+    assert {r["tag"] for r in inner} == {
+        "inner_loss", "inner_prod", "div", "euclidean_div",
+        "inner_loss_grads/stats"}
+    # One writer: the global index step * num_inner_steps + inner_step.
+    assert sorted({r["step"] for r in inner}) == [0, 1, 2, 3]
+
+
+def test_qvartz_runs(tmp_path):
+  config = _small_config(**QVARTZ_SMALL)
+  results = ttrain.run_experiment(config, str(tmp_path / "qvartz"), seed=3,
+                                  device=CPU)
+  labels = sorted(os.listdir(os.path.join(results, "metrics")))
+  assert labels == ["beta_1p0", "time_1p5", "time_3p0"]
+  losses = _read_metrics(results, "time_1p5", "loss")
+  assert len(losses) == 2 and all(np.isfinite(l) for l in losses)
+  # QMHL's target loss is the evolved target's entropy.
+  entropy = [r["value"] for r in _records(os.path.join(
+      results, "metrics", "time_1p5", "data_point", "metrics.jsonl"))
+             if r["tag"] == "target_entropy"]
+  assert _read_metrics(results, "time_1p5", "target_loss") == entropy
+
+
+@pytest.mark.parametrize("loss", ["vqt", "qvartz"])
+def test_gwg_natural_runs(tmp_path, loss):
+  """GWG with the natural method (and QVARTZ's QMHL): the information
+  matrix's EBM block and its <K_copy> rows sample through the threaded
+  chain; the QMHL step threads the data's chain too."""
+  config = _small_config(**{**QVARTZ_SMALL, "training.loss": loss,
+                            "training.method": "natural",
+                            "model.ebm": "gwg", "model.gwg_burnin": 20})
+  results = ttrain.run_experiment(config, str(tmp_path / "gwgnat"), seed=6,
+                                  device=CPU)
+  label = "beta_0p5" if loss == "vqt" else "time_1p5"
+  losses = _read_metrics(results, label, "loss")
+  assert len(losses) == 2 and all(np.isfinite(l) for l in losses)
+
+
+def test_qvartz_gwg_runs(tmp_path, monkeypatch):
+  """QVARTZ with a GWG EBM: the data's chain and the model's are burned in
+  once a time step and threaded through the QMHL steps as a pair."""
+  config = _small_config(**{**QVARTZ_SMALL, "model.ebm": "gwg",
+                            "model.gwg_burnin": 20, "model.gwg_chains": 4})
+  cls = tebm.GibbsWithGradientsInference
+  burns, last, draws = [], {}, [0]
+  orig_burn, orig_scs = cls.burn_in, cls.support_counts_state
+
+  def burn_in(self, chain_state, generator=None):
+    burns.append(self)
+    last[self] = orig_burn(self, chain_state, generator)
+    return last[self]
+
+  def support_counts_state(self, generator=None, state=None):
+    # Each draw continues the state its EBM's burn-in or last draw left.
+    assert state is last[self]
+    out = orig_scs(self, generator, state)
+    last[self] = out[2]
+    draws[0] += 1
+    return out
+
+  def no_rebake(self):
+    raise AssertionError("a train step burned in on a parameter change")
+
+  monkeypatch.setattr(cls, "burn_in", burn_in)
+  monkeypatch.setattr(cls, "support_counts_state", support_counts_state)
+  monkeypatch.setattr(cls, "_maybe_burn_in", no_rebake)
+  results = ttrain.run_experiment(config, str(tmp_path / "qvartz_gwg"),
+                                  seed=7, device=CPU)
+  labels = sorted(os.listdir(os.path.join(results, "metrics")))
+  assert sum(l.startswith("time_") for l in labels) == 2
+  losses = _read_metrics(results, "time_1p5", "loss")
+  assert len(losses) == 2 and all(np.isfinite(l) for l in losses)
+  # The beta point burns in the model; each time point the data and the
+  # model, two different EBMs.
+  assert len(burns) == 1 + 2 * 2
+  assert burns[1] is not burns[2]
+  # A VQT step draws twice; a QMHL step once for the data, once for log Z.
+  assert draws[0] == 2 * 2 + 2 * 2 * 2
+
+
+def test_qvartz_dataset_only_mode(tmp_path):
+  """training.train=False walks every time step with the exact targets'
+  metrics and builds no data model."""
+  config = _small_config(**{**QVARTZ_SMALL, "training.train": False})
+  results = ttrain.run_experiment(config, str(tmp_path / "nodata"), seed=8,
+                                  device=CPU)
+  labels = sorted(os.listdir(os.path.join(results, "metrics")))
+  assert sum(l.startswith("time_") for l in labels) == 2
+  for label in labels:
+    tags = [r["tag"] for r in _records(os.path.join(
+        results, "metrics", label, "data_point", "metrics.jsonl"))]
+    assert "target_entropy" in tags
+    assert not os.path.isdir(os.path.join(results, "metrics", label,
+                                          "train_model_trial_0"))
+
+
+def test_qvartz_kill_and_resume(tmp_path, monkeypatch):
+  """An interrupted QVARTZ sequence resumes: the finished beta point is
+  restored (not retrained) and seeds the first time point's data."""
+  out = str(tmp_path / "resume")
+  config = _small_config(**{**QVARTZ_SMALL, "logging.checkpoint": True})
+  calls = {"n": 0}
+  orig = ttrain.train_model
+
+  def preempted(*args, **kwargs):
+    calls["n"] += 1
+    if calls["n"] > 1:
+      raise RuntimeError("simulated preemption")
+    return orig(*args, **kwargs)
+
+  monkeypatch.setattr(ttrain, "train_model", preempted)
+  with pytest.raises(RuntimeError, match="simulated preemption"):
+    ttrain.run_experiment(config, out, seed=5, device=CPU)
+  monkeypatch.setattr(ttrain, "train_model", orig)
+  ckpt_root = os.path.join(out, "results", "checkpoints")
+  assert os.listdir(ckpt_root) == ["beta_1p0"]
+  saved = os.path.join(ckpt_root, "beta_1p0", "trial_0")
+  mtime = os.path.getmtime(saved)
+  trained = ttrain.load_params(saved, CPU)
+
+  seeded = []
+  orig_evolved = ttrain.evolved_data
+
+  def spy(prev_params, *args, **kwargs):
+    seeded.append(prev_params)
+    return orig_evolved(prev_params, *args, **kwargs)
+
+  monkeypatch.setattr(ttrain, "evolved_data", spy)
+  results = ttrain.run_experiment(config, out, seed=5, device=CPU)
+  assert os.path.getmtime(saved) == mtime
+  assert len(seeded) == 2
+  assert torch.equal(seeded[0]["phi"][0], trained["phi"][0])
+  assert len(_read_metrics(results, "beta_1p0", "loss")) == 2
+  losses = _read_metrics(results, "time_1p5", "loss")
+  assert len(losses) == 2 and all(np.isfinite(l) for l in losses)
+  assert sorted(os.listdir(ckpt_root)) == ["beta_1p0", "time_1p5",
+                                           "time_3p0"]
+  mtimes = {l: os.path.getmtime(os.path.join(ckpt_root, l, "trial_0"))
+            for l in os.listdir(ckpt_root)}
+  ttrain.run_experiment(config, out, seed=5, device=CPU)
+  for l, t in mtimes.items():
+    assert os.path.getmtime(os.path.join(ckpt_root, l, "trial_0")) == t
+
+
+@pytest.mark.slow
+def test_natural_vqt_converges_toward_target(tmp_path):
+  """The natural gradient trains (the reference's regression for a
+  permuted flatten in the solve, which logged plausible metrics)."""
+  config = _small_config(**{
+      "training.method": "natural", "dataset.beta_steps": 1,
+      "dataset.beta_min": 1.0, "dataset.beta_max": 1.0,
+      "model.circuit_layers": 2, "training.init_steps": 40,
+      "training.learning_rate": 0.05, "logging.expensive_downsample": 39})
+  results = ttrain.run_experiment(config, str(tmp_path / "natconv"), seed=4,
+                                  device=CPU)
+  losses = _read_metrics(results, "beta_1p0", "loss")
+  fid = _read_metrics(results, "beta_1p0", "fidelity")
+  assert losses[-1] < losses[0]
+  assert fid[-1] > 0.85
+
+
+@pytest.mark.slow
+def test_mirror_vqt_converges_toward_target(tmp_path):
+  """Mirror descent trains end to end (10 inner steps: 5 plateau near
+  fidelity 0.78 at this size in the reference)."""
+  config = _small_config(**{
+      "training.method": "mirror", "dataset.beta_steps": 1,
+      "dataset.beta_min": 1.0, "dataset.beta_max": 1.0,
+      "model.circuit_layers": 2, "training.init_steps": 60,
+      "training.num_inner_steps": 10, "logging.expensive_downsample": 59})
+  results = ttrain.run_experiment(config, str(tmp_path / "mirconv"), seed=5,
+                                  device=CPU)
+  losses = _read_metrics(results, "beta_1p0", "loss")
+  fid = _read_metrics(results, "beta_1p0", "fidelity")
+  assert losses[-1] < losses[0]
+  assert fid[-1] > 0.8
+
+
+def _run_ladder(*args):
+  cmd = [sys.executable, "-m", "qhbmlib_tpu_torch.benchmarks.run_ladder",
+         "--device", "cpu", *args]
+  env = {**os.environ, "OMP_NUM_THREADS": "1"}
+  run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=180, check=False)
+  return run, [json.loads(line) for line in run.stdout.splitlines()
+               if line.startswith("{")]
+
+
+def test_run_ladder_cli(tmp_path):
+  """The ladder CLI: one JSON line a rung; a rung that raises (r4 waits
+  for parallel/) prints its error and the process exits 1."""
+  run, lines = _run_ladder("--smoke", "--rung", "r1_tfim2_vqt", "--steps",
+                           "1")
+  assert run.returncode == 0, run.stderr
+  (line,) = lines
+  assert line["rung"] == "r1_tfim2_vqt" and line["n"] == 2
+  assert line["loss"] == "vqt" and line["steps"] == 1
+  assert np.isfinite(line["steps_per_sec"]) and line["steps_per_sec"] > 0
+  assert np.isfinite(line["final_loss"]) and line["warmup_s"] >= 0
+  run, lines = _run_ladder("--rung", "r4_tfim24_sharded_vqt")
+  assert run.returncode == 1
+  assert lines == [{"rung": "r4_tfim24_sharded_vqt", "error": lines[0][
+      "error"]}]
+  assert "queue 1 item 9" in lines[0]["error"]
 
 
 def test_sweep_launcher_dry(tmp_path, capsys):

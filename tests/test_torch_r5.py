@@ -118,8 +118,8 @@ def test_r5_smoke_loss_and_gradient_match_jax():
     return N * np.log(2.0) - np.log(32.0) + torch.logsumexp(-energies, 0)
 
   t_e.log_partition_forward = t_forward
-  loss, state = tqmhl.make_qmhl_with_state(data, h)(
-      model_state=t_e.chain_state)
+  loss, (_, state) = tqmhl.make_qmhl_with_state(data, h)(
+      state=(None, t_e.chain_state))
   loss.backward()
   assert torch.equal(state, t_e.chain_state)
   np.testing.assert_allclose(float(loss.detach()), float(loss_j),
