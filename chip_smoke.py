@@ -86,8 +86,21 @@ its anchor; "train harness qvartz 8q": QVARTZ uncut, 1000 VQT steps at
 beta 1.0 and three Trotter time steps of 100 QMHL steps, each time
 point's fidelity and D(target || model) within bounds from a JAX CPU
 run, one QMHL step's gradient at the last checkpoint against the plain
-versions), the ladder's command line in subprocesses (r2 at 8q exits 0
-with its steps/s, r4 prints its error and exits 1), and last
+versions), the ladder's r4 rung at its own 24 qubits ("train r4 24q":
+in this process, one rank, the dense engine; a warm-up and three timed
+steps, the gradient against the plain versions, <H> against the f64
+oracle; "train r4 24q, 2 ranks": two spawned ranks on the one card
+joined by gloo, each holding [8, 2^23] local blocks; their first step
+against the one-rank step, every step's exchanges and all-reduces
+against the count predicted from the circuit, the bytes staged through
+the host, the parameters equal across ranks), r3 split over data 2
+("train r3 16q, data 2": its sampled gradients in standard errors as
+"train r3 16q"), a data 2 x state 2 mesh of four ranks at 12q ("mesh
+2x2 12q": unseeded circuits reconciled by `sync_params`, against the
+dense engine, one Adam step every rank agrees on) -- each child's
+kernel launches counted in the `kernels` line -- the ladder's command
+line in subprocesses (r2 at 8q and r4 at 24q exit 0 with their steps/s,
+and r4 again on two ranks under `torch.distributed.run`), and last
 the JAX ladder's r5 rung at its own 28 qubits ("train r5 28q": KOBE-2
 sampled by 8 Gibbs-With-Gradients chains threaded through the steps, the
 data 4 states of 2 GB; a warm-up and three timed steps, peak memory and
@@ -2213,6 +2226,40 @@ def r3_restore(h, snap):
   return h.e_inference.support_and_counts()
 
 
+def r3_point(h, target, plan, rows, snap):
+  """One recorded r3 step's point (`r3_restore`: its parameters and EBM
+  draw): the shifted batch psi of its support through the kernels (base
+  row and every shifted row, `rows`), the loss's weights g [B, T], the
+  shot-free shift gradient `exact` and its standard errors `sigma` at the
+  engine's shots (`shot_variance`, `shift_sigma`)."""
+  import types
+  from qhbmlib_tpu_torch.benchmarks import ladder
+  from qhbmlib_tpu_torch.inference import qnn
+  from qhbmlib_tpu_torch.ops import adjoint
+  from qhbmlib_tpu_torch.ops import hopper_sv
+  circuit = h.q_inference.circuit
+  pqc = circuit.pqc
+  support, counts = r3_restore(h, snap)
+  bits = support.to(torch.int8)
+  values = circuit.resolved_values().detach()
+  rowcol = adjoint.bits_to_rowcol(bits, pqc.num_qubits)
+  w = (counts / counts.sum()).to(values.device)
+  g = ladder.BETA * w[:, None] * target.coeffs[None, :]
+  t0 = time.perf_counter()
+  psi = hopper_sv.apply_circuit_shifted(pqc, values, rowcol, rows)
+  torch.cuda.synchronize()
+  shift_ms = (time.perf_counter() - t0) * 1e3
+  row_var = torch.zeros(len(rows), dtype=torch.float64, device=values.device)
+  for rotation, masks, idx in plan[0]:
+    row_var += shot_variance(qnn.group_probabilities(psi, rotation), masks,
+                             g[:, list(idx)], len(bits))
+  return types.SimpleNamespace(
+      psi=psi, values=values, rowcol=rowcol, bits=bits, w=w, g=g,
+      shift_ms=shift_ms,
+      sigma=shift_sigma(pqc, row_var[1:], h.q_inference.expectation_samples),
+      exact=qnn.term_means_gradient(pqc, values, rowcol, plan, g).double())
+
+
 def phase_train_r3(device):
   """"train r3 16q": the JAX ladder's r3 rung (`ladder.build_rung(
   "r3_kobe16_vqt_shift")`) at its own 16q/2L: KOBE-2 under exact
@@ -2292,25 +2339,14 @@ def phase_train_r3(device):
   # against the shot-free one in exact standard errors.
   zs, zs_half, sigmas = [], [], []
   for k, (snap, grad) in enumerate(zip(snaps, grads)):
-    support, counts = r3_restore(h, snap)
-    bits = support.to(torch.int8)
-    values = circuit.resolved_values().detach()
-    rowcol = adjoint.bits_to_rowcol(bits, pqc.num_qubits)
-    w = (counts / counts.sum()).to(device)
-    g = ladder.BETA * w[:, None] * target.coeffs[None, :]
-    t0 = time.perf_counter()
-    psi = hopper_sv.apply_circuit_shifted(pqc, values, rowcol, rows)
-    torch.cuda.synchronize()
+    pt = r3_point(h, target, plan, rows, snap)
+    psi, values, rowcol, bits, w, g, sigma, exact = (
+        pt.psi, pt.values, pt.rowcol, pt.bits, pt.w, pt.g, pt.sigma,
+        pt.exact)
     if k == 0:
       log(f"[train r3 16q] shifted batch of {psi[0].shape[0]} states "
-          f"through the kernels: {(time.perf_counter() - t0) * 1e3:.2f} ms "
-          "(host clock, first call of these shapes)")
-    row_var = torch.zeros(len(rows), dtype=torch.float64, device=device)
-    for rotation, masks, idx in plan[0]:
-      row_var += shot_variance(qnn.group_probabilities(psi, rotation), masks,
-                               g[:, list(idx)], len(bits))
-    sigma = shift_sigma(pqc, row_var[1:], shots)
-    exact = qnn.term_means_gradient(pqc, values, rowcol, plan, g).double()
+          f"through the kernels: {pt.shift_ms:.2f} ms (host clock, first "
+          "call of these shapes)")
     sampled = grad[-circuit.values.numel():].double().cpu()[perm]  # slots
     half = qnn.term_means_gradient(pqc, values, rowcol, plan, g, shots // 2,
                                    half_gen).double().cpu()
@@ -2318,7 +2354,7 @@ def phase_train_r3(device):
     zs_half.append((half - exact.cpu()).numpy() / sigma)
     sigmas.append(sigma)
     if k < len(snaps) - 1:
-      del psi
+      del psi, pt
   worst, at, chi2 = z_stats(np.concatenate(zs))
   h_worst, h_at, h_chi2 = z_stats(np.concatenate(zs_half))
   num_z = sum(len(z) for z in zs)
@@ -2952,35 +2988,458 @@ def phase_harness_qvartz(device):
   return launches
 
 
+# ---------------------------------------------------------------------------
+# parallel/: the r4 rung, and ranks that share the card
+# ---------------------------------------------------------------------------
+
+R4 = "r4_tfim24_sharded_vqt"
+R4_QUBITS = 24
+# The r4 step's kernels, in one rank (the dense engine: every 24q operator
+# pairs into an axis2_apply pass) and in two (the same stages on each
+# rank's 23q local blocks; its global qubit 0 takes exchanges).
+TRAIN_R4 = ["axis2_apply", "diag_rotate", "qubit_transitions",
+            "parity_bilinear"]
+# The multi-rank phases' children must all end within this many seconds.
+RANK_DEADLINE_S = 600
+# Two ranks' step against one rank's: the same products, summed across
+# ranks in another order.
+RANK_TOL = 1e-4
+# Timed steps of the 2-rank r4 phase (8 s each: 10 GiB staged a rank).
+R4_RANK_STEPS = 2
+# The ladder CLI's run of r4 on 2 ranks, cut from 24q to bound its time.
+R4_CLI_RANK_QUBITS = 22
+
+
+def phase_train_r4(device):
+  """"train r4 24q": the JAX ladder's r4 rung (`ladder.build_rung(R4)`)
+  uncut in this process, one rank: state 1, the degenerate mesh, so
+  `ShardedQuantumInference` runs the dense engine.  A warm-up and STEPS
+  steps with every count reset just before and read just after; steps/s;
+  the gradient through the kernels against the plain versions at each
+  timed step's parameters and EBM draw (`bench.precision_gate`) within
+  GRAD_TOL; <H> of the first step's first support state at the initial
+  parameters against `native_oracle` in float64 within ORACLE_TOL (the
+  oracle runs in a thread beside the steps).  Returns (launches, the
+  first step's loss and gradient)."""
+  import threading
+  import numpy as np
+  from qhbmlib_tpu_torch import bench
+  from qhbmlib_tpu_torch.benchmarks import ladder
+  from qhbmlib_tpu_torch.inference import qhbm, qnn, vqt_loss
+  from qhbmlib_tpu_torch.ops import adjoint
+  from qhbmlib_tpu_torch.ops import hopper_sv
+  from qhbmlib_tpu_torch.ops import native_oracle
+  t0 = time.time()
+  h, target, step = ladder.build_rung(R4, qubits=R4_QUBITS, device=device)
+  log(f"[train r4 {R4_QUBITS}q] rung built in {time.time() - t0:.2f} s, "
+      f"mesh {step.meta}")
+  # The first step's draw, from a copy of the EBM's generator.
+  gen = h.e_inference.generator
+  copy = torch.Generator(device=gen.device)
+  copy.set_state(gen.get_state())
+  bits = h.e_inference.support_and_counts(copy)[0][:1].to(torch.int8)
+  pqc = h.q_inference.circuit.pqc
+  values = h.q_inference.circuit.resolved_values().detach().clone()
+  oracle = {}
+
+  def run_oracle():
+    try:
+      psi = native_oracle.simulate(
+          pqc, hopper_sv.host_values(values).astype(np.float64),
+          bits=bits.cpu().numpy()[0])
+      oracle["want"] = native_oracle.expectation_f64(psi, target)
+    except Exception as e:  # noqa: BLE001 -- raised again below
+      oracle["error"] = e
+
+  thread = threading.Thread(target=run_oracle, daemon=True)
+  thread.start()
+  torch.cuda.synchronize()
+  reset_launches()
+  t0 = time.perf_counter()
+  loss1, grad1 = step()
+  torch.cuda.synchronize()
+  log(f"[train r4 {R4_QUBITS}q] warm-up step {time.perf_counter() - t0:.3f}"
+      f" s, loss {float(loss1):.6f}")
+  gens = bench.generators(h, target)
+  snaps, losses, grads = [], [], []
+  t0 = time.perf_counter()
+  for _ in range(STEPS):
+    snaps.append(([p.detach().clone() for p in h.parameters()],
+                  [g.get_state() for g in gens]))
+    loss, g = step()
+    losses.append(loss)
+    grads.append(g)
+  torch.cuda.synchronize()
+  dt = time.perf_counter() - t0
+  launches = read_launches(f"train r4 {R4_QUBITS}q", TRAIN_R4, paired=True)
+  log(f"[train r4 {R4_QUBITS}q] {STEPS / dt:.4f} steps/s ({STEPS} steps in "
+      f"{dt:.3f} s, host clock) on {bench.card(device)}; launches per step "
+      f"(warm-up + {STEPS}): "
+      f"{ {k: v / (STEPS + 1) for k, v in launches.items() if v} }")
+  plain = vqt_loss.make_vqt(qhbm.QHBM(
+      h.e_inference, qnn.AnalyticQuantumInference(h.q_inference.circuit,
+                                                  plain=True)), target)
+  gate = bench.precision_gate({
+      "model": h, "other": target, "snaps": snaps,
+      "losses": [float(x) for x in losses],
+      "grads": [g.cpu() for g in grads],
+      "plain_loss": lambda: plain(ladder.BETA)})
+  check(f"train r4 {R4_QUBITS}q gradient, kernels vs plain at {STEPS} steps",
+        gate["gate_grad_rel_err"], GRAD_TOL)
+  with torch.no_grad():
+    got = float(adjoint.batched_expectations(pqc, values, bits,
+                                             (target,))[0, 0])
+  thread.join()
+  if "error" in oracle:
+    raise oracle["error"]
+  want = oracle["want"]
+  log(f"[train r4 {R4_QUBITS}q] <H> of the first support state at the "
+      f"initial parameters {got:.8f}, f64 oracle {want:.8f}")
+  check(f"train r4 {R4_QUBITS}q <H> vs f64 oracle",
+        abs(got - want) / abs(want), ORACLE_TOL)
+  return launches, {"loss": float(loss1), "grad": grad1.cpu()}
+
+
+def _free_port() -> int:
+  import socket
+  with socket.socket() as s:
+    s.bind(("localhost", 0))
+    return s.getsockname()[1]
+
+
+def sync(device) -> None:
+  """Waits for `device`'s queued work (nothing to wait for on the CPU,
+  where the ranks' code runs in a dry run)."""
+  if device.type == "cuda":
+    torch.cuda.synchronize(device)
+
+
+def rank_main(rank, world, port, job, out_dir):
+  """One rank of a multi-rank phase, in a spawned process: joins a gloo
+  group of `world` ranks on localhost (ranks that share one card cannot
+  use NCCL), runs RANK_JOBS[job["kind"]] on job["device"] and pickles its
+  result, which carries every kernel launch the rank made."""
+  import pickle
+  import torch.distributed as dist
+  from qhbmlib_tpu_torch.parallel import topology
+  torch.backends.cuda.matmul.allow_tf32 = False
+  device = torch.device(job["device"])
+  topology.initialize_distributed(f"tcp://localhost:{port}", world, rank,
+                                  backend="gloo", device=device)
+  reset_launches()
+  result = RANK_JOBS[job["kind"]](job, device)
+  result["launches"] = {name: fn.launches
+                        for name, fn in kernel_wrappers().items()}
+  with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+    pickle.dump(result, f)
+  dist.barrier()
+  dist.destroy_process_group()
+
+
+def run_ranks(world: int, job: dict, deadline_s: float = RANK_DEADLINE_S):
+  """Spawns `world` ranks of `rank_main` (torch.multiprocessing, spawn) and
+  joins them against the deadline: a rank that raises, exits nonzero or
+  outlives it fails the phase, and every rank still running is killed.
+  Returns the ranks' results in rank order."""
+  import pickle
+  import tempfile
+  import torch.multiprocessing as mp
+  out_dir = tempfile.mkdtemp(prefix="qhbm_ranks_")
+  ctx = mp.start_processes(rank_main, args=(world, _free_port(), job,
+                                            out_dir),
+                           nprocs=world, join=False, start_method="spawn")
+  end = time.monotonic() + deadline_s
+  try:
+    while not ctx.join(timeout=1.0):
+      if time.monotonic() > end:
+        raise AssertionError(f"{world} ranks of {job['kind']} outlived "
+                             f"{deadline_s} s")
+  finally:
+    for p in ctx.processes:
+      if p.is_alive():
+        p.kill()
+  results = []
+  for rank in range(world):
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "rb") as f:
+      results.append(pickle.load(f))
+  return results
+
+
+def rank_r4(job, device):
+  """r4 in a world of ranks: the warm-up step's loss and gradient, then
+  job["steps"] timed steps; every step's collectives (`comm.stats`)."""
+  from qhbmlib_tpu_torch.benchmarks import ladder
+  from qhbmlib_tpu_torch.parallel import comm
+  h, _, step = ladder.build_rung(R4, qubits=job["qubits"], device=device)
+  comm.reset_stats()
+  t0 = time.perf_counter()
+  loss1, grad1 = step()
+  sync(device)
+  warmup_s = time.perf_counter() - t0
+  per_step = [dict(comm.stats)]
+  t0 = time.perf_counter()
+  for _ in range(job["steps"]):
+    comm.reset_stats()
+    step()
+    per_step.append(dict(comm.stats))
+  sync(device)
+  dt = time.perf_counter() - t0
+  return {"loss": float(loss1), "grad": grad1.cpu(), "per_step": per_step,
+          "warmup_s": warmup_s, "steps_per_sec": job["steps"] / dt,
+          "params": [p.detach().cpu() for p in h.parameters()],
+          "peak_gib": (torch.cuda.max_memory_allocated(device) / 2**30
+                       if device.type == "cuda" else 0.0),
+          "meta": step.meta}
+
+
+def rank_r3(job, device):
+  """r3 in a world of ranks (its states over a 'data' mesh): a warm-up and
+  job["steps"] timed steps, each timed step's point (parameters, EBM
+  generator state) and sampled gradient."""
+  from qhbmlib_tpu_torch.benchmarks import ladder
+  h, _, step = ladder.build_rung(R3, device=device)
+  step()
+  snaps, grads = [], []
+  t0 = time.perf_counter()
+  for _ in range(job["steps"]):
+    snaps.append(([p.detach().cpu() for p in h.parameters()],
+                  h.e_inference.generator.get_state()))
+    grads.append(step()[1].cpu())
+  sync(device)
+  dt = time.perf_counter() - t0
+  return {"snaps": snaps, "grads": grads, "meta": step.meta,
+          "steps_per_sec": job["steps"] / dt,
+          "params": [p.detach().cpu() for p in h.parameters()]}
+
+
+def rank_mesh(job, device):
+  """tests/parallel/mp_vqt_worker.py's dress rehearsal on a data 2 x state
+  2 mesh: an UNSEEDED circuit (each rank draws its own values) reconciled
+  by `sync_params`; the VQT loss and gradients through
+  ShardedQuantumInference and through the dense engine at the synced
+  values; one Adam step on the sharded gradients."""
+  from qhbmlib_tpu_torch import bench
+  from qhbmlib_tpu_torch import models
+  from qhbmlib_tpu_torch import nn
+  from qhbmlib_tpu_torch import parallel
+  from qhbmlib_tpu_torch.benchmarks import ladder
+  from qhbmlib_tpu_torch.inference import ebm, qhbm, qnn, vqt_loss
+  from qhbmlib_tpu_torch.ops import paulis
+  from qhbmlib_tpu_torch.parallel import topology
+  n = job["qubits"]
+  mesh = parallel.make_mesh(data=2, state=2)
+  energy = models.BernoulliEnergy(list(range(n)),
+                                  initializer=nn.RandomUniform(-1, 1,
+                                                               seed=11),
+                                  device=device)
+  e_inf = ebm.BernoulliEnergyInference(energy, 100, initial_seed=5,
+                                       exact=True, device=device)
+  circuit = models.DirectQuantumCircuit(
+      models.hardware_efficient_ansatz(n, 2), device=device)
+  drawn = circuit.values.detach().cpu().clone()
+  target = paulis.tfim_1d(n, device=device)
+  h = qhbm.QHBM(e_inf, parallel.ShardedQuantumInference(circuit, mesh))
+  topology.sync_params(h.parameters())
+  out = {"drawn": drawn}
+  for tag, q_inf in (("dense", qnn.AnalyticQuantumInference(circuit)),
+                     ("sharded", h.q_inference)):
+    for p in h.parameters():
+      p.grad = None
+    loss = vqt_loss.make_vqt(qhbm.QHBM(e_inf, q_inf), target)(ladder.BETA)
+    loss.backward()
+    out[tag] = (float(loss.detach()), bench.flat_grads(h).cpu())
+  torch.optim.Adam(h.parameters(), lr=1e-2).step()
+  out["after"] = [p.detach().cpu() for p in h.parameters()]
+  return out
+
+
+RANK_JOBS = {"r4": rank_r4, "r3": rank_r3, "mesh": rank_mesh}
+
+
+def summed_launches(path: str, results, required) -> dict:
+  """The ranks' launch counts summed; fails if a kernel of `path` never
+  launched on any rank."""
+  launches = {name: sum(r["launches"][name] for r in results)
+              for name in kernel_wrappers()}
+  log(f"[{path}] kernel launches, all ranks: {launches}")
+  idle = [name for name in required if launches[name] <= 0]
+  if idle:
+    raise AssertionError(f"{path}: kernels {idle} never launched")
+  return launches
+
+
+def phase_train_r4_ranks(device, record):
+  """"train r4 24q, 2 ranks on one card": r4 in two spawned processes on
+  cuda:0 joined by gloo (state 2: each rank holds [8, 2^23] local blocks,
+  its exchanges staged through pinned host memory).  Their warm-up step's
+  loss and gradient against the one-rank record within RANK_TOL; every
+  step's exchanges and all-reduces against `collective_counts` for the
+  circuit and the TFIM; the bytes staged, steps/s and both ranks' kernel
+  launches logged; the parameters equal across ranks after the Adam
+  steps."""
+  from qhbmlib_tpu_torch import bench
+  from qhbmlib_tpu_torch import models
+  from qhbmlib_tpu_torch.ops import paulis
+  from qhbmlib_tpu_torch.parallel import sharded_sv
+  path = f"train r4 {R4_QUBITS}q, 2 ranks"
+  free_device_memory()
+  t0 = time.perf_counter()
+  results = run_ranks(2, {"kind": "r4", "device": "cuda:0",
+                          "qubits": R4_QUBITS, "steps": R4_RANK_STEPS})
+  log(f"[{path}] both ranks done in {time.perf_counter() - t0:.1f} s "
+      "(spawn, build, warm-up and steps)")
+  want = sharded_sv.collective_counts(
+      models.hardware_efficient_ansatz(R4_QUBITS, 2),
+      paulis.tfim_1d(R4_QUBITS, device="cpu"), 1)
+  for rank, res in enumerate(results):
+    if res["meta"] != {"state_shards": 2}:
+      raise AssertionError(f"{path}: rank {rank} ran mesh {res['meta']}")
+    for k, stats in enumerate(res["per_step"]):
+      got = {key: stats.get(key, 0) for key in want}
+      if got != want:
+        raise AssertionError(f"{path}: rank {rank} step {k} made {got}, "
+                             f"predicted {want}")
+    check(f"{path} rank {rank} warm-up loss vs one rank",
+          abs(res["loss"] - record["loss"]) / abs(record["loss"]), RANK_TOL)
+    check(f"{path} rank {rank} warm-up gradient vs one rank",
+          rel_err(res["grad"], record["grad"]), RANK_TOL)
+    log(f"[{path}] rank {rank}: {res['steps_per_sec']:.4f} steps/s (host "
+        f"clock), warm-up {res['warmup_s']:.2f} s, peak "
+        f"{res['peak_gib']:.2f} GiB; a step: {res['per_step'][-1]} on "
+        f"{bench.card(torch.device('cuda:0'))}")
+  log(f"[{path}] collectives a step, each rank, as predicted: {want}")
+  for a, b in zip(results[0]["params"], results[1]["params"]):
+    if not torch.equal(a, b):
+      raise AssertionError(f"{path}: the ranks' parameters differ after "
+                           "the Adam steps")
+  return summed_launches(path, results, TRAIN_R4)
+
+
+def phase_train_r3_ranks(device):
+  """"train r3 16q, data 2": r3 in two spawned ranks on cuda:0 joined by
+  gloo, `ShardedSampledQuantumInference` splitting its states and their
+  shifted rows over data 2.  Each timed step's sampled gradient (rank 0's;
+  both ranks' equal, as are their parameters after the steps) against the
+  shot-free one at that step's point, in exact standard errors, with
+  phase_train_r3's bounds (worst z < SHIFT_SIGMAS, mean z^2 within
+  CHI2_SIGMAS of its standard deviations of 1)."""
+  import numpy as np
+  from qhbmlib_tpu_torch.benchmarks import ladder
+  from qhbmlib_tpu_torch.inference import qnn
+  from qhbmlib_tpu_torch.ops import shift
+  path = "train r3 16q, data 2"
+  free_device_memory()
+  t0 = time.perf_counter()
+  results = run_ranks(2, {"kind": "r3", "device": "cuda:0", "steps": STEPS})
+  log(f"[{path}] both ranks done in {time.perf_counter() - t0:.1f} s; "
+      f"steps/s {[round(r['steps_per_sec'], 4) for r in results]} (host "
+      "clock)")
+  for res in results:
+    if res["meta"] != {"data_shards": 2}:
+      raise AssertionError(f"{path}: ran mesh {res['meta']}")
+  for a, b in zip(results[0]["grads"] + results[0]["params"],
+                  results[1]["grads"] + results[1]["params"]):
+    if not torch.equal(a, b):
+      raise AssertionError(f"{path}: the ranks' gradients or parameters "
+                           "differ")
+  h, target, _ = ladder.build_rung(R3, device=device)
+  pqc = h.q_inference.circuit.pqc
+  plan, _ = qnn.measurement_plan(pqc, (target,))
+  rows = np.concatenate([np.zeros((1, pqc.num_gates), np.float32),
+                         shift.shift_plan(pqc)[0]])
+  perm = h.q_inference.circuit._perm.cpu()
+  zs = []
+  for snap, grad in zip(results[0]["snaps"], results[0]["grads"]):
+    params, state = snap
+    pt = r3_point(h, target, plan, rows,
+                  ([p.to(device) for p in params], state))
+    sampled = grad[-h.q_inference.circuit.values.numel():].double()[perm]
+    zs.append((sampled - pt.exact.cpu()).numpy() / pt.sigma)
+    del pt
+  worst, at, chi2 = z_stats(np.concatenate(zs))
+  num_z = sum(len(z) for z in zs)
+  chi2_tol = CHI2_SIGMAS * np.sqrt(2.0 / num_z)
+  log(f"[{path}] sampled gradients vs shot-free at {len(zs)} steps, "
+      f"{num_z} components: worst z {worst:.3f} (limit {SHIFT_SIGMAS}), "
+      f"mean z^2 {chi2:.3f} (limit 1 +/- {chi2_tol:.3f})")
+  if not worst < SHIFT_SIGMAS:
+    raise AssertionError(f"{path}: a sampled gradient component lies "
+                         f"{worst:.2f} standard errors from the exact one")
+  if not abs(chi2 - 1.0) < chi2_tol:
+    raise AssertionError(f"{path}: mean z^2 {chi2:.3f} not within "
+                         f"{chi2_tol:.3f} of 1")
+  return summed_launches(path, results, TRAIN_R3)
+
+
+MESH_QUBITS = 12
+
+
+def phase_mesh_2x2(device):
+  """"mesh 2x2 12q": four spawned ranks on cuda:0 (gloo), data 2 x state
+  2 at 12q (`rank_mesh`): the unseeded circuits differ until
+  `sync_params`; each rank's sharded loss and gradient against the dense
+  engine's at the synced values within GRAD_TOL; the loss, gradient and
+  Adam-stepped parameters equal on every rank."""
+  path = f"mesh 2x2 {MESH_QUBITS}q"
+  free_device_memory()
+  t0 = time.perf_counter()
+  results = run_ranks(4, {"kind": "mesh", "device": "cuda:0",
+                          "qubits": MESH_QUBITS})
+  log(f"[{path}] four ranks done in {time.perf_counter() - t0:.1f} s")
+  if all(torch.equal(results[0]["drawn"], r["drawn"]) for r in results[1:]):
+    raise AssertionError(f"{path}: the unseeded circuits drew the same "
+                         "values on every rank")
+  for rank, res in enumerate(results):
+    (loss_d, grad_d), (loss_s, grad_s) = res["dense"], res["sharded"]
+    check(f"{path} rank {rank} loss, sharded vs dense",
+          abs(loss_s - loss_d) / abs(loss_d), GRAD_TOL)
+    check(f"{path} rank {rank} gradient, sharded vs dense",
+          rel_err(grad_s, grad_d), GRAD_TOL)
+  for res in results[1:]:
+    same = [torch.equal(a, b) for a, b in zip(
+        [res["sharded"][1]] + res["after"],
+        [results[0]["sharded"][1]] + results[0]["after"])]
+    if res["sharded"][0] != results[0]["sharded"][0] or not all(same):
+      raise AssertionError(f"{path}: the ranks disagree after the step")
+  return summed_launches(path, results, TRAIN_R4)
+
+
 def phase_ladder_cli():
   """The ladder's command line (`benchmarks.run_ladder`) in subprocesses
-  from the checkout's root: r2 at 8q for 3 steps must exit 0 with one
-  JSON line whose steps/s is finite; r4 (which waits for parallel/) must
-  print its error line and exit 1."""
+  from the checkout's root: r2 at 8q for 3 steps and r4 at its 24q must
+  each exit 0 with one JSON line whose steps/s is finite; then r4 once
+  under `torch.distributed.run --nproc_per_node=2` on the one card
+  (gloo) at R4_CLI_RANK_QUBITS, one timed step, whose rank 0 prints the
+  one line, with state_shards 2 (phase_train_r4_ranks runs it uncut)."""
   import math
   import subprocess
   root = os.path.dirname(os.path.abspath(__file__))
 
-  def run(*args):
+  def run(*args, launcher=()):
     t0 = time.perf_counter()
     out = subprocess.run(
-        [sys.executable, "-m", "qhbmlib_tpu_torch.benchmarks.run_ladder",
-         *args], cwd=root, capture_output=True, text=True, timeout=300,
-        check=False)
+        [sys.executable, *launcher, "-m",
+         "qhbmlib_tpu_torch.benchmarks.run_ladder", *args], cwd=root,
+        capture_output=True, text=True, timeout=400, check=False)
     lines = [json.loads(x) for x in out.stdout.splitlines()
              if x.startswith("{")]
-    log(f"[ladder cli] {' '.join(args)}: exit {out.returncode} in "
-        f"{time.perf_counter() - t0:.1f} s: {lines}")
-    return out, lines
+    log(f"[ladder cli] {' '.join(launcher + args)}: exit {out.returncode} "
+        f"in {time.perf_counter() - t0:.1f} s: {lines}")
+    if (out.returncode != 0 or len(lines) != 1 or
+        not math.isfinite(lines[0].get("steps_per_sec", math.nan))):
+      raise AssertionError(f"ladder cli {args}: exit {out.returncode}, "
+                           f"{lines}; stderr {out.stderr[-2000:]}")
+    return lines[0]
 
-  out, lines = run("--rung", "r2_heis8_qmhl", "--steps", "3")
-  if (out.returncode != 0 or len(lines) != 1 or
-      not math.isfinite(lines[0].get("steps_per_sec", math.nan))):
-    raise AssertionError(f"ladder cli r2: exit {out.returncode}, {lines}; "
-                         f"stderr {out.stderr[-2000:]}")
-  out, lines = run("--rung", "r4_tfim24_sharded_vqt")
-  if out.returncode != 1 or len(lines) != 1 or "error" not in lines[0]:
-    raise AssertionError(f"ladder cli r4: exit {out.returncode}, {lines}")
+  run("--rung", "r2_heis8_qmhl", "--steps", "3")
+  if run("--rung", R4)["state_shards"] != 1:
+    raise AssertionError("ladder cli r4: one process must run state 1")
+  two = run("--rung", R4, "--steps", "1", "--backend", "gloo",
+            "--qubits", str(R4_CLI_RANK_QUBITS),
+            launcher=("-m", "torch.distributed.run", "--nproc_per_node=2",
+                      f"--master_port={_free_port()}"))
+  if (two["state_shards"], two["ranks"]) != (2, 2):
+    raise AssertionError(f"ladder cli r4 on 2 ranks ran {two}")
 
 
 SOURCES = {"stream_scale": "qhbmlib_tpu_torch/csrc/stream_kernels.cu"}
@@ -3092,7 +3551,17 @@ def main() -> int:
   paths["train harness natural 8q"] = phase_harness_natural(device)
   paths["train harness mirror 8q"] = phase_harness_mirror(device)
   paths["train harness qvartz 8q"] = phase_harness_qvartz(device)
+  free_device_memory()
+  t_par = time.time()
+  paths[f"train r4 {R4_QUBITS}q"], r4_record = phase_train_r4(device)
+  paths[f"train r4 {R4_QUBITS}q, 2 ranks"] = phase_train_r4_ranks(device,
+                                                                  r4_record)
+  paths["train r3 16q, data 2"] = phase_train_r3_ranks(device)
+  paths[f"mesh 2x2 {MESH_QUBITS}q"] = phase_mesh_2x2(device)
+  t_cli = time.time()
   phase_ladder_cli()
+  log(f"[parallel] the r4, ranks and mesh phases took {t_cli - t_par:.1f} "
+      f"s, the ladder CLI {time.time() - t_cli:.1f} s")
   free_device_memory()
   phase_kernels_28q(device)
   phase_chunk_rule(device)

@@ -294,9 +294,11 @@ def precision_gate(traj) -> dict:
   Each point's (parameters, generator states) is restored and the step's
   loss and gradient recomputed with `plain=True`: both arms see the same
   parameters and the same EBM supports, so every difference is the
-  kernels' rounding against the plain PyTorch ops."""
+  kernels' rounding against the plain PyTorch ops.  `traj["plain_loss"]`,
+  where given, is the plain arm's loss in place of `plain_loss`'s (a step
+  at another beta)."""
   h = traj["model"]
-  loss_fn = plain_loss(h, traj["other"])
+  loss_fn = traj.get("plain_loss") or plain_loss(h, traj["other"])
   gens = generators(h, traj["other"])
   loss_err = grad_rel = 0.0
   for (params, states), loss_k, grad_k in zip(traj["snaps"], traj["losses"],

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import abc
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -302,20 +302,28 @@ def gwg_log_accept(energy: energy_model.BitstringEnergy, state: torch.Tensor,
 
 
 def gwg_one_step(energy: energy_model.BitstringEnergy, state: torch.Tensor,
-                 generator: torch.Generator) -> torch.Tensor:
+                 generator: torch.Generator,
+                 chains: Optional[Tuple[int, int]] = None) -> torch.Tensor:
   """One Gibbs-With-Gradients Metropolis-Hastings step of every chain of
   `state` [C, n] (int8) at once: a flip index drawn from q(. | x) by
   inverse CDF, then accepted where log u <= the log acceptance, u floored
   at 1e-30 (reference ebm.py:406).  Draws C index uniforms, then C
-  acceptance uniforms, from `generator`."""
+  acceptance uniforms, from `generator`.  With `chains` = (total, first),
+  `state` holds chains [first, first + C) of `total`: the step draws the
+  uniforms of all `total` chains and keeps these rows, so a slice of the
+  chains steps exactly as it does within the whole
+  (`parallel.ShardedGibbsWithGradientsInference`)."""
   c, n = state.shape
+  total, first = chains if chains is not None else (c, 0)
   probs = gwg_index_proposal_probs(energy, state.to(torch.float32))
   cdf = torch.cumsum(probs, dim=-1)
-  u_idx = torch.rand((c, 1), generator=generator, device=state.device)
+  u_idx = torch.rand((total, 1), generator=generator,
+                     device=state.device)[first:first + c]
   index = torch.clamp(torch.searchsorted(cdf, u_idx * cdf[:, -1:],
                                          right=True)[:, 0], max=n - 1)
   x_prime, log_accept = gwg_log_accept(energy, state, probs, index)
-  u = torch.clamp(torch.rand((c,), generator=generator, device=state.device),
+  u = torch.clamp(torch.rand((total,), generator=generator,
+                             device=state.device)[first:first + c],
                   min=1e-30)
   return torch.where((torch.log(u) <= log_accept)[:, None], x_prime, state)
 

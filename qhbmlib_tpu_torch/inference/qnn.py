@@ -208,13 +208,24 @@ def _exact_means(probs: torch.Tensor, masks: np.ndarray) -> torch.Tensor:
   return probs @ signs.T
 
 
+def draw_rows(probs: torch.Tensor, shots: int, generator) -> torch.Tensor:
+  """[rows, shots] indices drawn from each row of `probs`:
+  `utils.categorical_rows` with a torch.Generator, or the draws of an
+  object with its own `categorical_rows(probs, shots)` (a rank's rows of
+  a batch split over ranks, `parallel.sampled_sharded.RowDraws`)."""
+  own = getattr(generator, "categorical_rows", None)
+  if own is not None:
+    return own(probs, shots)
+  return utils.categorical_rows(probs, shots, generator)
+
+
 def _sampled_means(probs: torch.Tensor, masks: np.ndarray, shots: int,
                    generator: Optional[torch.Generator]) -> torch.Tensor:
   """[S, Gt] term means over `shots` draws a row of `probs`: the parities
   straight from the drawn indices (`utils.parities`), PARITY_CHUNK
   (index, mask) pairs at a time."""
   n = probs.shape[1].bit_length() - 1
-  idx = utils.categorical_rows(probs, shots, generator)
+  idx = draw_rows(probs, shots, generator)
   masks_t = torch.from_numpy(_flat_masks(masks)).to(probs.device)
   rows = max(1, PARITY_CHUNK // (shots * len(masks)))
   odd = torch.cat([utils.parities(idx[lo:lo + rows], masks_t, n).sum(dim=1)
@@ -300,7 +311,7 @@ def _sampled_states(circuit: ir.Circuit, symbol_values, rowcol, offsets,
     psi = hopper_sv.apply_circuit_shifted(circuit, symbol_values, rowcol,
                                           offsets)
     probs = group_probabilities(psi, ir.Circuit(circuit.num_qubits))
-    idx = utils.categorical_rows(probs, shots, generator)
+    idx = draw_rows(probs, shots, generator)
   return sv.index_to_bits(idx, circuit.num_qubits).reshape(
       offsets.shape[0], rowcol.shape[0], shots, circuit.num_qubits)
 

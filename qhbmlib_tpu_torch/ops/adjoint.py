@@ -27,16 +27,17 @@ chunk state was tuned to a 16 GB v5e):
 
 LIVE_STATES counts the state-sized buffers live per chunk element beyond
 the residual: the forward's planes and a pass's output, L3's complex copy,
-|psi|^2 and the lambda build's temporaries (the diagonal tier's phase
-array, the weighted state, the sum), lambda's planes and the sweep's pass
-outputs; the sweep overwrites a recomputed psi and the fresh lambda in
-place (no clones).  Measured on the card at 24q, B = 8
+|psi|^2, the copy of the state a gram contracts (`statevector._gram`),
+the lambda build's temporaries (the diagonal tier's phase array, the
+weighted state, the sum), lambda's planes and the sweep's pass outputs;
+the sweep overwrites a recomputed psi and the fresh lambda in place (no
+clones).  Measured on the card at 24q, B = 8
 (`chip_smoke.phase_chunk_rule`: `torch.cuda.max_memory_allocated` over a
 forward and backward at one chunk of 8 and at chunks of 2, less the
-residual, in states S): 7.00 states live per chunk element and 2.01 that
-do not grow with the chunk, for the TFIM and the Heisenberg chain alike
-(NVIDIA H100 80GB HBM3, 700.00 W); the constants keep a state of margin
-over each.  At the bench's 24q B = 8 and 20q B = 64 the rule gives one
+residual, in states S): 8.00 states live per chunk element (7.00 before
+the grams went through `_gram`) and 2.01 that do not grow with the chunk,
+for the TFIM and the Heisenberg chain alike (NVIDIA H100 80GB HBM3,
+700.00 W); the constants keep a state of margin over each.  At the bench's 24q B = 8 and 20q B = 64 the rule gives one
 chunk and keeps psi; at r5's 28q B = 4 (~78 GiB free) it keeps psi (8 GiB)
 and runs one state a chunk (two would need 92 GiB free), whose step
 peaked at 30.3 GiB.
@@ -69,9 +70,9 @@ def bits_to_rowcol(bits: torch.Tensor, n: int) -> torch.Tensor:
 PSI_RESIDUAL_SHARE = 0.25
 CHUNK_SHARE = 0.5
 # State-sized buffers live per chunk element beyond the residual, and those
-# a call holds whatever its chunk (7.00 and 2.01 measured at 24q: the
+# a call holds whatever its chunk (8.00 and 2.01 measured at 24q: the
 # module docstring).
-LIVE_STATES = 8
+LIVE_STATES = 9
 FIXED_STATES = 3
 # The free memory the rules assume for a batch on the host.
 HOST_FREE_BYTES = 16 << 30

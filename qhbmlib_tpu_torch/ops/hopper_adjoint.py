@@ -468,31 +468,18 @@ def _grads_from_flat(flat: torch.Tensor, shapes) -> List[torch.Tensor]:
   return outputs
 
 
-def adjoint_sweep_batched(circuit: ir.Circuit, symbol_values, psi: Planes,
-                          lam: Planes, plain: bool = False,
-                          overwrite=(False, False)) -> torch.Tensor:
-  """Batch-summed symbol gradient [num_symbols] from one reverse sweep over
-  [B, R, C] planes psi = (re, im) and lam = (re, im), on their device.
-
-  `symbol_values` is a tensor on any device or a host array; the operators
-  are folded on the host from it.  `overwrite` = (psi's, lam's) says which
-  input the sweep may un-apply in place (contiguous planes the caller no
-  longer needs: no copy of them is made); the others are not modified.
-  `plain=True` runs the kernels' plain versions (reference only)."""
-  device = psi[0].device
-  r, c = psi[0].shape[1:]
+def sweep_stages(stages, a: Planes, lm: Planes, plain: bool = False):
+  """Runs prepared reverse stages (`prepare_backward`) over [B, R, C]
+  planes a and lambda, which the diagonal and flip stages un-apply in
+  place: returns (a, lambda, reductions), the reductions ([Q, 2, 2, 2]
+  transitions, [K] bilinears, [1] flip g's) in stage order."""
+  r, c = a[0].shape[1:]
   n = (r * c).bit_length() - 1
   trans = qubit_transitions_plain if plain else qubit_transitions
   bilin = parity_bilinear_plain if plain else parity_bilinear
   fbilin = flip_bilinear_plain if plain else flip_bilinear
   fapply = hopper_sv.flip_apply_plain if plain else hopper_sv.flip_apply
-  stages, plan = prepare_backward(circuit, symbol_values, device)
-  # The diagonal and flip stages un-apply in place: copies of what must
-  # survive.
-  a, lm = [tuple(t if mine and t.is_contiguous() else
-                 torch.clone(t, memory_format=torch.contiguous_format)
-                 for t in pair) for pair, mine in zip((psi, lam), overwrite)]
-  reductions = []  # [Q, 2, 2, 2] transitions or [K] bilinears, stage order
+  reductions = []
   for stage in stages:
     if stage[0] == "bwd1q":
       _, qubits, passes = stage
@@ -506,6 +493,28 @@ def adjoint_sweep_batched(circuit: ir.Circuit, symbol_values, psi: Planes,
       reductions.append(fbilin(*lm, *a, stage[1], stage[2]))
     else:
       fapply([a, lm], stage[1])
+  return a, lm, reductions
+
+
+def adjoint_sweep_batched(circuit: ir.Circuit, symbol_values, psi: Planes,
+                          lam: Planes, plain: bool = False,
+                          overwrite=(False, False)) -> torch.Tensor:
+  """Batch-summed symbol gradient [num_symbols] from one reverse sweep over
+  [B, R, C] planes psi = (re, im) and lam = (re, im), on their device.
+
+  `symbol_values` is a tensor on any device or a host array; the operators
+  are folded on the host from it.  `overwrite` = (psi's, lam's) says which
+  input the sweep may un-apply in place (contiguous planes the caller no
+  longer needs: no copy of them is made); the others are not modified.
+  `plain=True` runs the kernels' plain versions (reference only)."""
+  device = psi[0].device
+  stages, plan = prepare_backward(circuit, symbol_values, device)
+  # The diagonal and flip stages un-apply in place: copies of what must
+  # survive.
+  a, lm = [tuple(t if mine and t.is_contiguous() else
+                 torch.clone(t, memory_format=torch.contiguous_format)
+                 for t in pair) for pair, mine in zip((psi, lam), overwrite)]
+  _, _, reductions = sweep_stages(stages, a, lm, plain)
   # One device->host copy for every reduction, then the tiny algebra.
   outputs = []
   if reductions:

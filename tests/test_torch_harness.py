@@ -43,6 +43,7 @@ from qhbmlib_tpu_torch.baselines import config as tconfig
 from qhbmlib_tpu_torch.baselines import launch as tlaunch
 from qhbmlib_tpu_torch.baselines import train as ttrain
 from qhbmlib_tpu_torch.baselines import utils as tutils
+from qhbmlib_tpu_torch.benchmarks import ladder as tladder
 from qhbmlib_tpu_torch.data import qhbm_data as tqhbm_data
 from qhbmlib_tpu_torch.inference import ebm as tebm
 from qhbmlib_tpu_torch.inference import qmhl_loss as tqmhl
@@ -755,21 +756,54 @@ def _run_ladder(*args):
 
 
 def test_run_ladder_cli(tmp_path):
-  """The ladder CLI: one JSON line a rung; a rung that raises (r4 waits
-  for parallel/) prints its error and the process exits 1."""
-  run, lines = _run_ladder("--smoke", "--rung", "r1_tfim2_vqt", "--steps",
-                           "1")
-  assert run.returncode == 0, run.stderr
-  (line,) = lines
-  assert line["rung"] == "r1_tfim2_vqt" and line["n"] == 2
-  assert line["loss"] == "vqt" and line["steps"] == 1
-  assert np.isfinite(line["steps_per_sec"]) and line["steps_per_sec"] > 0
-  assert np.isfinite(line["final_loss"]) and line["warmup_s"] >= 0
-  run, lines = _run_ladder("--rung", "r4_tfim24_sharded_vqt")
+  """The ladder CLI: one JSON line a rung, r4 (smoke, one process: a
+  1 x 1 mesh) among them; a rung that raises (a unique cap of 0) prints
+  its error and the process exits 1."""
+  for rung, n in (("r1_tfim2_vqt", 2), ("r4_tfim24_sharded_vqt", 8)):
+    run, lines = _run_ladder("--smoke", "--rung", rung, "--steps", "1")
+    assert run.returncode == 0, run.stderr
+    (line,) = lines
+    assert line["rung"] == rung and line["n"] == n
+    assert line["loss"] == "vqt" and line["steps"] == 1
+    assert np.isfinite(line["steps_per_sec"]) and line["steps_per_sec"] > 0
+    assert np.isfinite(line["final_loss"]) and line["warmup_s"] >= 0
+  assert line["state_shards"] == 1
+  run, lines = _run_ladder("--rung", "r4_tfim24_sharded_vqt",
+                           "--max-unique", "0")
   assert run.returncode == 1
   assert lines == [{"rung": "r4_tfim24_sharded_vqt", "error": lines[0][
       "error"]}]
-  assert "queue 1 item 9" in lines[0]["error"]
+  assert "max_unique must be >= 1" in lines[0]["error"]
+
+
+def test_run_ladder_cli_on_two_ranks(tmp_path):
+  """Every rung at its smoke size under `torch.distributed.run` on two
+  gloo ranks: rank 0 alone prints a line a rung, r3 splits its states over
+  data 2, r4 and r5 shard over state 2 (r5's chains too), and each final
+  loss equals the one-process run's (the same draws, the sums in another
+  order)."""
+  from tests.test_torch_parallel_workers import free_port
+  run, one = _run_ladder("--smoke", "--steps", "1")
+  assert run.returncode == 0, run.stderr
+  cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=2",
+         f"--master_port={free_port()}", "-m",
+         "qhbmlib_tpu_torch.benchmarks.run_ladder", "--device", "cpu",
+         "--backend", "gloo", "--smoke", "--steps", "1"]
+  env = {**os.environ, "OMP_NUM_THREADS": "1"}
+  run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=300, check=False)
+  assert run.returncode == 0, run.stderr[-4000:]
+  two = [json.loads(line) for line in run.stdout.splitlines()
+         if line.startswith("{")]
+  assert [x["rung"] for x in two] == list(tladder.RUNGS)
+  shards = {"r3_kobe16_vqt_shift": {"data_shards": 2},
+            "r4_tfim24_sharded_vqt": {"state_shards": 2},
+            "r5_gwg28_qmhl": {"state_shards": 2}}
+  for a, b in zip(one, two):
+    assert b["ranks"] == 2 and "error" not in b, b
+    assert {k: b[k] for k in shards.get(b["rung"], {})} == shards.get(
+        b["rung"], {})
+    np.testing.assert_allclose(b["final_loss"], a["final_loss"], rtol=1e-5)
 
 
 def test_sweep_launcher_dry(tmp_path, capsys):

@@ -354,8 +354,8 @@ def test_weighted_average_matches_jax():
 # -- the port imports no jax -------------------------------------------------
 
 def test_port_imports_no_jax():
-  """Every module of qhbmlib_tpu_torch (its own `baselines/` harness and
-  `benchmarks/ladder.py` among them) imports with jax, the JAX package,
+  """Every module of qhbmlib_tpu_torch (its own `baselines/` harness,
+  `benchmarks/ladder.py` and `parallel/` among them) imports with jax, the JAX package,
   the repo's jax-importing `baselines/` and `benchmarks/`, and the JAX
   harness's absl, ml_collections, optax and orbax absent from sys.modules
   (the card's machine has none of them)."""
@@ -373,7 +373,10 @@ def test_port_imports_no_jax():
       "assert len(names) >= 20, names\n"
       "for want in ('baselines.utils', 'baselines.train', "
       "'baselines.config', 'baselines.launch', 'benchmarks.ladder', "
-      "'ops.shift', 'data.thermal_data'):\n"
+      "'ops.shift', 'data.thermal_data', 'parallel.mesh', "
+      "'parallel.comm', 'parallel.sharded_sv', 'parallel.topology', "
+      "'parallel.qnn_sharded', 'parallel.sampled_sharded', "
+      "'parallel.ebm_sharded'):\n"
       "  assert pkg.__name__ + '.' + want in names, want\n"
       "print(len(names))\n")
   out = subprocess.run([sys.executable, "-c", code], capture_output=True,

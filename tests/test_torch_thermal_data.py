@@ -341,15 +341,14 @@ def test_r2_rung_matches_jax(smoke, qubits):
 @pytest.mark.parametrize("name", ["r1_tfim2_vqt", "r3_kobe16_vqt_shift",
                                   "r4_tfim24_sharded_vqt"])
 def test_other_rungs_name_what_they_wait_for(name):
-  """A rung still waiting for a module (r4) raises naming its queue-1
-  item; r1 and r3, whose modules are ported, build."""
+  """No rung waits for a module any more (r4 came with parallel/): r1, r3
+  and r4 build, in one process on one device (r4 on a 1 x 1 mesh)."""
   assert name in jladder.RUNGS and name in tladder.RUNGS
-  assert set(tladder.WAITS_FOR) == {"r4_tfim24_sharded_vqt"}
-  if name in tladder.WAITS_FOR:
-    with pytest.raises(NotImplementedError, match="queue 1 item"):
-      tladder.build_rung(name, device=CPU)
-  else:
-    _, target, step = tladder.build_rung(name, smoke=True, device=CPU)
-    assert callable(step) and target.num_qubits in (2, 6)
+  assert not hasattr(tladder, "WAITS_FOR")
+  _, target, step = tladder.build_rung(name, smoke=True, device=CPU)
+  assert callable(step) and target.num_qubits in (2, 6, 8)
+  assert step.meta == {"r3_kobe16_vqt_shift": {"data_shards": 1},
+                       "r4_tfim24_sharded_vqt": {"state_shards": 1}}.get(
+                           name, {})
   with pytest.raises(ValueError, match="unknown rung"):
     tladder.build_rung("r9", device=CPU)
