@@ -100,7 +100,16 @@ the host, the parameters equal across ranks), r3 split over data 2
 dense engine, one Adam step every rank agrees on) -- each child's
 kernel launches counted in the `kernels` line -- the ladder's command
 line in subprocesses (r2 at 8q and r4 at 24q exit 0 with their steps/s,
-and r4 again on two ranks under `torch.distributed.run`), and last
+and r4 again on two ranks under `torch.distributed.run`), the port's
+three examples at their full step counts ("examples":
+`qhbmlib_tpu_torch.examples`' VQT at 4q, QMHL at 3q and the sharded VQT
+at 8q through their own build, Adam step and train loop; steps/s and
+launches a step; the loss and gradient against the plain versions at the
+first, middle and last steps; VQT's and QMHL's final fidelity against a
+floor from the port's CPU run; the sharded loss falling; the sharded
+example again on two ranks sharing the card, every step's collectives
+against the prediction and every step's loss and gradient against one
+rank's at the ranks' own points and draws), and last
 the JAX ladder's r5 rung at its own 28 qubits ("train r5 28q": KOBE-2
 sampled by 8 Gibbs-With-Gradients chains threaded through the steps, the
 data 4 states of 2 GB; a warm-up and three timed steps, peak memory and
@@ -3253,7 +3262,35 @@ def rank_mesh(job, device):
   return out
 
 
-RANK_JOBS = {"r4": rank_r4, "r3": rank_r3, "mesh": rank_mesh}
+def rank_example_sharded(job, device):
+  """The sharded VQT example in a world of ranks, on the mesh it makes of
+  the world: its own build and Adam step, job["steps"] steps, each step's
+  point (parameters and EBM generator state before it), loss, gradient and
+  collectives (`comm.stats`)."""
+  from qhbmlib_tpu_torch.examples import multichip_sharded_vqt as example
+  from qhbmlib_tpu_torch.examples import vqt_thermal_state as vqt_example
+  from qhbmlib_tpu_torch.parallel import comm
+  model, loss, mesh = example.build(device)
+  step = vqt_example.make_step(model, loss)
+  gen = model.e_inference.generator
+  points, losses, grads, per_step = [], [], [], []
+  t0 = time.perf_counter()
+  for _ in range(job["steps"]):
+    points.append(([p.detach().cpu().clone() for p in model.parameters()],
+                   gen.get_state()))
+    comm.reset_stats()
+    loss, grad = step()
+    losses.append(float(loss))
+    grads.append(grad.cpu())
+    per_step.append(dict(comm.stats))
+  sync(device)
+  return {"mesh": dict(mesh.shape), "points": points, "losses": losses,
+          "grads": grads, "per_step": per_step,
+          "steps_per_sec": job["steps"] / (time.perf_counter() - t0)}
+
+
+RANK_JOBS = {"r4": rank_r4, "r3": rank_r3, "mesh": rank_mesh,
+             "example_sharded": rank_example_sharded}
 
 
 def summed_launches(path: str, results, required) -> dict:
@@ -3442,6 +3479,282 @@ def phase_ladder_cli():
     raise AssertionError(f"ladder cli r4 on 2 ranks ran {two}")
 
 
+# The VQT and QMHL examples' final fidelities in the port's own CPU run at
+# their seeds (tests/test_torch_examples.py), and how far the card's run
+# may fall below them.
+EXAMPLE_CPU_FIDELITY = {"vqt_thermal_state": 0.96677,
+                        "qmhl_modular_hamiltonian": 0.95950}
+EXAMPLE_FIDELITY_MARGIN = 0.01
+# Kernels each example's train loop must launch.  The HEA's X-power layers
+# take axis_apply: its N = 8 register stream at 3 qubits, its tensor-core
+# route at N = 16 (4 qubits) and N = 128 (2 ranks' 7 local qubits); at 8
+# qubits they pair into axis2_apply (K1).  Its Z-power and CZ layers take
+# diag_rotate in the forward and parity_bilinear in the sweep; the
+# gradient's 1q transitions qubit_transitions.
+EXAMPLE_KERNELS = {
+    "vqt_thermal_state": ["axis_apply", "diag_rotate", "qubit_transitions",
+                          "parity_bilinear"],
+    "qmhl_modular_hamiltonian": ["axis_apply", "diag_rotate",
+                                 "qubit_transitions", "parity_bilinear"],
+    "multichip_sharded_vqt": ["axis2_apply", "diag_rotate",
+                              "qubit_transitions", "parity_bilinear"],
+    "multichip_sharded_vqt, 2 ranks": ["axis_apply", "diag_rotate",
+                                       "qubit_transitions",
+                                       "parity_bilinear"],
+}
+
+
+def example_run(device, name):
+  """Example `name` (a module of `qhbmlib_tpu_torch.examples`) on the card
+  through its own build, Adam step and train loop, at its full step count,
+  with every count reset just before and read just after.  Its first,
+  middle and last steps' points (parameters, EBM generator state), losses
+  and gradients are recorded.  Returns (model, what build returned third,
+  the loss function, the trajectory for `bench.precision_gate`, the
+  losses, the launches)."""
+  import importlib
+  from qhbmlib_tpu_torch.examples import vqt_thermal_state as vqt_example
+  example = importlib.import_module(f"qhbmlib_tpu_torch.examples.{name}")
+  model, loss, third = example.build(device)
+  step = vqt_example.make_step(model, loss)
+  steps = example.STEPS
+  at = (0, steps // 2, steps - 1)
+  gen = model.e_inference.generator
+  snaps, outs = [], []
+
+  def before_step(k):
+    if k in at:
+      snaps.append(([p.detach().clone() for p in model.parameters()],
+                    [gen.get_state()]))
+
+  def recorded_step():
+    outs.append(step())
+    return outs[-1]
+
+  torch.cuda.synchronize()
+  reset_launches()
+  t0 = time.perf_counter()
+  losses = vqt_example.train(recorded_step, steps, before_step=before_step)
+  torch.cuda.synchronize()
+  dt = time.perf_counter() - t0
+  path = f"example {name}"
+  launches = read_launches(path, EXAMPLE_KERNELS[name], paired=True)
+  log(f"[{path}] {steps / dt:.4f} steps/s ({steps} steps in {dt:.3f} s, "
+      f"host clock, the kernels' build done); launches per step: "
+      f"{ {k: v / steps for k, v in launches.items() if v} }")
+  traj = {"model": model, "snaps": snaps,
+          "losses": [float(outs[k][0]) for k in at],
+          "grads": [outs[k][1].cpu() for k in at]}
+  return model, third, loss, traj, losses, launches
+
+
+def example_loss_f64(model, other, beta):
+  """loss(theta, phi) -> float: an exact-EBM example's loss in float64 from
+  float64 numpy parameters, without the port's engine: U|x> of every
+  bitstring x from `native_oracle`, E(x) the energy's +-1 features (exact
+  in float32) dotted with theta, p = softmax(-E).  VQT (`other` the
+  target): beta sum_x p_x <H>_x + sum_x p_x log p_x.  QMHL (`other` a
+  ThermalStateData): sum_x E(x) <x|U^dagger rho U|x> + log Z, rho built in
+  complex128 from the data's own float32 weights and eigenvector planes."""
+  import numpy as np
+  from qhbmlib_tpu_torch.data import thermal_data
+  from qhbmlib_tpu_torch.ops import native_oracle
+  e_inf = model.e_inference
+  with torch.no_grad():
+    feats = e_inf.all_bitstrings
+    for layer in e_inf.energy.energy_layers[:-1]:
+      feats = layer(feats)
+  feats = feats.double().cpu().numpy()
+  bits = e_inf.all_bitstrings.cpu().numpy().astype(np.int64)
+  circuit = model.q_inference.circuit
+  perm = circuit._perm.cpu().numpy()
+  data = isinstance(other, thermal_data.ThermalStateData)
+  if data:
+    w = other.weights.double().cpu().numpy()
+    re, im = (p.double().cpu().numpy().reshape(len(w), -1)
+              for p in other.planes)
+    v = re + 1j * im  # row k: eigenvector k
+    rho = (v.T * w) @ v.conj()
+  else:
+    target = other.to("cpu")
+
+  def loss(theta, phi):
+    e = feats @ theta
+    log_z = float(np.logaddexp.reduce(-e))
+    psis = [native_oracle.simulate(circuit.pqc, phi[perm], bits=b)
+            for b in bits]
+    if data:
+      d = np.array([np.vdot(psi, rho @ psi).real for psi in psis])
+      return float(d @ e) + log_z
+    log_p = -e - log_z
+    h = np.array([native_oracle.expectation_f64(psi, target)
+                  for psi in psis])
+    return float(np.exp(log_p) @ (beta * h + log_p))
+
+  return loss
+
+
+def example_grad_f64(model, other, beta, params) -> torch.Tensor:
+  """The float64 gradient [theta, phi] of `example_loss_f64` at `params`
+  (the model's [energy kernel, circuit values]): central differences of
+  step 1e-5."""
+  import numpy as np
+  theta, phi = model.params["theta"], model.params["phi"]
+  if len(theta) != 1 or len(phi) != 1:
+    raise AssertionError("an example's QHBM has one energy kernel and one "
+                         "circuit's values")
+  loss = example_loss_f64(model, other, beta)
+  flat = np.concatenate([v.double().cpu().numpy().ravel() for v in params])
+  nt = theta[0].numel()
+  grad = np.zeros_like(flat)
+  for j in range(len(flat)):
+    for sign in (1.0, -1.0):
+      v = flat.copy()
+      v[j] += sign * 1e-5
+      grad[j] += sign * loss(v[:nt], v[nt:])
+  return torch.from_numpy(grad / 2e-5)
+
+
+def example_gate(path, traj, other, beta, exact: bool) -> None:
+  """The loss and gradient through the kernels against the plain versions
+  (`bench.precision_gate`, TF32 off) at the trajectory's points: the same
+  parameters and EBM generator state.  The loss within GRAD_TOL; each
+  point's gradient within GRAD_TOL of the plain one, relative to its norm.
+  For an `exact` EBM both arms are also held against the float64 gradient
+  (`example_grad_f64`) at every point; where the plain gate fails (a
+  gradient small against the O(1) terms whose float32 rounding both arms
+  carry) the float64 one decides: the kernels' error within GRAD_TOL or
+  HARNESS_F64_FACTOR times the plain versions'."""
+  from qhbmlib_tpu_torch import bench
+  traj = dict(traj, other=other,
+              plain_loss=bench.plain_loss(traj["model"], other, beta))
+  gate = bench.precision_gate(traj)
+  check(f"{path} loss, kernels vs plain at {len(traj['snaps'])} points",
+        gate["gate_loss_err"], GRAD_TOL)
+  for k, ((params, _), grad_k, grad_p) in enumerate(
+      zip(traj["snaps"], traj["grads"], traj["plain_grads"])):
+    rel = rel_err(grad_k, grad_p)
+    msg = (f"[{path}] point {k}: gradient norm {float(grad_p.norm()):.4e}, "
+           f"kernels vs plain {rel:.3e}")
+    if exact:
+      grad64 = example_grad_f64(traj["model"], other, beta, params)
+      err_k, err_p = rel_err(grad_k, grad64), rel_err(grad_p, grad64)
+      msg += f"; vs float64: kernels {err_k:.3e}, plain {err_p:.3e}"
+    log(msg)
+    if rel <= GRAD_TOL or not exact:
+      check(f"{path} gradient, kernels vs plain at point {k}", rel, GRAD_TOL)
+    else:
+      check(f"{path} gradient at point {k}, kernels vs float64 (the plain "
+            f"gate failed; limit max(GRAD_TOL, {HARNESS_F64_FACTOR} x the "
+            "plain versions' error))", err_k,
+            max(GRAD_TOL, HARNESS_F64_FACTOR * err_p))
+
+
+def check_fidelity(path, name, fid) -> None:
+  floor = EXAMPLE_CPU_FIDELITY[name] - EXAMPLE_FIDELITY_MARGIN
+  log(f"[{path}] final fidelity {fid:.6f}, floor {floor:.5f} (the port's "
+      f"CPU run {EXAMPLE_CPU_FIDELITY[name]:.5f} less "
+      f"{EXAMPLE_FIDELITY_MARGIN})")
+  if not floor <= fid <= 1.0 + 1e-6:
+    raise AssertionError(f"{path}: fidelity {fid:.6f} outside "
+                         f"[{floor:.5f}, 1]")
+
+
+def phase_examples(device):
+  """"examples": the port's three examples on the card at their full step
+  counts (`example_run`): VQT (4q TFIM, 150 steps), QMHL (3q Heisenberg
+  thermal data, 200 steps) and the sharded VQT (8q, 30 steps) in this
+  process, the 1 x 1 mesh.  Each: steps/s and launches per step; the loss
+  and gradient through the kernels against the plain versions at its
+  first, middle and last steps (`example_gate`, VQT's and QMHL's also
+  against float64); VQT's and QMHL's final fidelity against its floor
+  (`check_fidelity`); the sharded loss falls.  Then the sharded example on
+  2 ranks sharing the card (gloo, state 2, `rank_example_sharded`): every
+  step's exchanges and all-reduces against `collective_counts`, both
+  ranks' losses and gradients equal, at every step's point (so the same
+  draw) the ranks' loss and gradient against this process's one-rank ones
+  (`bench.precision_gate`, the one rank the reference arm) within
+  RANK_TOL, and the one-rank run's own free-running losses against the
+  ranks' within RANK_TOL of their size.  Returns the paths' launches."""
+  from qhbmlib_tpu_torch import bench
+  from qhbmlib_tpu_torch import models
+  from qhbmlib_tpu_torch.examples import multichip_sharded_vqt as sharded
+  from qhbmlib_tpu_torch.examples import qmhl_modular_hamiltonian as qmhl
+  from qhbmlib_tpu_torch.examples import vqt_thermal_state as vqt
+  from qhbmlib_tpu_torch.ops import paulis
+  from qhbmlib_tpu_torch.parallel import sharded_sv
+  t_phase = time.perf_counter()
+  paths = {}
+  name = "vqt_thermal_state"
+  model, target, _, traj, _, paths[name] = example_run(device, name)
+  check_fidelity(f"example {name}", name, vqt.fidelity(model, target))
+  example_gate(f"example {name}", traj, target, vqt.BETA, exact=True)
+  name = "qmhl_modular_hamiltonian"
+  model, data, _, traj, _, paths[name] = example_run(device, name)
+  log(f"[example {name}] data entropy (the optimum loss) "
+      f"{qmhl.data_entropy(data):+.6f}")
+  check_fidelity(f"example {name}", name, qmhl.fidelity(model, data))
+  example_gate(f"example {name}", traj, data, qmhl.BETA, exact=True)
+  name = "multichip_sharded_vqt"
+  model, mesh, loss, traj, losses, paths[name] = example_run(device, name)
+  target = paulis.tfim_1d(sharded.N, device=device)
+  if mesh.shape != {"data": 1, "state": 1} or not losses[-1] < losses[0]:
+    raise AssertionError(f"example {name}: mesh {mesh.shape}, loss "
+                         f"{losses[0]:.6f} -> {losses[-1]:.6f}")
+  log(f"[example {name}] loss {losses[0]:+.6f} -> {losses[-1]:+.6f}")
+  example_gate(f"example {name}", traj, target, sharded.BETA, exact=False)
+
+  path = f"example {name}, 2 ranks"
+  free_device_memory()
+  t0 = time.perf_counter()
+  results = run_ranks(2, {"kind": "example_sharded", "device": "cuda:0",
+                          "steps": sharded.STEPS})
+  log(f"[{path}] both ranks done in {time.perf_counter() - t0:.1f} s "
+      f"(spawn, steps); steps/s "
+      f"{[round(r['steps_per_sec'], 4) for r in results]} (host clock)")
+  want = sharded_sv.collective_counts(
+      models.hardware_efficient_ansatz(sharded.N, sharded.LAYERS),
+      paulis.tfim_1d(sharded.N, device="cpu"), 1)
+  for rank, res in enumerate(results):
+    if res["mesh"] != {"data": 1, "state": 2}:
+      raise AssertionError(f"{path}: rank {rank} ran mesh {res['mesh']}")
+    for k, stats in enumerate(res["per_step"]):
+      got = {key: stats.get(key, 0) for key in want}
+      if got != want:
+        raise AssertionError(f"{path}: rank {rank} step {k} made {got}, "
+                             f"predicted {want}")
+    same = [torch.equal(a, b) for a, b in zip(res["grads"],
+                                              results[0]["grads"])]
+    if res["losses"] != results[0]["losses"] or not all(same):
+      raise AssertionError(f"{path}: the ranks' losses or gradients differ")
+  log(f"[{path}] collectives a step, each rank, as predicted: {want}")
+  res = results[0]
+  if not res["losses"][-1] < res["losses"][0]:
+    raise AssertionError(f"{path}: the loss did not fall")
+  gate = bench.precision_gate({
+      "model": model, "other": target, "reference": "one rank",
+      "snaps": [(params, [state]) for params, state in res["points"]],
+      "losses": res["losses"], "grads": res["grads"], "plain_loss": loss})
+  drift = max(abs(a - b) for a, b in zip(res["losses"], losses))
+  log(f"[{path}] loss {res['losses'][0]:+.6f} -> {res['losses'][-1]:+.6f}; "
+      f"one rank at the ranks' {len(res['points'])} points; the one-rank "
+      f"run's own losses, free-running, at most {drift:.3e} from the "
+      "ranks'")
+  check(f"{path} losses vs one rank at every step", gate["gate_loss_err"],
+        RANK_TOL)
+  check(f"{path} gradients vs one rank at every step",
+        gate["gate_grad_rel_err"], RANK_TOL)
+  check(f"{path} free-running losses vs one rank's, relative to the "
+        "largest", drift / max(abs(x) for x in losses), RANK_TOL)
+  name = f"{name}, 2 ranks"
+  paths[name] = summed_launches(path, results, EXAMPLE_KERNELS[name])
+  log(f"[{path}] launches a rank a step: "
+      f"{ {k: v / (2 * sharded.STEPS) for k, v in paths[name].items() if v} }")
+  log(f"[examples] the phase took {time.perf_counter() - t_phase:.1f} s on "
+      f"{torch.cuda.get_device_name(0)}")
+  return {f"example {k}": v for k, v in paths.items()}
+
+
 SOURCES = {"stream_scale": "qhbmlib_tpu_torch/csrc/stream_kernels.cu"}
 REPLACES = {
     "axis_apply": "qhbmlib_tpu/ops/pallas_sv.py:459",
@@ -3562,6 +3875,8 @@ def main() -> int:
   phase_ladder_cli()
   log(f"[parallel] the r4, ranks and mesh phases took {t_cli - t_par:.1f} "
       f"s, the ladder CLI {time.time() - t_cli:.1f} s")
+  free_device_memory()
+  paths.update(phase_examples(device))
   free_device_memory()
   phase_kernels_28q(device)
   phase_chunk_rule(device)

@@ -265,12 +265,12 @@ def run_workload(name: str, cfg, steps: int, device, traj=None,
   return steps / dt
 
 
-def plain_loss(h: qhbm.QHBM, other):
+def plain_loss(h: qhbm.QHBM, other, beta: float = BETA):
   """The step's loss through the kernels' plain versions: the QNN that
   evaluates the circuits rebuilt with `plain=True` -- the model's for VQT
-  (`other` the target), the data's for QMHL (`other` a QHBMData) -- or,
-  for QMHL on a ThermalStateData, a copy of the data with `plain=True`
-  (the same eigenvectors)."""
+  (`other` the target, at `beta`), the data's for QMHL (`other` a
+  QHBMData) -- or, for QMHL on a ThermalStateData, a copy of the data with
+  `plain=True` (the same eigenvectors)."""
   if isinstance(other, thermal_data.ThermalStateData):
     data = copy.copy(other)
     data.plain = True
@@ -285,7 +285,7 @@ def plain_loss(h: qhbm.QHBM, other):
   plain = qhbm.QHBM(h.e_inference, qnn.AnalyticQuantumInference(
       h.q_inference.circuit, plain=True))
   loss_fn = vqt_loss.make_vqt(plain, other)
-  return lambda: loss_fn(BETA)
+  return lambda: loss_fn(beta)
 
 
 def precision_gate(traj) -> dict:
@@ -295,11 +295,14 @@ def precision_gate(traj) -> dict:
   loss and gradient recomputed with `plain=True`: both arms see the same
   parameters and the same EBM supports, so every difference is the
   kernels' rounding against the plain PyTorch ops.  `traj["plain_loss"]`,
-  where given, is the plain arm's loss in place of `plain_loss`'s (a step
-  at another beta)."""
+  where given, is the reference arm's loss in place of `plain_loss`'s (a
+  step at another beta, or another engine named by `traj["reference"]`).
+  The reference arm's gradients are left in `traj["plain_grads"]`."""
   h = traj["model"]
   loss_fn = traj.get("plain_loss") or plain_loss(h, traj["other"])
+  reference = traj.get("reference", "plain")
   gens = generators(h, traj["other"])
+  traj["plain_grads"] = []
   loss_err = grad_rel = 0.0
   for (params, states), loss_k, grad_k in zip(traj["snaps"], traj["losses"],
                                               traj["grads"]):
@@ -313,14 +316,15 @@ def precision_gate(traj) -> dict:
     loss = loss_fn()
     loss.backward()
     grad_p = flat_grads(h).cpu().double()
+    traj["plain_grads"].append(grad_p)
     loss_err = max(loss_err, abs(loss_k - float(loss.detach())))
     grad_rel = max(grad_rel, float(
         torch.linalg.vector_norm(grad_k.double() - grad_p) /
         max(float(torch.linalg.vector_norm(grad_p)), 1e-12)))
   out = {"gate_loss_err": loss_err, "gate_grad_rel_err": grad_rel,
-         "gate_reference": "plain",
+         "gate_reference": reference,
          "gate_trajectory_steps": len(traj["snaps"])}
-  log(f"[bench:gate] kernels vs plain at {out['gate_trajectory_steps']} "
+  log(f"[bench:gate] kernels vs {reference} at {out['gate_trajectory_steps']} "
       f"identical (params, generator state) points: max loss err "
       f"{loss_err:.3e}, max grad rel err {grad_rel:.3e} (gate "
       f"{GRAD_REL_GATE:.0e})")

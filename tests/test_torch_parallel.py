@@ -235,6 +235,7 @@ CASES = {
         _expect("expect_2x4", (2, 4), _rich_circuit(4), 7, 5, _two_ops(4),
                 data_axis="data"),
         _vqt_case("vqt", (2, 4)),
+        {"id": "example_sharded", "kind": "example_sharded", "steps": 3},
     ] + [
         dict(_expect(f"fuzz_{n}_{seed}", (1, 8),
                      random_circuit(n, depth=2, seed=seed), seed, 3,
@@ -525,6 +526,53 @@ def test_sharded_qnn_vqt_matches_jax(ranks):
     np.testing.assert_allclose(out["theta"], g_theta, atol=GRAD_ATOL)
     np.testing.assert_allclose(out["phi"], g_phi, atol=GRAD_ATOL)
   assert np.abs(g_phi).max() > 1e-4
+
+
+def test_sharded_example_on_8_ranks_matches_one_rank(ranks):
+  """The sharded VQT example (`examples/multichip_sharded_vqt.py`) in a
+  world of 8: the JAX example's mesh under conftest's 8 virtual devices,
+  data 1 x state 8.  At each step's point (parameters and EBM generator
+  state, so the same draw) every rank's loss and gradient equal one
+  rank's (this process: the 1 x 1 mesh, the dense engine), and each step
+  made the exchanges and all-reduces `collective_counts` predicts.
+
+  The ranks' own trajectory is the reference's points: two float orders
+  do not stay on one trajectory.  The example's bit 7 takes one value
+  over the whole drawn support, so its score-function gradient is zero but
+  for rounding (1e-7 on 8 ranks, 0.0 on one), and Adam's first step
+  scales that to a step of ~lr: by step 2 free-running losses differ by
+  4e-3."""
+  from qhbmlib_tpu_torch.examples import multichip_sharded_vqt as tsharded
+  steps = _BY_ID["example_sharded"][1]["steps"]
+  assert tsharded.mesh_shape(8) == (1, 8)
+  model, loss_fn, mesh = tsharded.build("cpu")
+  assert mesh.shape == {"data": 1, "state": 1}
+  per_step = sharded_sv.collective_counts(
+      model.q_inference.circuit.pqc, paulis.tfim_1d(tsharded.N, device="cpu"),
+      3)
+  outs = [_result(ranks, "example_sharded", rank) for rank in range(8)]
+  for out in outs:
+    assert out["mesh"] == {"data": 1, "state": 8}
+    assert {k: out["stats"].get(k, 0) for k in per_step} == {
+        k: steps * v for k, v in per_step.items()}
+    for a, b in zip(out["losses"] + out["grads"],
+                    outs[0]["losses"] + outs[0]["grads"]):
+      np.testing.assert_array_equal(a, b)
+  for (params, state), loss, grad in zip(*(outs[0][k] for k in (
+      "points", "losses", "grads"))):
+    model.set_params({"theta": torch.tensor(params[0]),
+                      "phi": torch.tensor(params[1])})
+    model.e_inference.generator.set_state(state)
+    for p in model.parameters():
+      p.grad = None
+    want = loss_fn()
+    want.backward()
+    np.testing.assert_allclose(loss, float(want.detach()), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(
+        grad, torch.cat([p.grad.reshape(-1) for p in model.parameters()]),
+        rtol=0, atol=GRAD_ATOL)
+  assert outs[0]["losses"][-1] < outs[0]["losses"][0]
+  assert per_step["exchanges"] > 0
 
 
 def test_multiprocess_step_with_sync_params(ranks):

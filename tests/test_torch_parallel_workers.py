@@ -24,6 +24,8 @@ import torch.multiprocessing as mp
 from qhbmlib_tpu_torch import models
 from qhbmlib_tpu_torch import nn
 from qhbmlib_tpu_torch import parallel
+from qhbmlib_tpu_torch.examples import multichip_sharded_vqt
+from qhbmlib_tpu_torch.examples import vqt_thermal_state as vqt_example
 from qhbmlib_tpu_torch.inference import ebm, qhbm, qnn, vqt_loss
 from qhbmlib_tpu_torch.ops import adjoint
 from qhbmlib_tpu_torch.ops import circuit_ir as ir
@@ -361,6 +363,29 @@ def run_topology(case):
   return out
 
 
+def run_example_sharded(case):
+  """The sharded VQT example's train loop for a few steps on the mesh it
+  makes of this world: each step's point (parameters and EBM generator
+  state before it), loss and gradient."""
+  model, loss, mesh = multichip_sharded_vqt.build(CPU)
+  step = vqt_example.make_step(model, loss)
+  points, grads = [], []
+
+  def before_step(_):
+    points.append(([_np(p).copy() for p in model.parameters()],
+                   model.e_inference.generator.get_state()))
+
+  def recorded_step():
+    loss, grad = step()
+    grads.append(_np(grad))
+    return loss, grad
+
+  losses = vqt_example.train(recorded_step, case["steps"],
+                             before_step=before_step)
+  return {"mesh": mesh.shape, "points": points, "losses": losses,
+          "grads": grads}
+
+
 RUNNERS = {
     "simulate": run_simulate,
     "expect": run_expect,
@@ -372,4 +397,5 @@ RUNNERS = {
     "sampled_energy": run_sampled_energy,
     "gwg": run_gwg,
     "topology": run_topology,
+    "example_sharded": run_example_sharded,
 }

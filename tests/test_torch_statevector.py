@@ -355,8 +355,9 @@ def test_weighted_average_matches_jax():
 
 def test_port_imports_no_jax():
   """Every module of qhbmlib_tpu_torch (its own `baselines/` harness,
-  `benchmarks/ladder.py` and `parallel/` among them) imports with jax, the JAX package,
-  the repo's jax-importing `baselines/` and `benchmarks/`, and the JAX
+  `benchmarks/ladder.py`, `parallel/` and `examples/` among them) imports
+  with jax, the JAX package, the repo's jax-importing `baselines/`,
+  `benchmarks/` and `examples/`, and the JAX
   harness's absl, ml_collections, optax and orbax absent from sys.modules
   (the card's machine has none of them)."""
   code = (
@@ -366,8 +367,8 @@ def test_port_imports_no_jax():
       "pkg.__name__ + '.')]\n"
       "for name in names:\n"
       "  importlib.import_module(name)\n"
-      "roots = ('jax', 'qhbmlib_tpu', 'baselines', 'benchmarks', 'absl', "
-      "'ml_collections', 'optax', 'orbax')\n"
+      "roots = ('jax', 'qhbmlib_tpu', 'baselines', 'benchmarks', 'examples', "
+      "'absl', 'ml_collections', 'optax', 'orbax')\n"
       "bad = sorted(m for m in sys.modules if m.split('.')[0] in roots)\n"
       "assert not bad, bad\n"
       "assert len(names) >= 20, names\n"
@@ -376,7 +377,9 @@ def test_port_imports_no_jax():
       "'ops.shift', 'data.thermal_data', 'parallel.mesh', "
       "'parallel.comm', 'parallel.sharded_sv', 'parallel.topology', "
       "'parallel.qnn_sharded', 'parallel.sampled_sharded', "
-      "'parallel.ebm_sharded'):\n"
+      "'parallel.ebm_sharded', 'examples.vqt_thermal_state', "
+      "'examples.qmhl_modular_hamiltonian', "
+      "'examples.multichip_sharded_vqt'):\n"
       "  assert pkg.__name__ + '.' + want in names, want\n"
       "print(len(names))\n")
   out = subprocess.run([sys.executable, "-c", code], capture_output=True,
