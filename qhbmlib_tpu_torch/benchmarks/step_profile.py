@@ -11,12 +11,12 @@ and "r2 11q", the JAX ladder's r2 rung, and "r5 28q", its r5 rung,
 `ladder.build_rung`), for the QAIA steps of QAIA_WORKLOADS ("qaia 20q",
 "qaia heis 20q": `bench.build_qaia_step`, the TFIM or the Heisenberg
 chain) and for the VQT rungs of RUNG_WORKLOADS ("r3 16q", the JAX ladder's
-r3 rung: parameter-shift gradients, its step also split by SHIFT_SPANS
-into host folds, shared stages, per-row corrections and sampling,
-`span_split`) and for the experiment harness's steps of HARNESS_WORKLOADS
-("harness 8q": `baselines.train`'s vanilla Adam step on its default
-config at an 8-site TFIM ring, with its per-step metrics; "harness natural
-8q": its natural-gradient step, the information matrix's 644 shifted
+r3 rung: parameter-shift gradients, its step also split by the
+program's spans of SHIFT_SPANS into host folds, shared stages, per-row
+corrections and sampling, `span_split`) and for the experiment harness's
+steps of HARNESS_WORKLOADS ("harness 8q": `baselines.train`'s vanilla
+Adam step on its default config at an 8-site TFIM ring, with its per-step
+metrics; "harness natural 8q": its natural-gradient step, the information matrix's 644 shifted
 <K_copy> evaluations and the solve, one step traced), takes one
 warm-up step, then traces STEPS steps (or the workload's own `steps`)
 inside one `record_function` region
@@ -27,18 +27,17 @@ so this is a lower bound for an untraced step -- and the device
 milliseconds per step of the TOP kernels by name (the rest summed).  Then
 the same for SINGLE_CALLS single-state value-and-gradient calls at 20q/4L
 (`adjoint.expectation` and its backward: K3, then K2), with the call's host
-time split by its parts (`host_split`): each of SINGLE_SPANS traced as a
-region of its own, and the CUDA runtime's copies, synchronizations and
-launches.  Prints one JSON line a workload, with the card's name and power
-limit.  Needs the CUDA card.
+time split by its parts (`host_split`): each of the program's spans of
+SINGLE_SPANS (`qhbmlib_tpu_torch.tracing`, in any profiler trace), and
+the CUDA runtime's copies, synchronizations and launches.  Prints one JSON
+line a workload, with the card's name and power limit.  Needs the CUDA
+card.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
-import contextlib
-import functools
 import json
 import os
 import re
@@ -51,11 +50,8 @@ from qhbmlib_tpu_torch import bench
 from qhbmlib_tpu_torch.baselines import config as harness_config
 from qhbmlib_tpu_torch.baselines import train as harness
 from qhbmlib_tpu_torch.benchmarks import ladder
-from qhbmlib_tpu_torch.inference import qnn
 from qhbmlib_tpu_torch.models import circuit_utils
 from qhbmlib_tpu_torch.ops import adjoint
-from qhbmlib_tpu_torch.ops import hopper_adjoint
-from qhbmlib_tpu_torch.ops import hopper_sv
 from qhbmlib_tpu_torch.ops import paulis
 from qhbmlib_tpu_torch.ops import statevector as sv
 
@@ -92,21 +88,23 @@ HARNESS_WORKLOADS = {
     "harness natural 8q": dict(num_rows=8, num_cols=1, beta=0.5,
                                method="natural", steps=1),
 }
-# The r3 step's parts: the host folds (`prepare_segments`) and corrections
-# (`shift_corrections`), the shared stages (`apply_stage`: every forward
-# stage over the whole batch, measurement suffixes included), the per-row
+# The r3 step's parts, by the program's span names: the host folds
+# (`hopper_sv.prepare_segments`) and corrections (`shift_corrections`), the
+# shared stages (each forward stage over the whole batch), the per-row
 # corrections (`apply_correction`) and the draws with their parities
-# (`_sampled_means`).
-SHIFT_SPANS = ((hopper_sv, "prepare_segments"),
-               (hopper_sv, "shift_corrections"), (hopper_sv, "apply_stage"),
-               (hopper_sv, "apply_correction"), (qnn, "_sampled_means"))
-# The single-state call's host parts, in call order: (module, function).
+# (`qnn._sampled_means`).
+SHIFT_SPANS = ("qhbm.sv.prepare_segments", "qhbm.sv.shift_corrections",
+               "qhbm.sv.stages", "qhbm.sv.apply_correction",
+               "qhbm.qnn.sampled_means")
+# The single-state call's host parts, in call order, by the program's span
+# names: the values' copy to the host, K3's stage table, its state buffer
+# and launch, L3's terms and lambda, K2's stage table, its state buffers
+# and launch, and the gradient from its reductions.
 SINGLE_SPANS = (
-    (hopper_sv, "host_values"), (hopper_sv, "forward_table"),
-    (hopper_sv, "state_buffer"), (hopper_sv, "launch_circuit_forward"),
-    (sv, "expectation_terms"), (sv, "apply_pauli_sum"),
-    (hopper_adjoint, "sweep_table"), (hopper_adjoint, "launch_adjoint_sweep"),
-    (hopper_adjoint, "sweep_grads"))
+    "qhbm.sync.host_values", "qhbm.sv.forward_table",
+    "qhbm.sv.launch_forward", "qhbm.sv.expectation_terms",
+    "qhbm.sv.apply_pauli_sum", "qhbm.adjoint.sweep_table",
+    "qhbm.adjoint.launch_sweep", "qhbm.adjoint.sweep_grads")
 # CUDA runtime calls reported in the split: copies, syncs, launches.
 RUNTIME_CALLS = ("cudaMemcpyAsync", "cudaStreamSynchronize",
                  "cudaDeviceSynchronize", "cudaLaunchCooperativeKernel",
@@ -163,15 +161,15 @@ def breakdown(events, steps: int, name: str = REGION) -> dict:
 
 
 def host_split(events, calls: int, name: str = SINGLE_REGION) -> dict:
-  """Host ms a call inside the region `name`: each SINGLE_SPANS function's
-  own annotated span (the union of its intervals), the CUDA runtime calls
-  of RUNTIME_CALLS (summed, with their count a call), and the rest of the
-  region's wall time outside every span."""
+  """Host ms a call inside the region `name`: each SINGLE_SPANS span (the
+  union of its intervals), the CUDA runtime calls of RUNTIME_CALLS
+  (summed, with their count a call), and the rest of the region's wall
+  time outside every span."""
   t0, t1 = region_of(events, name)
   inside = [e for e in events if t0 <= e.get("ts", -1) <= t1]
   spans = {}
   covered = []
-  for _, fn in SINGLE_SPANS:
+  for fn in SINGLE_SPANS:
     iv = [(e["ts"], e["ts"] + e["dur"]) for e in inside
           if e.get("cat") == "user_annotation" and e.get("name") == fn]
     spans[fn] = union_us(iv) / 1e3 / calls
@@ -189,10 +187,10 @@ def host_split(events, calls: int, name: str = SINGLE_REGION) -> dict:
 
 
 def span_split(events, steps: int, spans, name: str = REGION) -> dict:
-  """Per (module, function) of `spans` inside the region `name`, a step:
-  its host ms (the union of its annotated intervals), the device ms of the
-  kernels, copies and sets launched inside it (matched by correlation id)
-  and their count; "rest" the device work launched outside every span."""
+  """Per span name of `spans` inside the region `name`, a step: its host
+  ms (the union of its intervals), the device ms of the kernels, copies
+  and sets launched inside it (matched by correlation id) and their
+  count; "rest" the device work launched outside every span."""
   t0, t1 = region_of(events, name)
   inside = [e for e in events if t0 <= e.get("ts", -1) <= t1]
   dev = {e["args"]["correlation"]: e for e in inside
@@ -200,7 +198,7 @@ def span_split(events, steps: int, spans, name: str = REGION) -> dict:
   launches = [e for e in inside if e.get("cat") in RUNTIME_CATS
               and e.get("args", {}).get("correlation") in dev]
   out, claimed = {}, set()
-  for _, fn in spans:
+  for fn in spans:
     iv = [(e["ts"], e["ts"] + e["dur"]) for e in inside
           if e.get("cat") == "user_annotation" and e.get("name") == fn]
     ids = {e["args"]["correlation"] for e in launches
@@ -213,29 +211,6 @@ def span_split(events, steps: int, spans, name: str = REGION) -> dict:
   out["rest"] = {"device_ms": sum(dev[i]["dur"] for i in rest) / 1e3 / steps,
                  "launches": len(rest) / steps}
   return out
-
-
-@contextlib.contextmanager
-def traced_spans(spans=SINGLE_SPANS):
-  """Runs each (module, function) of `spans` inside a record_function of its
-  name while the context is open (the modules call them by module
-  attribute, so the wrappers take effect), then puts the originals back."""
-  saved = []
-  for mod, fn in spans:
-    orig = getattr(mod, fn)
-
-    @functools.wraps(orig)
-    def wrapper(*args, _orig=orig, _fn=fn, **kwargs):
-      with torch.profiler.record_function(_fn):
-        return _orig(*args, **kwargs)
-
-    saved.append((mod, fn, orig))
-    setattr(mod, fn, wrapper)
-  try:
-    yield
-  finally:
-    for mod, fn, orig in saved:
-      setattr(mod, fn, orig)
 
 
 def profile_single(trace_dir: str, device="cuda", n: int = 20,
@@ -265,7 +240,7 @@ def profile_single(trace_dir: str, device="cuda", n: int = 20,
   acts = [torch.profiler.ProfilerActivity.CPU]
   if device.type == "cuda":
     acts.append(torch.profiler.ProfilerActivity.CUDA)
-  with traced_spans(), torch.profiler.profile(activities=acts) as prof:
+  with torch.profiler.profile(activities=acts) as prof:
     with torch.profiler.record_function(SINGLE_REGION):
       for _ in range(SINGLE_CALLS):
         call()
@@ -344,7 +319,7 @@ def profile_workload(name: str, trace_dir: str) -> dict:
   acts = [torch.profiler.ProfilerActivity.CPU,
           torch.profiler.ProfilerActivity.CUDA]
   spans = SHIFT_SPANS if name in RUNG_WORKLOADS else ()
-  with traced_spans(spans), torch.profiler.profile(activities=acts) as prof:
+  with torch.profiler.profile(activities=acts) as prof:
     with torch.profiler.record_function(REGION):
       for _ in range(steps):
         train_step()

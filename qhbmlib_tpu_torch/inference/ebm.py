@@ -20,6 +20,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from qhbmlib_tpu_torch import tracing
 from qhbmlib_tpu_torch import utils
 from qhbmlib_tpu_torch.inference import estimators
 from qhbmlib_tpu_torch.models import energy as energy_model
@@ -183,6 +184,7 @@ class AnalyticEnergyInference(EnergyInference):
                                       generator or self.generator)
     return self.all_bitstrings[idx]
 
+  @tracing.spanned("qhbm.ebm.sample")
   def support_and_counts(self, generator=None):
     with torch.no_grad():
       logits = self.logits()
@@ -236,6 +238,7 @@ class BernoulliEnergyInference(EnergyInference):
                    generator=generator or self.generator, device=self.device)
     return (u < probs).to(torch.int8)
 
+  @tracing.spanned("qhbm.ebm.sample")
   def support_and_counts(self, generator=None):
     with torch.no_grad():
       if self._enumerable and self.exact:
@@ -403,7 +406,8 @@ class GibbsWithGradientsInference(EnergyInference):
   def _maybe_burn_in(self) -> None:
     """Re-equilibrates the stored chain (drawing from the inference's own
     generator) if the energy's parameters changed since the last call."""
-    fp = tuple(p.detach().cpu().numpy().tobytes() for p in self.theta)
+    with tracing.span("qhbm.sync.fingerprint"):
+      fp = tuple(p.detach().cpu().numpy().tobytes() for p in self.theta)
     if fp != self._fingerprint:
       self._chain_state = self.burn_in(self._chain_state)
       self._fingerprint = fp
@@ -414,6 +418,7 @@ class GibbsWithGradientsInference(EnergyInference):
         self._chain_state, num_samples, generator)
     return samples
 
+  @tracing.spanned("qhbm.ebm.sample")
   def support_and_counts(self, generator=None):
     """Like the reference's `_ready_inference`: burn in on a parameter
     change, then continue the stored chain and persist it."""
@@ -422,6 +427,7 @@ class GibbsWithGradientsInference(EnergyInference):
         generator, self._chain_state)
     return support, counts
 
+  @tracing.spanned("qhbm.ebm.sample")
   def support_counts_state(self, generator=None, state=None):
     """(support [U, n], counts [U], new chain state) from
     num_expectation_samples draws of the chains from `state` (the stored

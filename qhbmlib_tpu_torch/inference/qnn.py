@@ -20,6 +20,7 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from qhbmlib_tpu_torch import tracing
 from qhbmlib_tpu_torch import utils
 from qhbmlib_tpu_torch.models import circuit as circuit_model
 from qhbmlib_tpu_torch.models import energy as energy_model
@@ -104,6 +105,7 @@ class AnalyticQuantumInference(QuantumInference):
     super().__init__(input_circuit, name)
     self.plain = plain
 
+  @tracing.spanned("qhbm.qnn.expectation")
   def _expectation(self, initial_states, observables, generator=None):
     del generator  # exact: nothing is drawn
     if isinstance(observables, hamiltonian_model.Hamiltonian):
@@ -219,6 +221,7 @@ def draw_rows(probs: torch.Tensor, shots: int, generator) -> torch.Tensor:
   return utils.categorical_rows(probs, shots, generator)
 
 
+@tracing.spanned("qhbm.qnn.sampled_means")
 def _sampled_means(probs: torch.Tensor, masks: np.ndarray, shots: int,
                    generator: Optional[torch.Generator]) -> torch.Tensor:
   """[S, Gt] term means over `shots` draws a row of `probs`: the parities
@@ -415,6 +418,7 @@ class SampledQuantumInference(QuantumInference):
     return torch.stack([weighted[:, a:b].sum(dim=1) for a, b in slices],
                        dim=1)
 
+  @tracing.spanned("qhbm.qnn.expectation")
   def _expectation(self, initial_states, observables, generator=None):
     generator = generator or self.generator
     if not isinstance(observables, hamiltonian_model.Hamiltonian):

@@ -49,6 +49,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from qhbmlib_tpu_torch import tracing
 from qhbmlib_tpu_torch.ops import circuit_ir as ir
 from qhbmlib_tpu_torch.ops import hopper_adjoint
 from qhbmlib_tpu_torch.ops import hopper_sv
@@ -119,6 +120,7 @@ class _BatchedTerms(torch.autograd.Function):
   chunk (`_bt_fwd` / `_bt_bwd`)."""
 
   @staticmethod
+  @tracing.spanned("qhbm.adjoint.forward")
   def forward(ctx, symbol_values, rowcol, circuit, op, plain, chunk, store):
     # One host copy of the values serves both passes: the backward folds
     # its operators from it without waiting on the device.
@@ -141,6 +143,7 @@ class _BatchedTerms(torch.autograd.Function):
     return terms[0] if len(terms) == 1 else torch.cat(terms)
 
   @staticmethod
+  @tracing.spanned("qhbm.adjoint.backward")
   def backward(ctx, g):
     rowcol, *saved = ctx.saved_tensors
     ones = paulis.PauliSum(ctx.op.codes,
@@ -195,10 +198,11 @@ def batched_expectations(circuit: ir.Circuit, symbol_values: torch.Tensor,
   device = symbol_values.device
   rowcol = bits_to_rowcol(init_bits.to(device), n)
   batch = int(rowcol.shape[0])
-  free = free_bytes(device)
-  store = store_psi(n, batch, free)
-  chunk = (auto_chunk(n, batch, free, store) if batch_chunk is None else
-           max(1, min(batch, int(batch_chunk))))
+  with tracing.span("qhbm.adjoint.plan"):
+    free = free_bytes(device)
+    store = store_psi(n, batch, free)
+    chunk = (auto_chunk(n, batch, free, store) if batch_chunk is None else
+             max(1, min(batch, int(batch_chunk))))
   last_plan.update(batch=batch, chunk=chunk, store_psi=store,
                    free_bytes=free)
   terms = _BatchedTerms.apply(symbol_values, rowcol, circuit,

@@ -45,6 +45,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from qhbmlib_tpu_torch import tracing
 from qhbmlib_tpu_torch.ops import _cuda
 from qhbmlib_tpu_torch.ops import circuit_ir as ir
 from qhbmlib_tpu_torch.ops import hopper_sv
@@ -380,6 +381,7 @@ def backward_plan(circuit: ir.Circuit, symbol_values):
   return stages, plan
 
 
+@tracing.spanned("qhbm.adjoint.prepare_backward")
 def prepare_backward(circuit: ir.Circuit, symbol_values, device):
   """Reverse stages of the batched sweep and the assembly plan:
   ("bwd1q", gradient qubits, passes) with device operators (`plan_passes`),
@@ -468,6 +470,7 @@ def _grads_from_flat(flat: torch.Tensor, shapes) -> List[torch.Tensor]:
   return outputs
 
 
+@tracing.spanned("qhbm.adjoint.sweep_stages")
 def sweep_stages(stages, a: Planes, lm: Planes, plain: bool = False):
   """Runs prepared reverse stages (`prepare_backward`) over [B, R, C]
   planes a and lambda, which the diagonal and flip stages un-apply in
@@ -516,18 +519,23 @@ def adjoint_sweep_batched(circuit: ir.Circuit, symbol_values, psi: Planes,
                  for t in pair) for pair, mine in zip((psi, lam), overwrite)]
   _, _, reductions = sweep_stages(stages, a, lm, plain)
   # One device->host copy for every reduction, then the tiny algebra.
-  outputs = []
-  if reductions:
-    flat = torch.cat([t.reshape(-1) for t in reductions]).cpu()
-    outputs = _grads_from_flat(flat, [tuple(t.shape) for t in reductions])
-  grad = _assemble_grads(plan, outputs, circuit.num_symbols)
-  return grad.to(device)
+  with tracing.span("qhbm.adjoint.assemble"):
+    outputs = []
+    if reductions:
+      flat = torch.cat([t.reshape(-1) for t in reductions])
+      with tracing.span("qhbm.sync.reductions"):
+        flat = flat.cpu()
+      outputs = _grads_from_flat(flat, [tuple(t.shape) for t in reductions])
+    grad = _assemble_grads(plan, outputs, circuit.num_symbols)
+    with tracing.span("qhbm.sync.gradient"):
+      return grad.to(device)
 
 
 # ---------------------------------------------------------------------------
 # K2: the whole reverse sweep of one state, one cooperative launch
 # ---------------------------------------------------------------------------
 
+@tracing.spanned("qhbm.adjoint.sweep_table")
 def sweep_table(circuit: ir.Circuit, symbol_values, device):
   """(stage table, reduction shapes, assembly plan) of `adjoint_sweep`: per
   reversed segment, the kTrans / kBilin reductions from the current states
@@ -557,6 +565,7 @@ def sweep_table(circuit: ir.Circuit, symbol_values, device):
   return table, shapes, plan
 
 
+@tracing.spanned("qhbm.adjoint.sweep_grads")
 def sweep_grads(plan, flat: torch.Tensor, shapes,
                 num_symbols: int) -> torch.Tensor:
   """The gradient from K2's reductions (one host copy, stage order, of the
@@ -594,11 +603,15 @@ def adjoint_sweep(circuit: ir.Circuit, symbol_values, psi: Planes,
   shape_rc = sv.state_shape(n)
   _cuda.require(list(psi) + list(lam), dev, [shape_rc] * 4)
   table, shapes, plan = sweep_table(circuit, symbol_values, dev)
-  out = launch_adjoint_sweep(table, hopper_sv.state_buffer(psi),
-                             hopper_sv.state_buffer(lam),
-                             hopper_sv.sweep_blocks(dev, 2))
-  return sweep_grads(plan, out[:table.out_len].cpu(), shapes,
-                     circuit.num_symbols).to(dev)
+  with tracing.span("qhbm.adjoint.launch_sweep"):
+    out = launch_adjoint_sweep(table, hopper_sv.state_buffer(psi),
+                               hopper_sv.state_buffer(lam),
+                               hopper_sv.sweep_blocks(dev, 2))
+  with tracing.span("qhbm.sync.reductions"):
+    flat = out[:table.out_len].cpu()
+  grad = sweep_grads(plan, flat, shapes, circuit.num_symbols)
+  with tracing.span("qhbm.sync.gradient"):
+    return grad.to(dev)
 
 
 adjoint_sweep.launches = 0

@@ -40,6 +40,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from qhbmlib_tpu_torch import tracing
 from qhbmlib_tpu_torch.ops import _cuda
 from qhbmlib_tpu_torch.ops import circuit_ir as ir
 from qhbmlib_tpu_torch.ops import paulis
@@ -340,7 +341,8 @@ def host_values(symbol_values) -> np.ndarray:
   """float32 host copy of the symbol values (a tensor on any device, or an
   array).  Operators are folded on the host from it."""
   if isinstance(symbol_values, torch.Tensor):
-    symbol_values = symbol_values.detach().cpu()
+    with tracing.span("qhbm.sync.host_values"):
+      symbol_values = symbol_values.detach().cpu()
   return np.asarray(symbol_values, np.float32)
 
 
@@ -502,6 +504,7 @@ def fused_blocks_minor_apply(planes: Planes, k1: int, k2: int, m1, m2,
   return apply_passes(plan_passes(ops, nr), [planes], n, plain)[0]
 
 
+@tracing.spanned("qhbm.sv.prepare_segments")
 def prepare_segments(circuit: ir.Circuit, symbol_values, device):
   """Forward stages of the batched engine, in circuit order:
     ("1q", passes)       -- `plan_passes` with device operators
@@ -560,7 +563,8 @@ def basis_planes(rowcol: torch.Tensor, shape_rc) -> Planes:
   re = torch.zeros((b, r, c), dtype=torch.float32, device=rowcol.device)
   im = torch.zeros_like(re)
   flat = rowcol[:, 0].to(torch.int64) * c + rowcol[:, 1].to(torch.int64)
-  re.view(b, r * c)[torch.arange(b, device=rowcol.device), flat] = 1.0
+  with tracing.span("qhbm.sync.basis_planes"):  # the index put synchronizes
+    re.view(b, r * c)[torch.arange(b, device=rowcol.device), flat] = 1.0
   return re, im
 
 
@@ -592,8 +596,10 @@ def apply_circuit_batched(circuit: ir.Circuit, symbol_values,
   else:
     planes = [tuple(torch.clone(t, memory_format=torch.contiguous_format)
                     for t in init_planes)]
-  for stage in prepare_segments(circuit, symbol_values, planes[0][0].device):
-    planes = apply_stage(stage, planes, plain)
+  stages = prepare_segments(circuit, symbol_values, planes[0][0].device)
+  with tracing.span("qhbm.sv.stages"):
+    for stage in stages:
+      planes = apply_stage(stage, planes, plain)
   return planes[0]
 
 
@@ -614,6 +620,7 @@ def _chain_products(mats: np.ndarray, chains) -> np.ndarray:
   return np.stack(out)
 
 
+@tracing.spanned("qhbm.sv.shift_corrections")
 def shift_corrections(circuit: ir.Circuit, base: np.ndarray,
                       shifted: np.ndarray):
   """Per forward stage, the host corrections that turn the base forward of
@@ -714,12 +721,14 @@ def apply_circuit_shifted(circuit: ir.Circuit, symbol_values,
   planes = [basis_planes(init_rowcol.repeat(offsets.shape[0], 1), shape_rc)]
   stages = prepare_segments(circuit, values, device)
   for stage, stage_fixes in zip(stages, fixes):
-    planes = apply_stage(stage, planes, plain)
+    with tracing.span("qhbm.sv.stages"):  # the corrections apart
+      planes = apply_stage(stage, planes, plain)
     for fix in stage_fixes:
       apply_correction(fix, planes[0], init_rowcol.shape[0], moved, plain)
   return planes[0]
 
 
+@tracing.spanned("qhbm.sv.apply_correction")
 def apply_correction(fix, planes: Planes, b: int, moved,
                      plain: bool = False) -> None:
   """One stage's corrections of one kind (`shift_corrections`) IN PLACE on
@@ -902,6 +911,7 @@ class StageTable:
     return len(self._records)
 
 
+@tracing.spanned("qhbm.sv.forward_table")
 def forward_table(circuit: ir.Circuit, symbol_values, device,
                   angle_offsets=None) -> StageTable:
   """The stage table of `circuit_forward`: one kAxis record per folded
@@ -980,8 +990,9 @@ def circuit_forward(circuit: ir.Circuit, symbol_values, x: Planes,
   shape_rc = sv.state_shape(n)
   _cuda.require(list(x), dev, [shape_rc] * 2)
   table = forward_table(circuit, symbol_values, dev, angle_offsets)
-  buf = state_buffer(x)
-  launch_circuit_forward(table, buf, sweep_blocks(dev, 1))
+  with tracing.span("qhbm.sv.launch_forward"):
+    buf = state_buffer(x)
+    launch_circuit_forward(table, buf, sweep_blocks(dev, 1))
   slot = 2 * (table.axis_stages % 2)
   return buf[slot].view(shape_rc), buf[slot + 1].view(shape_rc)
 

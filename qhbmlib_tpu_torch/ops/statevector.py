@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from qhbmlib_tpu_torch import device as device_lib
+from qhbmlib_tpu_torch import tracing
 from qhbmlib_tpu_torch import utils
 from qhbmlib_tpu_torch.ops import circuit_ir as ir
 from qhbmlib_tpu_torch.ops import paulis
@@ -980,6 +981,7 @@ def _pauli_stack(rows, terms: Tuple[int, ...], nr: int, m: int, kind: str,
   return torch.as_tensor(np.stack(mats)).to(device)
 
 
+@tracing.spanned("qhbm.sv.expectation_terms")
 @fp32_matmuls
 def expectation_terms(state: torch.Tensor,
                       op: paulis.PauliSum) -> torch.Tensor:
@@ -1038,6 +1040,7 @@ def expectation_terms(state: torch.Tensor,
                                             for t in ts])), dev)]
 
 
+@tracing.spanned("qhbm.sv.apply_pauli_sum")
 @fp32_matmuls
 def apply_pauli_sum(state: torch.Tensor, op: paulis.PauliSum,
                     term_weights: Optional[torch.Tensor] = None

@@ -6,6 +6,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from qhbmlib_tpu_torch import tracing
+
 
 def bounded_cache_put(cache: dict, key, value, max_entries: int = 64):
   """FIFO-bounded insert for id()-keyed caches whose entries pin their keyed
@@ -78,8 +80,9 @@ def unique_bitstrings_with_counts(
   batch = bitstrings.shape[0]
   codes = bits_to_ints(bitstrings)  # [batch], or [batch, W] words past 62
   wide = codes.dim() == 2
-  uniq, inv, cnt = torch.unique(codes, sorted=True, return_inverse=True,
-                                return_counts=True, dim=0 if wide else None)
+  with tracing.span("qhbm.sync.unique"):  # waits for the unique count
+    uniq, inv, cnt = torch.unique(codes, sorted=True, return_inverse=True,
+                                  return_counts=True, dim=0 if wide else None)
   u = uniq.shape[0]
   if size is not None:
     width = max(size, batch)

@@ -64,20 +64,22 @@ def test_host_split_sums_spans_runtime_and_the_rest():
   region = sp.SINGLE_REGION
   events = [
       {"name": region, "cat": "user_annotation", "ts": 0, "dur": 1000},
-      {"name": "forward_table", "cat": "user_annotation", "ts": 10,
+      {"name": "qhbm.sv.forward_table", "cat": "user_annotation", "ts": 10,
        "dur": 100},
-      {"name": "sweep_table", "cat": "user_annotation", "ts": 300, "dur": 200},
-      {"name": "sweep_table", "cat": "user_annotation", "ts": 350, "dur": 50},
+      {"name": "qhbm.adjoint.sweep_table", "cat": "user_annotation",
+       "ts": 300, "dur": 200},
+      {"name": "qhbm.adjoint.sweep_table", "cat": "user_annotation",
+       "ts": 350, "dur": 50},
       {"name": "cudaStreamSynchronize", "cat": "cuda_runtime", "ts": 600,
        "dur": 40},
-      {"name": "forward_table", "cat": "user_annotation", "ts": 2000,
+      {"name": "qhbm.sv.forward_table", "cat": "user_annotation", "ts": 2000,
        "dur": 100},  # outside
   ]
   out = sp.host_split(events, calls=2)
   assert out["call_ms"] == pytest.approx(0.5)
-  assert out["spans_ms"]["forward_table"] == pytest.approx(0.05)
-  assert out["spans_ms"]["sweep_table"] == pytest.approx(0.1)
-  assert out["spans_ms"]["sweep_grads"] == 0.0
+  assert out["spans_ms"]["qhbm.sv.forward_table"] == pytest.approx(0.05)
+  assert out["spans_ms"]["qhbm.adjoint.sweep_table"] == pytest.approx(0.1)
+  assert out["spans_ms"]["qhbm.adjoint.sweep_grads"] == 0.0
   assert out["runtime_ms"] == {
       "cudaStreamSynchronize": {"ms": pytest.approx(0.02), "count": 0.5}}
   assert out["rest_ms"] == pytest.approx((1000 - 300) / 2e3)
@@ -85,16 +87,19 @@ def test_host_split_sums_spans_runtime_and_the_rest():
 
 def test_single_state_region_runs_on_cpu(tmp_path):
   """The single-state region at 9q/1L on the CPU (the plain versions): it
-  traces its calls, the value-and-gradient parts that the CPU path runs
-  show as spans, and the module functions are restored after."""
-  before = sp.hopper_sv.forward_table
+  traces its calls, and the program's spans of the value-and-gradient
+  parts that the CPU path runs show in the trace, with no module
+  attribute patched."""
+  from qhbmlib_tpu_torch.ops import hopper_sv
+  before = hopper_sv.forward_table
   out = sp.profile_single(str(tmp_path), device="cpu", n=9, layers=1)
-  assert sp.hopper_sv.forward_table is before
+  assert hopper_sv.forward_table is before
   assert out["calls"] == sp.SINGLE_CALLS and out["card"] is None
   assert out["busy_share"] == 0.0  # no device on the CPU
   spans = out["host"]["spans_ms"]
-  assert set(spans) == {fn for _, fn in sp.SINGLE_SPANS}
-  for fn in ("host_values", "expectation_terms", "apply_pauli_sum"):
+  assert set(spans) == set(sp.SINGLE_SPANS)
+  for fn in ("qhbm.sync.host_values", "qhbm.sv.expectation_terms",
+             "qhbm.sv.apply_pauli_sum"):
     assert spans[fn] > 0.0, fn
   assert 0.0 <= out["host"]["rest_ms"] <= out["host"]["call_ms"]
 
@@ -146,23 +151,24 @@ def test_span_split_attributes_device_work_by_launch():
 
   events = [
       {"name": sp.REGION, "cat": "user_annotation", "ts": 0, "dur": 1000},
-      {"name": "apply_stage", "cat": "user_annotation", "ts": 10, "dur": 40},
-      {"name": "apply_stage", "cat": "user_annotation", "ts": 300,
+      {"name": "qhbm.sv.stages", "cat": "user_annotation", "ts": 10,
+       "dur": 40},
+      {"name": "qhbm.sv.stages", "cat": "user_annotation", "ts": 300,
        "dur": 20},
-      {"name": "_sampled_means", "cat": "user_annotation", "ts": 100,
+      {"name": "qhbm.qnn.sampled_means", "cat": "user_annotation", "ts": 100,
        "dur": 50},
       launch(20, 1), launch(310, 2), launch(120, 3), launch(500, 4),
       kernel(200, 30, 1), kernel(400, 10, 2), kernel(450, 7, 3),
       kernel(600, 3, 4),
   ]
-  spans = ((None, "apply_stage"), (None, "_sampled_means"),
-           (None, "shift_corrections"))
+  spans = ("qhbm.sv.stages", "qhbm.qnn.sampled_means",
+           "qhbm.sv.shift_corrections")
   out = sp.span_split(events, 1, spans)
-  assert out["apply_stage"] == pytest.approx(
+  assert out["qhbm.sv.stages"] == pytest.approx(
       {"host_ms": 0.06, "device_ms": 0.04, "launches": 2})
-  assert out["_sampled_means"] == pytest.approx(
+  assert out["qhbm.qnn.sampled_means"] == pytest.approx(
       {"host_ms": 0.05, "device_ms": 0.007, "launches": 1})
-  assert out["shift_corrections"]["launches"] == 0
+  assert out["qhbm.sv.shift_corrections"]["launches"] == 0
   assert out["rest"] == pytest.approx({"device_ms": 0.003, "launches": 1})
 
 
