@@ -955,8 +955,11 @@ def kernel_wrappers():
 
 
 def reset_launches() -> None:
+  from qhbmlib_tpu_torch.ops import hopper_sv as hs
   for fn in kernel_wrappers().values():
     fn.launches = 0
+  for route in hs.axis2_apply.route_launches:
+    hs.axis2_apply.route_launches[route] = 0
 
 
 def read_launches(path: str, required, paired: bool = False) -> dict:
@@ -966,8 +969,10 @@ def read_launches(path: str, required, paired: bool = False) -> dict:
   unless `diag_rotate` launched as often as `parity_bilinear`: once a
   diagonal segment in the forward, and never in the sweep, whose diagonal
   stages un-apply inside their `parity_bilinear` launch."""
+  from qhbmlib_tpu_torch.ops import hopper_sv as hs
   launches = {name: fn.launches for name, fn in kernel_wrappers().items()}
-  log(f"[{path}] kernel launches: {launches}")
+  log(f"[{path}] kernel launches: {launches}; axis2_apply by route: "
+      f"{hs.axis2_apply.route_launches}")
   for name in required:
     if launches[name] <= 0:
       raise AssertionError(f"{path}: kernel {name} never launched")
@@ -1142,11 +1147,18 @@ def phase_bench(device):
 
   @contextlib.contextmanager
   def path(name):
+    from qhbmlib_tpu_torch.ops import hopper_sv as hs
     reset_launches()
     yield
     torch.cuda.synchronize()
     paths[name] = read_launches(f"bench {name}", BENCH_PATHS[name],
                                 paired=name.startswith("train"))
+    # Every 24q K1 pass is a wgmma view (hopper_sv.axis2_route).
+    wgmma = hs.axis2_apply.route_launches["wgmma"]
+    if "24q" in name and wgmma != paths[name]["axis2_apply"]:
+      raise AssertionError(f"bench {name}: {wgmma} of "
+                           f"{paths[name]['axis2_apply']} axis2_apply "
+                           "launches took the wgmma route")
 
   result = bench.run_bench(device, steps=STEPS, path=path)
   log(f"[bench] {json.dumps(result)}")
@@ -1199,7 +1211,10 @@ def first_segment_passes(n, device):
 def check_axis2(device, n, b):
   """axis2_apply (K1) against its plain version on the passes of the first
   1q segment of the n-qubit ansatz, on [B, R, C] planes, timed beside its
-  plain version, its library einsum and its bounds; returns the record."""
+  plain version, its library einsum and its bounds; each pass's route
+  (`hopper_sv.axis2_route`) is asserted from the route counts, and where
+  it is "wgmma" the mma.sync kernel's error on the same pass is logged
+  beside it.  Returns the record."""
   from qhbmlib_tpu_torch.ops import hopper_sv as hs
   from qhbmlib_tpu_torch.ops import statevector as sv
   passes = first_segment_passes(n, device)
@@ -1208,23 +1223,39 @@ def check_axis2(device, n, b):
   dgen = torch.Generator(device=device).manual_seed(SEED + n)
   x = [tuple(torch.randn((b, r, c), generator=dgen, device=device)
              for _ in range(2))]
+  views = [(b << s1, 2**k1, 2**(s2 - s1 - k1), 2**k2, 2**(n - s2 - k2))
+           for (s1, k1), _, (s2, k2), _ in pairs]
+  routes = [hs.axis2_route(n1, n2, q) for _, n1, _, n2, q in views]
 
   def run(plain):
     return [hs.apply_pass(p, x, n, plain)[0] for p in pairs]
 
+  before = dict(hs.axis2_apply.route_launches)
   got, ref = run(False), run(True)
-  err = max(rel_err(torch.cat(g), torch.cat(f)) for g, f in zip(got, ref))
-  views = [f"({s1},{k1})x({s2},{k2})" for (s1, k1), _, (s2, k2), _ in pairs]
-  check(f"axis2_apply {n}q B={b} passes {' '.join(views)}", err, STATE_TOL)
+  counted = {k: v - before[k] for k, v in hs.axis2_apply.route_launches.items()}
+  if counted != {k: routes.count(k) for k in before}:
+    raise AssertionError(f"axis2_apply {n}q routes {counted}, expected "
+                         f"{routes}")
+  errs = [rel_err(torch.cat(g), torch.cat(f)) for g, f in zip(got, ref)]
+  err = max(errs)
+  names = [f"({s1},{k1})x({s2},{k2})" for (s1, k1), _, (s2, k2), _ in pairs]
+  check(f"axis2_apply {n}q B={b} passes {' '.join(names)} (routes "
+        f"{' '.join(routes)})", err, STATE_TOL)
   abs_err = max(max_abs(torch.cat(g), torch.cat(f))
                 for g, f in zip(got, ref))
+  # The mma.sync kernel on the passes the wgmma route took.
+  for name, route, (_, op1, _, op2), view, e, f in zip(
+      names, routes, pairs, views, errs, ref):
+    if route == "wgmma":
+      old = hs._axis2_launch("mma_sync", *x[0], [*op1, *op2], *view)
+      log(f"[kernels] axis2_apply {n}q B={b} {name}: rel err wgmma "
+          f"{e:.3e}, mma_sync {rel_err(torch.cat(old), torch.cat(f)):.3e}")
+      del old
   del got, ref
   # One einsum of both operators with the [P, N1, M, N2, Q] view a pass.
   x_c = torch.complex(*x[0])
-  lib = [(torch.complex(*op1), torch.complex(*op2),
-          x_c.view(b << s1, 2**k1, 2**(s2 - s1 - k1), 2**k2,
-                   2**(n - s2 - k2)))
-         for (s1, k1), op1, (s2, k2), op2 in pairs]
+  lib = [(torch.complex(*op1), torch.complex(*op2), x_c.view(*view))
+         for (_, op1, _, op2), view in zip(pairs, views)]
   amps = x_c.numel()
   # Per pass: N1 + N2 complex multiply-adds per amplitude; the state read
   # and written once, both operators read.
@@ -1245,8 +1276,9 @@ def check_axis2(device, n, b):
   singles = [(p[0], p[1]) for p in pairs] + [(p[2], p[3]) for p in pairs]
   unfused_ms = cuda_ms(lambda: [hs.apply_pass(p, x, n) for p in singles],
                        reps=5)
-  each = ", ".join(f"{v} {cuda_ms(lambda p=p: hs.apply_pass(p, x, n), 5):.4f}"
-                   f" ms" for v, p in zip(views, pairs))
+  each = ", ".join(f"{v} {route} "
+                   f"{cuda_ms(lambda p=p: hs.apply_pass(p, x, n), 5):.4f} ms"
+                   for v, route, p in zip(names, routes, pairs))
   log(f"[kernels] axis2_apply {n}q ({len(pairs)} passes, B={b}; {each}): "
       f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
       f"library {rec['library_ms']:.4f} ms, 3xTF32 tensor bound "
@@ -1262,13 +1294,18 @@ def check_axis2(device, n, b):
 
 def phase_k1(device):
   """axis2_apply (K1) against its plain version on the passes of a 1q
-  segment at 24q and 20q, B = BATCH (`check_axis2`); returns the 24q
-  record.  K1 runs its contractions on the tensor cores in 3xTF32 (three
-  TF32 products per float32 product), so its bound is the 3xTF32 tensor
-  bound, max(bytes / 3.35 TB/s, 3 * flops / 495 TFLOP/s); the float32-core
-  bound of earlier records is logged beside it as `fp32_bound_ms`."""
+  segment (`check_axis2`) at 24q and 20q, B = BATCH, and at 28q, B = 1
+  (its (7,7) x (14,7) pass as r5 runs it): the wgmma route; and at 12q, B =
+  BATCH, whose (0,5) x minor pass keeps the mma.sync kernel.  Returns the
+  24q record.  K1 runs its contractions on the tensor cores in 3xTF32
+  (three TF32 products per float32 product), so its bound is the 3xTF32
+  tensor bound, max(bytes / 3.35 TB/s, 3 * flops / 495 TFLOP/s); the
+  float32-core bound of earlier records is logged beside it as
+  `fp32_bound_ms`."""
   report = check_axis2(device, N24, BATCH)
   check_axis2(device, N_QUBITS, BATCH)
+  check_axis2(device, 28, 1)
+  check_axis2(device, 12, BATCH)
   return report
 
 

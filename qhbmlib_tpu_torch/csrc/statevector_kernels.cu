@@ -1491,6 +1491,512 @@ __global__ void __launch_bounds__(kAxis2Threads)
 }
 
 // ---------------------------------------------------------------------------
+// axis2_wgmma: axis2_apply on warpgroup MMA, for the main paths' views
+// ---------------------------------------------------------------------------
+//
+// Replaces, as axis2_apply_kernel does, K1 (qhbmlib_tpu/ops/pallas_sv.py:615
+// `fused_blocks_minor_apply`), on the views that every K1 pass of the 24q,
+// 20q and 28q main paths has: N1 = 128 and a slab row of L = N2 * W = 128,
+// with N2 = 128 (both contractions here) or N2 <= 8 (the second one in fp32
+// FMAs, as slab_fma_apply does).  hopper_sv.axis2_route picks the view by
+// its shape; every other view keeps axis2_apply_kernel.
+//
+// Bound: as axis2_apply_kernel's, max(bytes / 3.35 TB/s,
+// 3 * flops / 495 TFLOP/s): at these shapes the operations, 2048 flop an
+// amplitude against 16 bytes at N1 = N2 = 128.  axis2_apply_kernel's legacy
+// mma.sync.m16n8k8 reached 29% of it (PERF.md); `wgmma` is the only way to
+// the tensor cores' full rate on Hopper.
+//
+// Why the operator is wgmma's B: a contraction Y = Op S over slab columns is
+// written Y^T = S^T Op^T, M = 64 slab columns a warpgroup, N = the operator's
+// rows, K the contracted axis.  wgmma reads B only from shared memory and,
+// for .tf32, only K-major, which Op^T K-major is: the operator row-major.
+// One of a slab's two contractions is always strided along K, so the slab
+// cannot be B; it is A, in registers, each fragment loaded from the swizzled
+// slab (slab_at, conflict-free as for axis2_apply_kernel's B) and split into
+// TF32 big / small there.  -Im(S) is A with wgmma's scale-a of -1.
+//
+// The operator is split once a call (wgmma_presplit_kernel, one launch
+// before the main one) into four TF32 planes (big re, small re, big im,
+// small im; the tf32_rna rule) laid out as the shared-memory image of each
+// K-panel of 16: core matrices of 8 rows x 16 bytes, 128 bytes apart along N
+// (SBO), 2048 along K (LBO), no swizzle (a core matrix is one contiguous
+// 128-byte line, so B reads are free of bank conflicts).  A panel, 32 KB,
+// is one cp.async.bulk copy completing on an mbarrier; a ring of kWgStages
+// panels runs across both contractions and across slabs.  The warp whose
+// release of a panel is the last (a shared counter) refills its stage, so no
+// thread waits for a free stage.
+//
+// Work split: 256 threads, two warpgroups of 64 slab columns each; warp w
+// of a warpgroup holds columns 16w..16w+15 as A's rows and D's, so it reads
+// and writes only its own columns and the in-place write back needs no
+// barrier.  Block barriers stand only between the two contractions and
+// after the second.  A slab's store and the next slab's read go together,
+// 16 slab rows (a row panel) at a time: each thread refills (cp.async) the
+// words it has just stored and arrives on the panel's mbarrier when its
+// copies land.  The first contraction, whose k is the slab row, issues the
+// panel kWgLead ahead of the one it is about to read and waits for that
+// one's mbarrier, so the state's traffic runs under the tensor work.
+// (With the whole slab read before the first contraction, 24q B=8 pass 2
+// took 2.04 ms against 1.84 now, pass 1 2.79 against 2.76: PERF.md.)
+//
+// Shared memory: the slab, 2 x 2^14 floats = 128 KB; the ring, 3 x 32 KB;
+// the small N2 <= 8 operator 512 B, eleven mbarriers and three counters:
+// 229,988 of 232,448 bytes, one block per SM.
+//
+// Accumulation (as slab_mma_apply's): each k-step of 8 and each half of the
+// operator's rows (N = 64 a wgmma) is summed in fresh registers, 12 wgmma
+// m64n64k8 (the small cross terms first, then big x big: three TF32
+// products a real product, four real products a complex one), and added to
+// the fp32 totals (2 x 64 a thread) with round-to-nearest adds.  Measured
+// on the H100 against the plain version: 3.537e-7 relative at 24q B=8 pass
+// 1, 2.624e-7 pass 2, as axis2_apply_kernel to four digits.  Time there:
+// 2.76 + 1.84 ms against the bound's 1.67 + 0.89 (55%; axis2_apply_kernel
+// 5.40 + 3.15).  Groups of two k-steps ran the inner loop 18% faster but
+// doubled the error (the emulated truncation model: 4.5e-7 against
+// 2.0e-7), so a group stays one k-step.
+constexpr int kWgThreads = 256;   // two warpgroups
+constexpr int kWgN = 128;         // N1, and N2 on the wgmma route
+constexpr int kWgStageK = 16;     // operator columns (K) a ring stage holds
+constexpr int kWgStages = 3;
+constexpr int kWgLead = 2;        // row panels the slab's read runs ahead
+constexpr int kWgPanels = kWgN / kWgStageK;           // stages a contraction
+constexpr int kWgPlane = kWgN * kWgStageK;            // floats a TF32 plane
+constexpr int kWgStageFloats = 4 * kWgPlane;          // 32 KB
+constexpr int kWgImageFloats = kWgPanels * kWgStageFloats;  // one operator
+constexpr size_t kWgSmem =
+    (2 * (1 << kLogSlab) + kWgStages * kWgStageFloats + 2 * 8 * 8) *
+        sizeof(float) +
+    (kWgStages + kWgPanels) * sizeof(unsigned long long) +
+    kWgStages * sizeof(int);
+
+// Float offset of operator element (n, k) in its image: panel k / 16, then
+// plane (+ 0, 1, 2, 3 x kWgPlane), k-step (k / 8) % 2, K-chunk (k / 4) % 2,
+// row group n / 8, row n % 8, k % 4.
+__device__ __forceinline__ int wgmma_image_at(int n, int k) {
+  return (k >> 4) * kWgStageFloats + ((k >> 3) & 1) * 1024 +
+         ((k >> 2) & 1) * 512 + (n >> 3) * 32 + (n & 7) * 4 + (k & 3);
+}
+
+// The images of A (and of B after it, with two operators) from their fp32
+// re / im planes, [128, 128] row-major: one thread an element.
+__global__ void wgmma_presplit_kernel(const float* __restrict__ a_re,
+                                      const float* __restrict__ a_im,
+                                      const float* __restrict__ b_re,
+                                      const float* __restrict__ b_im,
+                                      float* __restrict__ image) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const int op = idx / (kWgN * kWgN);
+  const int e = idx - op * kWgN * kWgN;
+  unsigned rb, rs, ib, is;
+  split_tf32((op ? b_re : a_re)[e], rb, rs);
+  split_tf32((op ? b_im : a_im)[e], ib, is);
+  float* dst = image + op * kWgImageFloats + wgmma_image_at(e / kWgN, e % kWgN);
+  dst[0] = __uint_as_float(rb);
+  dst[kWgPlane] = __uint_as_float(rs);
+  dst[2 * kWgPlane] = __uint_as_float(ib);
+  dst[3 * kWgPlane] = __uint_as_float(is);
+}
+
+// A wgmma descriptor of the B operand at `p` in shared memory: no swizzle,
+// K-major, core matrices 2048 bytes apart along K (LBO) and 128 along N
+// (SBO).
+__device__ __forceinline__ unsigned long long wgmma_desc(const void* p) {
+  return (unsigned long long)((smem_addr(p) & 0x3FFFF) >> 4) |
+         ((unsigned long long)(2048 >> 4) << 16) |
+         ((unsigned long long)(128 >> 4) << 32);
+}
+
+#define QHBM_D32(x)                                                          \
+  "+f"(x[0]), "+f"(x[1]), "+f"(x[2]), "+f"(x[3]), "+f"(x[4]), "+f"(x[5]),   \
+      "+f"(x[6]), "+f"(x[7]), "+f"(x[8]), "+f"(x[9]), "+f"(x[10]),          \
+      "+f"(x[11]), "+f"(x[12]), "+f"(x[13]), "+f"(x[14]), "+f"(x[15]),      \
+      "+f"(x[16]), "+f"(x[17]), "+f"(x[18]), "+f"(x[19]), "+f"(x[20]),      \
+      "+f"(x[21]), "+f"(x[22]), "+f"(x[23]), "+f"(x[24]), "+f"(x[25]),      \
+      "+f"(x[26]), "+f"(x[27]), "+f"(x[28]), "+f"(x[29]), "+f"(x[30]),      \
+      "+f"(x[31])
+
+// d (+)= (SA a) b on one warpgroup: wgmma.mma_async m64n64k8, f32 += tf32 x
+// tf32.  a holds this warp's 16 of A's 64 rows: a0 (row g, k t), a1
+// (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4), lane 4g + t; b is [K 8,
+// N 64] behind `desc`; d[4j + e] is (row g + 8 (e >> 1), column 8j + 2t +
+// (e & 1)).  scale_d 0 ignores d's old values.
+template <int SA>
+__device__ __forceinline__ void wgmma_tf32(float* d, const unsigned* a,
+                                           unsigned long long desc,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, %38, 1;\n}\n"
+      : QHBM_D32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d),
+        "n"(SA));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving d's reads or writes across a wgmma.
+__device__ __forceinline__ void wgmma_hold(float* d) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// An mbarrier whose phases complete on `count` arrivals.
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          int count) {
+  asm volatile(
+      "mbarrier.init.shared::cta.b64 [%0], %1;\n"
+      "fence.mbarrier_init.release.cluster;\n" ::"r"(smem_addr(bar)),
+      "r"(count)
+      : "memory");
+}
+
+// One arrival on `bar` once this thread's cp.async copies so far have
+// landed.
+__device__ __forceinline__ void cp_async_arrive(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(smem_addr(bar))
+               : "memory");
+}
+
+// Copies `bytes` from global `src` to shared `dst` in one bulk copy that
+// completes on `bar` (armed here for the bytes).
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          int bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%2], [%3], %1, [%0];\n" ::"r"(smem_addr(bar)),
+      "r"(bytes), "r"(smem_addr(dst)), "l"(src)
+      : "memory");
+}
+
+// Waits until the phase of `bar` of parity `parity` has completed; traps
+// (a launch error, not a hung card) if it has not after ~2^26 polls.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          int parity) {
+  for (int polls = 0;; ++polls) {
+    unsigned done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == 1 << 26) __trap();
+  }
+}
+
+// The ring of operator panels: panel q of this block's sequence (per slab,
+// A's kWgPanels, then B's where N2 = 128) goes to stage q % kWgStages.
+struct WgRing {
+  float* stages;
+  unsigned long long* full;
+  int* released;  // warps done with each stage's panel
+  const float* image;
+  int per_slab;   // panels a slab
+  long long total;  // panels this block consumes
+
+  __device__ __forceinline__ void issue(long long q) const {
+    const int s = (int)(q % kWgStages);
+    const int in_slab = (int)(q % per_slab);
+    bulk_copy(stages + s * kWgStageFloats,
+              image + (in_slab / kWgPanels) * kWgImageFloats +
+                  (in_slab % kWgPanels) * kWgStageFloats,
+              kWgStageFloats * (int)sizeof(float), &full[s]);
+  }
+
+  // This warp is done with panel q; the last of the block's warps to be
+  // refills its stage with panel q + kWgStages.
+  __device__ __forceinline__ void release(long long q) const {
+    const int s = (int)(q % kWgStages);
+    if ((threadIdx.x & 31) == 0 &&
+        atomicAdd(&released[s], 1) == kWgThreads / 32 - 1) {
+      atomicExch(&released[s], 0);
+      if (q + kWgStages < total) issue(q + kWgStages);
+    }
+    __syncwarp();
+  }
+};
+
+// In place on the slab, N = 128 on axis AXIS, 128 columns: column v <- Op v
+// on warpgroup MMA in 3xTF32, the operator's panels q, q + 1, ... from the
+// ring (q advances past them).  With `rows` (AXIS 1, whose k is the slab
+// row), slab rows 16p..16p+15 are waited for (the phase of parity
+// `parity` of rows[p]) before panel p reads them, and hook(p) runs first.
+template <int AXIS, class Hook = NoHook>
+__device__ __forceinline__ void wgmma_contract(float* s_re, float* s_im,
+                                               const WgRing& ring,
+                                               long long& q, int L,
+                                               int log_w,
+                                               unsigned long long* rows,
+                                               int parity, Hook hook = {}) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int c0 = (threadIdx.x >> 5) * 16 + g;  // A's rows g, g + 8
+  const SlabColumn<AXIS> col0 = SlabColumn<AXIS>::make(t, c0, L, log_w);
+  const SlabColumn<AXIS> col1 = SlabColumn<AXIS>::make(t, c0 + 8, L, log_w);
+  float tot[2][2][32];  // [rows 0-63, 64-127][re, im][fragment]
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) tot[h][0][i] = tot[h][1][i] = 0.f;
+  }
+#pragma unroll 1
+  for (int p = 0; p < kWgPanels; ++p, ++q) {
+    const int s = (int)(q % kWgStages);
+    hook(p, kWgPanels);
+    if (rows != nullptr) mbar_wait(&rows[p], parity);
+    mbar_wait(&ring.full[s], (int)((q / kWgStages) & 1));
+    __syncwarp();
+    const float* stage = ring.stages + s * kWgStageFloats;
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const int kb = p * kWgStageK + ks * 8;
+      const int o[4] = {col0.at(kb, 0, L, log_w), col1.at(kb, 0, L, log_w),
+                        col0.at(kb, 1, L, log_w), col1.at(kb, 1, L, log_w)};
+      unsigned rb[4], rs[4], ib[4], is[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        split_tf32(s_re[o[r]], rb[r], rs[r]);
+        split_tf32(s_im[o[r]], ib[r], is[r]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* b = stage + ks * 1024 + h * 256;  // rows 64h..64h+63
+        const unsigned long long d_rb = wgmma_desc(b);
+        const unsigned long long d_rs = wgmma_desc(b + kWgPlane);
+        const unsigned long long d_ib = wgmma_desc(b + 2 * kWgPlane);
+        const unsigned long long d_is = wgmma_desc(b + 3 * kWgPlane);
+        float fr[32], fi[32];
+        wgmma_fence();
+        // Re += S_re A_re - S_im A_im, Im += S_im A_re + S_re A_im: the
+        // cross terms (small x big, big x small), then big x big.
+        wgmma_tf32<1>(fr, rs, d_rb, 0);
+        wgmma_tf32<1>(fi, is, d_rb, 0);
+        wgmma_tf32<1>(fr, rb, d_rs, 1);
+        wgmma_tf32<1>(fi, ib, d_rs, 1);
+        wgmma_tf32<-1>(fr, is, d_ib, 1);
+        wgmma_tf32<1>(fi, rs, d_ib, 1);
+        wgmma_tf32<-1>(fr, ib, d_is, 1);
+        wgmma_tf32<1>(fi, rb, d_is, 1);
+        wgmma_tf32<1>(fr, rb, d_rb, 1);
+        wgmma_tf32<1>(fi, ib, d_rb, 1);
+        wgmma_tf32<-1>(fr, ib, d_ib, 1);
+        wgmma_tf32<1>(fi, rb, d_ib, 1);
+        wgmma_commit();
+        wgmma_wait_all();
+        wgmma_hold(fr);
+        wgmma_hold(fi);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          tot[h][0][i] += fr[i];
+          tot[h][1][i] += fi[i];
+        }
+      }
+    }
+    ring.release(q);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = c0 + 8 * ((i >> 1) & 1);
+      const int m = 64 * h + 8 * (i >> 2) + 2 * t + (i & 1);
+      const int o = slab_at<AXIS>(m, c, L, log_w);
+      s_re[o] = tot[h][0][i];
+      s_im[o] = tot[h][1][i];
+    }
+  }
+}
+
+// In place on the slab, N < 16 on axis 2, in fp32 FMAs as slab_fma_apply:
+// a thread replaces whole columns v by Op v; `op` holds the re then the im
+// plane in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_fma_contract(float* s_re, float* s_im,
+                                                   const float* op, int cols,
+                                                   int L, int log_w) {
+  float wr[N * N], wi[N * N];  // the operator, in registers
+#pragma unroll
+  for (int e = 0; e < N * N; ++e) {
+    wr[e] = op[e];
+    wi[e] = op[N * N + e];
+  }
+  for (int c = threadIdx.x; c < cols; c += kWgThreads) {
+    float xr[N], xi[N];
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int o = slab_at<2>(k, c, L, log_w);
+      xr[k] = s_re[o];
+      xi[k] = s_im[o];
+    }
+#pragma unroll
+    for (int m = 0; m < N; ++m) {
+      float yr = 0.f;
+      float yi = 0.f;
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        yr = fmaf(wr[m * N + k], xr[k], fmaf(-wi[m * N + k], xi[k], yr));
+        yi = fmaf(wr[m * N + k], xi[k], fmaf(wi[m * N + k], xr[k], yi));
+      }
+      const int o = slab_at<2>(m, c, L, log_w);
+      s_re[o] = yr;
+      s_im[o] = yi;
+    }
+  }
+}
+
+// One persistent block walks slabs blockIdx.x, + gridDim.x, ... of the
+// [P, 128, M, N2, Q] view: each [128, L = N2 * W = 128] slab is read, A
+// applied on N1 (wgmma), B on N2 (wgmma at N2 = 128, FMAs below 16), and
+// written while the next slab is read into the words already stored.  That
+// read goes in slab row order, 16 rows an mbarrier (rows[p]), and A's
+// contraction of the next slab starts on rows 0-15 while the rest land.
+template <int N2>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    axis2_wgmma_kernel(const float* __restrict__ x_re,
+                       const float* __restrict__ x_im,
+                       const float* __restrict__ image,
+                       const float* __restrict__ b_re,
+                       const float* __restrict__ b_im,
+                       float* __restrict__ y_re, float* __restrict__ y_im,
+                       long long P, int M, int Q, int log_w) {
+  extern __shared__ float smem[];
+  constexpr int kLogL = 7;  // log2 L: N2 * W = 128
+  constexpr int L = 1 << kLogL;
+  float* s_re = smem;
+  float* s_im = smem + (1 << kLogSlab);
+  float* stages = s_im + (1 << kLogSlab);
+  float* small_op = stages + kWgStages * kWgStageFloats;
+  auto* full = reinterpret_cast<unsigned long long*>(small_op + 2 * 8 * 8);
+  unsigned long long* rows = full + kWgStages;
+  int* released = reinterpret_cast<int*>(rows + kWgPanels);
+  const long long q_tiles = Q >> log_w;
+  const long long slabs = P * M * q_tiles;
+  const long long i_stride = (long long)M * N2 * Q;
+  const bool vec = ((1 << log_w) >= 4 || (1 << log_w) == Q) &&
+                   ((reinterpret_cast<unsigned long long>(x_re) |
+                     reinterpret_cast<unsigned long long>(x_im) |
+                     reinterpret_cast<unsigned long long>(y_re) |
+                     reinterpret_cast<unsigned long long>(y_im)) &
+                    15) == 0;
+  const int step = vec ? 4 : 1;
+  // Iterations of the store / load loop a 16-row panel of the slab.
+  const int per_panel = (kWgStageK << kLogL) / (kWgThreads * step);
+  const int per_slab = (N2 == kWgN ? 2 : 1) * kWgPanels;
+  const WgRing ring = {
+      stages, full, released, image, per_slab,
+      (slabs - blockIdx.x + gridDim.x - 1) / gridDim.x * per_slab};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);
+      released[s] = 0;
+    }
+    for (int p = 0; p < kWgPanels; ++p) mbar_init(&rows[p], kWgThreads);
+  }
+  if constexpr (N2 < 16) {
+    for (int e = threadIdx.x; e < 2 * N2 * N2; e += kWgThreads) {
+      small_op[e] = e < N2 * N2 ? b_re[e] : b_im[e - N2 * N2];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages && s < ring.total; ++s) ring.issue(s);
+  }
+  // Element e = i * L + (j * W + w) of slab `slab`: its offset in the
+  // state, and in the slab.
+  auto state_at = [&](long long slab, int e) {
+    const long long pm = slab / q_tiles;
+    const long long q0 = (slab - pm * q_tiles) << log_w;
+    const long long p = pm / M;
+    const long long m = pm - p * M;
+    return p * kWgN * i_stride + m * ((long long)Q * N2) + q0 +
+           (e >> kLogL) * i_stride +
+           (long long)((e & (L - 1)) >> log_w) * Q + (e & ((1 << log_w) - 1));
+  };
+  auto slab_of = [&](int e) {
+    return slab_at<1>(e >> kLogL, e & (L - 1), L, log_w);
+  };
+  // Row panel p (rows 16p..16p+15) of this thread's slab words: slab `cur`
+  // stored from them where cur >= 0, then slab `next` read into them where
+  // it exists, arriving on rows[p] once the copies land.
+  auto store_load = [&](long long cur, long long next, int p) {
+    for (int it = 0; it < per_panel; ++it) {
+      const int e = ((p * per_panel + it) * kWgThreads + threadIdx.x) * step;
+      const int s = slab_of(e);
+      if (cur >= 0) {
+        const long long off = state_at(cur, e);
+        if (vec) {
+          *reinterpret_cast<float4*>(y_re + off) =
+              *reinterpret_cast<const float4*>(s_re + s);
+          *reinterpret_cast<float4*>(y_im + off) =
+              *reinterpret_cast<const float4*>(s_im + s);
+        } else {
+          y_re[off] = s_re[s];
+          y_im[off] = s_im[s];
+        }
+      }
+      if (next < slabs) {
+        const long long off = state_at(next, e);
+        if (vec) {
+          cp_async_16(s_re + s, x_re + off);
+          cp_async_16(s_im + s, x_im + off);
+        } else {
+          cp_async_4(s_re + s, x_re + off);
+          cp_async_4(s_im + s, x_im + off);
+        }
+      }
+    }
+    if (next < slabs) cp_async_arrive(&rows[p]);
+  };
+  long long q = 0;
+  int parity = 0;  // of this slab's phase of rows[]
+  long long prev = -1;
+  for (long long slab = blockIdx.x; slab < slabs;
+       prev = slab, slab += gridDim.x, parity ^= 1) {
+    // The previous slab's store and this one's read run kWgLead row panels
+    // ahead of A's contraction, which waits for each panel's rows.  Once a
+    // warp has waited for rows[7], every thread has stored the previous
+    // slab, so the contraction's write back may follow.
+    for (int p = 0; p < kWgLead; ++p) store_load(prev, slab, p);
+    // A on the N1 axis: columns are the L (j, w) pairs.
+    wgmma_contract<1>(s_re, s_im, ring, q, L, log_w, rows, parity,
+                      [&](int p, int panels) {
+                        if (p + kWgLead < panels) {
+                          store_load(prev, slab, p + kWgLead);
+                        }
+                      });
+    __syncthreads();  // every column of A's contraction is written back
+    // B on the N2 axis: columns are the N1 * W (i, w) pairs.
+    if constexpr (N2 == kWgN) {
+      wgmma_contract<2>(s_re, s_im, ring, q, L, log_w, nullptr, 0);
+    } else {
+      wgmma_fma_contract<N2>(s_re, s_im, small_op, kWgN << log_w, L, log_w);
+    }
+    __syncthreads();  // every column is written back
+  }
+  for (int p = 0; p < kWgPanels; ++p) store_load(prev, slabs, p);
+}
+
+// ---------------------------------------------------------------------------
 // axis_apply_mma: axis_apply for N >= 16, on the tensor cores
 // ---------------------------------------------------------------------------
 //
@@ -2859,6 +3365,46 @@ int qhbm_axis2_apply(const float* x_re, const float* x_im, const float* a_re,
                        static_cast<cudaStream_t>(stream)>>>(
       x_re, x_im, a_re, a_im, b_re, b_im, y_re, y_im, P, k1, M, k2, Q,
       log_w);
+  return (int)cudaGetLastError();
+}
+
+// 1 where axis2_wgmma_kernel takes the [P, 2^k1, M, 2^k2, Q] view: N1 =
+// 128 and a slab row of N2 * W = 128, with N2 = 128 or N2 <= 8
+// (hopper_sv.axis2_route, the same rule).
+int qhbm_axis2_wgmma_view(int k1, int k2, int Q) {
+  if (Q < 1 || (Q & (Q - 1))) return 0;
+  int log_q = 0;
+  while ((1 << log_q) < Q) ++log_q;
+  return k1 == 7 && (k2 == 7 || (k2 >= 1 && k2 <= 3)) && k2 + log_q >= 7;
+}
+
+// axis2_apply on the views qhbm_axis2_wgmma_view takes: the operators'
+// TF32 images go to `image` (kWgImageFloats floats an operator of 128 rows:
+// A's, then B's where N2 = 128), then the slab kernel runs.  Two launches.
+int qhbm_axis2_wgmma(const float* x_re, const float* x_im, const float* a_re,
+                     const float* a_im, const float* b_re, const float* b_im,
+                     float* image, float* y_re, float* y_im, int P, int k1,
+                     int M, int k2, int Q, void* stream) {
+  if (!qhbm_axis2_wgmma_view(k1, k2, Q) || P < 1 || M < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int log_w = 7 - k2;  // W = 128 / N2 <= Q
+  const long long slabs = (long long)P * M * (Q >> log_w);
+  const int ops = k2 == 7 ? 2 : 1;
+  wgmma_presplit_kernel<<<ops * kWgN * kWgN / 256, 256, 0, s>>>(
+      a_re, a_im, b_re, b_im, image);
+  auto launch = [&](auto kernel) {
+    const int grid = persistent_grid(kernel, kWgThreads, kWgSmem, slabs);
+    kernel<<<grid, kWgThreads, kWgSmem, s>>>(x_re, x_im, image, b_re, b_im,
+                                             y_re, y_im, P, M, Q, log_w);
+  };
+  switch (k2) {
+    case 1: launch(axis2_wgmma_kernel<2>); break;
+    case 2: launch(axis2_wgmma_kernel<4>); break;
+    case 3: launch(axis2_wgmma_kernel<8>); break;
+    default: launch(axis2_wgmma_kernel<kWgN>); break;
+  }
   return (int)cudaGetLastError();
 }
 

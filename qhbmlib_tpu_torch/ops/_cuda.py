@@ -53,6 +53,8 @@ _SIGNATURES = {
     "qhbm_diag_rotate": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _P],
     "qhbm_axis2_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _P],
+    "qhbm_axis2_wgmma": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _P],
     "qhbm_sweep_blocks": [_I],
     "qhbm_circuit_forward": [_P, _I, _I, _P, _I, _P, _P, _I, _P],
     "qhbm_adjoint_sweep": [_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _P],

@@ -160,13 +160,53 @@ def axis2_apply_plain(x_re, x_im, a_re, a_im, b_re, b_im, p: int, n1: int,
           yi.reshape(x_im.shape).contiguous())
 
 
+# Floats of one 128-row operator's four TF32 planes (axis2_wgmma_kernel's
+# kWgImageFloats).
+AXIS2_IMAGE_FLOATS = 4 * 128 * 128
+
+
+def axis2_route(n1: int, n2: int, q: int) -> str:
+  """The kernel that `axis2_apply` launches for a [P, N1, M, N2, Q] view:
+  "wgmma" (`axis2_wgmma_kernel`, warpgroup MMA) where N1 = 128 and a slab
+  row holds N2 * W = 128 amplitudes, N2 = 128 or N2 <= 8 (every K1 pass of
+  the 24q, 20q and 28q main paths), else "mma_sync"
+  (`axis2_apply_kernel`)."""
+  wide = n1 == 128 and (n2 == 128 or n2 <= 8) and n2 * q >= 128
+  return "wgmma" if wide else "mma_sync"
+
+
+def _axis2_launch(route: str, x_re, x_im, ops, p: int, n1: int, m: int,
+                  n2: int, q: int) -> Planes:
+  """Launches `route`'s K1 kernel on checked CUDA operands; new planes."""
+  lib = _cuda.library()
+  y_re = torch.empty_like(x_re)
+  y_im = torch.empty_like(x_im)
+  shape = (p, n1.bit_length() - 1, m, n2.bit_length() - 1, q,
+           _cuda.stream_of(x_re))
+  if route == "wgmma":
+    # The operators' TF32 planes, split once a call (A's, and B's at 128).
+    image = torch.empty(AXIS2_IMAGE_FLOATS * (2 if n2 == 128 else 1),
+                        dtype=torch.float32, device=x_re.device)
+    status = lib.qhbm_axis2_wgmma(
+        x_re.data_ptr(), x_im.data_ptr(), *(t.data_ptr() for t in ops),
+        image.data_ptr(), y_re.data_ptr(), y_im.data_ptr(), *shape)
+  else:
+    status = lib.qhbm_axis2_apply(
+        x_re.data_ptr(), x_im.data_ptr(), *(t.data_ptr() for t in ops),
+        y_re.data_ptr(), y_im.data_ptr(), *shape)
+  _cuda.check(status, "axis2_apply")
+  return y_re, y_im
+
+
 def axis2_apply(x_re, x_im, a_re, a_im, b_re, b_im, p: int, n1: int, m: int,
                 n2: int, q: int) -> Planes:
   """Split-complex operators A [N1, N1] and B [N2, N2] on axes 1 and 3 of a
   [P, N1, M, N2, Q] view of the float32 planes, in one pass over the state
   (K1); returns new planes.  Operators on bits [s1, s1 + k1) and
   [s2, s2 + k2) of B n-qubit states: P = B*2^s1, N1 = 2^k1,
-  M = 2^(s2-s1-k1), N2 = 2^k2, Q = 2^(n-s2-k2)."""
+  M = 2^(s2-s1-k1), N2 = 2^k2, Q = 2^(n-s2-k2).  `axis2_route` picks the
+  kernel by the view's shape; `route_launches` counts each route's
+  launches, `launches` all of them."""
   if x_re.device.type == "cpu":
     return axis2_apply_plain(x_re, x_im, a_re, a_im, b_re, b_im, p, n1, m, n2,
                              q)
@@ -182,18 +222,17 @@ def axis2_apply(x_re, x_im, a_re, a_im, b_re, b_im, p: int, n1: int, m: int,
                      f"{p}*{n1}*{m}*{n2}*{q}")
   ops = [a_re, a_im, b_re, b_im]
   _cuda.require(ops, x_re.device, [(n1, n1)] * 2 + [(n2, n2)] * 2)
-  lib = _cuda.library()
-  y_re = torch.empty_like(x_re)
-  y_im = torch.empty_like(x_im)
-  _cuda.check(lib.qhbm_axis2_apply(
-      x_re.data_ptr(), x_im.data_ptr(), *(t.data_ptr() for t in ops),
-      y_re.data_ptr(), y_im.data_ptr(), p, n1.bit_length() - 1, m,
-      n2.bit_length() - 1, q, _cuda.stream_of(x_re)), "axis2_apply")
+  route = axis2_route(n1, n2, q)
+  y = _axis2_launch(route, x_re, x_im, ops, p, n1, m, n2, q)
   axis2_apply.launches += 1
-  return y_re, y_im
+  axis2_apply.route_launches[route] += 1
+  return y
 
 
 axis2_apply.launches = 0
+# Shared by reference with any wrapper that copies the function's
+# attributes, so a count made through one lands in the other too.
+axis2_apply.route_launches = {"wgmma": 0, "mma_sync": 0}
 
 
 # ---------------------------------------------------------------------------
