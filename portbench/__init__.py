@@ -4,8 +4,9 @@
         --trace <0|1>
 
 One run is one cell of `BENCHMARK.json` in a fresh process: set-up (the
-model's weights drawn on the card from the seed, the port's VQT train step
-built through its public API, its first steps recorded), a window of
+weights of every part the cell's loss draws, made on the card from the
+seed; the port's train step of that loss built through its public API;
+its first steps recorded), a window of
 back-to-back train steps, then the check of those first steps against a
 plain reference.  It prints one JSON line.
 
@@ -20,7 +21,10 @@ circuit, per-layer metric or kernel is a new file:
                              a configuration (circuit, energy) or a cell
                              (loss); imports `qhbmlib_tpu_torch`
   reference/<kind>.py        the plain reference of the same kind (torch
-                             and numpy only, nothing of the port)
+                             and numpy only, nothing of the port); a
+                             loss's lists the parts whose weights are
+                             drawn and the trained leaves it compares
+  counts/<loss>.py           the model's operations a step of the loss
   metrics/<metric>.py        one per-layer metric: read(ctx) -> number or
                              None
   kernels/<wrapper>.py       one kernel wrapper of the port: where it
@@ -28,5 +32,5 @@ circuit, per-layer metric or kernel is a new file:
 
 The yardstick lives here too: the seeds (`traffic`), the profiler
 arithmetic (`trace`), the peaks (`roofline`), the model's operation count
-(`flops`) and the comparison that decides `correct` (`compare`).
+(`flops`, `counts/`) and the comparison that decides `correct` (`compare`).
 """

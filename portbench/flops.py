@@ -1,28 +1,25 @@
-"""The model's operations a train step, from the configuration alone.
+"""The model's operations a train step, from the configuration alone, by
+the cell's loss.
 
-Counted gate by gate as dense applications on every amplitude of each
-state the step evaluates (the `max_unique` rows of its batch), whatever
-implements them:
+Each loss has its own count, `counts/<loss>.py` with `step_flops(config,
+traffic)`, found by `traffic["loss"]`; a loss without one is an error
+that names the missing file.  The counts charge each gate as a dense
+application on every amplitude of each state the step evaluates,
+whatever implements it:
 
   * a dense one-qubit gate: an output amplitude is two complex products
     and a sum, 2 x 6 + 2 = 14 flops;
   * a diagonal gate: one complex product, 6 flops;
   * a two-qubit gate of the flip class (alpha s[x] + beta s[x ^ f]): two
     complex products and a sum, 14 flops;
-  * a permutation: 0.
-
-The adjoint sweep un-applies each gate from two states (the state and
-lambda): twice the forward; each parameterized gate adds its inner
-product <lambda| dG |psi>, a complex multiply-add, 8 flops an amplitude.
-Each Pauli term of the target costs one pass, a complex multiply-add an
-amplitude (8 flops), for <psi|P|psi> and its share of lambda.  The EBM,
-the energy and Adam touch a few hundred numbers and are left out.
+  * a permutation: 0;
+  * an inner product <a| dG |b>, or one Pauli term's pass over a state: a
+    complex multiply-add, 8 flops.
 """
 
 from __future__ import annotations
 
-from portbench import hamiltonian
-from portbench.reference import vqt as reference_vqt
+import importlib
 
 DENSE_1Q = 14
 DIAGONAL = 6
@@ -31,17 +28,19 @@ INNER_PRODUCT = 8
 TERM_PASS = 8
 
 
-def per_amplitude(config) -> int:
-  """The flops a step spends on each amplitude of each evaluated state."""
-  g = reference_vqt.kind(config["circuit"]["kind"]).gate_counts(config)
-  forward = (DENSE_1Q * g["dense_1q"] + DIAGONAL * g["diagonal"] +
-             FLIP_2Q * g["flip_2q"])
-  sweep = 2 * forward + INNER_PRODUCT * g["parameterized"]
-  terms = len(hamiltonian.chain_terms(config["target"], config["qubits"]))
-  return forward + sweep + TERM_PASS * terms
+def count(loss: str):
+  """The count module of `loss` (`counts/<loss>.py`)."""
+  name = f"portbench.counts.{loss}"
+  try:
+    return importlib.import_module(name)
+  except ModuleNotFoundError as e:
+    if e.name != name:
+      raise
+    raise ModuleNotFoundError(
+        f"the loss {loss!r} has no count: portbench/counts/{loss}.py with "
+        f"step_flops(config, traffic) is missing", name=name) from None
 
 
 def step_flops(config, traffic) -> float:
-  """The model's flops in one train step."""
-  return float(per_amplitude(config) * 2**config["qubits"] *
-               traffic["max_unique"])
+  """The model's flops in one train step of the cell's loss."""
+  return float(count(traffic["loss"]).step_flops(config, traffic))

@@ -84,31 +84,45 @@ def set_up(cell, seed: int, device: torch.device):
   """(step, record, states, initial): the port's train step after its
   first CHECK_STEPS steps; their record for the check (losses, the
   first gradient as Adam holds it, the parameters after the steps and
-  before each); the generator state each drew from; the initial weights
-  {name: float64 array}."""
+  before each), each by the name of a trained leaf
+  (`reference/<loss>.py`, `leaf_shapes`) and flat in its order; the
+  generator state each drew from; every drawn leaf's initial weights
+  {name: float64 array}, the trained ones and any the loss draws
+  besides."""
+  loss = cell.traffic["loss"]
   marks = [time.perf_counter()]
-  weights = traffic.make_weights(cell.config, seed, device)
+  weights = traffic.make_weights(cell.config, loss, seed, device)
   gen = traffic.draw_generator(seed, device)
   sync(device)
   marks.append(time.perf_counter())
-  step = registry.program(cell.traffic["loss"]).Step(
+  step = registry.program(loss).Step(
       cell.config, cell.traffic, weights, device, gen)
   marks.append(time.perf_counter())
-  names = [name for name, _ in weights]
+  trained = [name for name, _ in
+             registry.reference(loss).leaf_shapes(cell.config)]
+  if sorted(step.named_parameters()) != sorted(trained):
+    raise ValueError(f"{loss}: the program trains "
+                     f"{sorted(step.named_parameters())}, the reference "
+                     f"{sorted(trained)}")
+
+  def by_name(named):
+    return [named[name] for name in trained]
+
   states, points, losses, grad1 = [], [], [], None
   for i in range(CHECK_STEPS):
     states.append(gen.get_state())
     points.append({name: p.detach().double().cpu().numpy()
-                   for name, p in zip(names, step.parameters())})
+                   for name, p in step.named_parameters().items()})
     losses.append(float(step()))
     marks.append(time.perf_counter())
     if i == 0:
       try:
-        grad1 = flat(step.first_gradient())
+        grad1 = flat(by_name(step.first_gradient()))
       except KeyError:  # the optimizer holds no state: it took no step
         grad1 = None
   record = {"losses": losses, "grad1": grad1,
-            "params": flat(step.parameters()), "points": points}
+            "params": flat(by_name(step.named_parameters())),
+            "points": points}
   initial = {name: w.detach().double().cpu().numpy() for name, w in weights}
   took = [f"{b - a:.3f}" for a, b in zip(marks, marks[1:])]
   log(f"[portbench] set-up: weights (and the CUDA context) {took[0]} s, "
@@ -171,6 +185,7 @@ def measure(cell, seed: int, seconds: float, traced: bool,
   torch.backends.cuda.matmul.allow_tf32 = cell.config["precision"]["tf32"]
   torch.backends.cudnn.allow_tf32 = cell.config["precision"]["tf32"]
   on_card = device.type == "cuda"
+  step_flops = flops.step_flops(cell.config, cell.traffic)
   log(f"[portbench] set-up: start to the harness {time.perf_counter() - t_start:.3f} s")
   step, record, states, initial = set_up(cell, seed, device)
   sync(device)
@@ -183,12 +198,11 @@ def measure(cell, seed: int, seconds: float, traced: bool,
   window_peak = torch.cuda.max_memory_allocated(device) if on_card else None
   log(f"[portbench] {cell.name} seed {seed}: set-up {setup_s:.3f} s, window "
       f"{len(step_s)} steps in {window_s:.3f} s, {failed} failed")
-  ctx = Context(setup_s, step_s, window_s, window_peak,
-                flops.step_flops(cell.config, cell.traffic))
+  ctx = Context(setup_s, step_s, window_s, window_peak, step_flops)
   if traced:
     kernels = trace.load_kernels(registry.kernel_names())
     ctx.trace = trace.profile(step, cell.traffic["trace_steps"], kernels,
-                              device)
+                              device, loss=cell.traffic["loss"])
     log(f"[portbench] traced {ctx.trace['steps']} steps: busy "
         f"{ctx.trace['busy_s']:.6f} s of {ctx.trace['window_s']:.6f} s; "
         f"launches {ctx.trace['launches']}")

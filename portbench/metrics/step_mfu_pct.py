@@ -1,7 +1,8 @@
 """The whole step's share of the card's peak: the model's flops a step
-(`flops.step_flops`, from the configuration alone) at the window's
-steps/s, over the dense TF32 peak, 495 TFLOP/s (the fastest arithmetic a
-float32-accurate route can use)."""
+(`flops.step_flops`: the count of the cell's loss, `counts/<loss>.py`,
+from the configuration alone) at the window's steps/s, over the dense
+TF32 peak, 495 TFLOP/s (the fastest arithmetic a float32-accurate route
+can use)."""
 
 from portbench import roofline
 

@@ -24,9 +24,9 @@ class Step:
   calling it takes the step and returns the loss (on the device).
 
   `weights` [(name, tensor)] are the model's parameters in the
-  optimizer's order (the energy's, then the circuit's); the EBM draws from
-  `generator`.  With `spans` set, the step's parts run inside profiler
-  ranges named "vqt.<part>"."""
+  optimizer's order (the energy's, then the circuit's), and keep their
+  names here; the EBM draws from `generator`.  With `spans` set, the
+  step's parts run inside profiler ranges named "vqt.<part>"."""
 
   def __init__(self, config, traffic, weights, device, generator):
     n = config["qubits"]
@@ -46,6 +46,7 @@ class Step:
     with torch.no_grad():
       for p, (_, w) in zip(params, weights):
         p.copy_(w)
+    self.names = [name for name, _ in weights]
     self.loss_fn = vqt_loss.make_vqt(self.model, self.target)
     self.opt = torch.optim.Adam(params, lr=traffic["adam_lr"])
     self.beta = traffic["beta"]
@@ -67,12 +68,13 @@ class Step:
       self.opt.step()
     return loss.detach()
 
-  def parameters(self):
-    return self.model.parameters()
+  def named_parameters(self):
+    """{name: the parameter} of every trained leaf."""
+    return dict(zip(self.names, self.model.parameters()))
 
   def first_gradient(self):
     """The gradient the optimizer took at its first step, from its state:
-    exp_avg / (1 - beta1), a leaf a tensor."""
+    {name: exp_avg / (1 - beta1)}."""
     beta1 = self.opt.param_groups[0]["betas"][0]
-    return [self.opt.state[p]["exp_avg"] / (1.0 - beta1)
-            for p in self.parameters()]
+    return {name: self.opt.state[p]["exp_avg"] / (1.0 - beta1)
+            for name, p in self.named_parameters().items()}

@@ -46,9 +46,17 @@ def matmul_tf32(on: bool):
     torch.backends.cuda.matmul.allow_tf32 = before
 
 
+def parts(config):
+  """The parts whose weights a run draws (`traffic.make_weights`), in
+  order: the energy, then the circuit, both the model's, their leaf
+  names as their kinds give them."""
+  return [(config, "energy", ""), (config, "circuit", "")]
+
+
 def leaf_shapes(config):
-  """[(name, shape)] of the model's parameters: the energy's, then the
-  circuit's, in the order the optimizer takes them."""
+  """[(name, shape)] of the model's parameters, the trained leaves the
+  check compares: the energy's, then the circuit's, in the order the
+  optimizer takes them."""
   return (kind(config["energy"]["kind"]).leaf_shapes(config) +
           kind(config["circuit"]["kind"]).leaf_shapes(config))
 

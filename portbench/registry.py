@@ -34,15 +34,17 @@ class Cell:
 
 def load_cell(name: str, root: pathlib.Path = ROOT) -> Cell:
   """The cell `name` of the benchmark at `root`: its configuration's file,
-  its own file (`workloads/<name>.json`) and the metrics it reports (those
-  whose "workloads" list names it, or that have none)."""
+  its own file (`portbench/workloads/<name>.json` under `root`) and the
+  metrics it reports (those whose "workloads" list names it, or that have
+  none)."""
   bench = json.loads((root / "BENCHMARK.json").read_text())
   entry = next((w for w in bench["workloads"] if w["name"] == name), None)
   if entry is None:
     raise KeyError(f"no workload {name!r} in BENCHMARK.json")
   conf = next(c for c in bench["configs"] if c["name"] == entry["config"])
   config = json.loads((root / conf["file"]).read_text())
-  cell = json.loads((HERE / "workloads" / f"{name}.json").read_text())
+  cell = json.loads((root / HERE.name / "workloads" /
+                     f"{name}.json").read_text())
   if cell["traffic"]["name"] != entry["traffic"]:
     raise ValueError(f"{name}: BENCHMARK.json's traffic {entry['traffic']!r} "
                      f"is not the cell file's {cell['traffic']['name']!r}")

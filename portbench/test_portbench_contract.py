@@ -7,6 +7,7 @@ import re
 
 import pytest
 
+from portbench import flops
 from portbench import registry
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -62,5 +63,9 @@ def test_each_cell_finds_its_files_and_reports_what_it_must(cell):
   for m in c.end_to_end + c.per_layer:
     assert callable(registry.metric(m["name"]).read)
   assert set(c.cell["limits"]) == {"loss_gap", "grad_gap", "change_gap"}
-  assert registry.program(c.traffic["loss"]) and registry.reference(
-      c.traffic["loss"])
+  loss = c.traffic["loss"]
+  assert callable(registry.program(loss).Step)
+  ref = registry.reference(loss)
+  assert callable(ref.parts) and callable(ref.leaf_shapes)
+  assert callable(ref.follow)
+  assert callable(flops.count(loss).step_flops)

@@ -12,8 +12,8 @@ from portbench import harness
 HERE = pathlib.Path(__file__).resolve().parent
 # Modules that decide `correct` or compute the yardstick: they may import
 # torch, numpy and each other, never the program.
-YARDSTICK = ("reference/*.py", "compare.py", "flops.py", "hamiltonian.py",
-             "roofline.py", "traffic.py")
+YARDSTICK = ("reference/*.py", "counts/*.py", "compare.py", "flops.py",
+             "hamiltonian.py", "roofline.py", "traffic.py")
 YARDSTICK_LOCAL = {"portbench.compare", "portbench.flops",
                    "portbench.hamiltonian", "portbench.roofline",
                    "portbench.traffic"}
@@ -57,7 +57,7 @@ def test_a_run_loads_no_forbidden_module():
           "import portbench.run, portbench.harness, portbench.calibrate\n"
           "import portbench.faults, portbench.program.vqt\n"
           "import portbench.program.hea, portbench.program.qaia\n"
-          "import portbench.program.bernoulli\n"
+          "import portbench.program.bernoulli, portbench.counts.vqt\n"
           "from portbench import registry, trace\n"
           "trace.load_kernels(registry.kernel_names())\n"
           "for p in __import__('pathlib').Path('portbench/metrics').glob("

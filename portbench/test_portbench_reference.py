@@ -131,11 +131,19 @@ def test_a_broken_timed_path_is_not_correct(name, fault):
 def test_the_traced_run_reports_per_layer_metrics_only(name):
   cell = smallcells.small(name)
   out = harness.measure(cell, 9, 0.1, True, CPU, time.perf_counter())
-  # On the CPU the kernels' plain versions run: nothing is launched, so
-  # only the host-clock share of the peak has something to read.
-  assert set(out["metrics"]) == {"step_mfu_pct"}
+  # On the CPU the kernels' plain versions run: nothing is launched and
+  # there is no card to read, so the host-clock share of the peak and the
+  # program's spans, each called in the traced steps, read; the device's
+  # metrics read nothing.
+  spans = {m["name"] for m in cell.per_layer
+           if m["source"] == "program_span"}
+  assert len(spans) == 7
+  assert set(out["metrics"]) == {"step_mfu_pct"} | spans
   assert out["device"]["busy_s"] == 0.0
   assert set(out["breakdown"]) == {"device_ops", "idle_gaps"}
+  # The step's parts are named by the cell's loss.
+  assert all(label.startswith("vqt.")
+             for label, _ in out["breakdown"]["idle_gaps"])
 
 
 def test_readings_of_one_record_are_zero_and_a_frozen_step_reads_one():

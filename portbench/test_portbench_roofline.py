@@ -62,11 +62,12 @@ def test_share_needs_a_formula_for_every_call():
   assert roofline.share_pct(None) is None
 
 
-def test_trace_reading_of_a_synthetic_region():
+@pytest.mark.parametrize("loss", ["vqt", "qmhl"])
+def test_trace_reading_of_a_synthetic_region(loss):
   ev = [
       {"name": trace.REGION, "cat": "user_annotation", "ts": 0, "dur": 100,
        "tid": 1},
-      {"name": "vqt.loss", "cat": "user_annotation", "ts": 0, "dur": 50,
+      {"name": f"{loss}.loss", "cat": "user_annotation", "ts": 0, "dur": 50,
        "tid": 1},
       {"name": trace.KERNEL_RANGE + "flip_apply", "cat": "user_annotation",
        "ts": 10, "dur": 5, "tid": 1},
@@ -80,7 +81,7 @@ def test_trace_reading_of_a_synthetic_region():
       {"name": "other_kernel", "cat": "kernel", "ts": 40, "dur": 20,
        "args": {"correlation": 8}},
   ]
-  r = trace.read(ev, ["flip_apply", "flip_bilinear"])
+  r = trace.read(ev, ["flip_apply", "flip_bilinear"], loss)
   assert r["window_s"] == pytest.approx(100e-6)
   assert r["busy_s"] == pytest.approx(40e-6)  # [20, 60]
   assert r["wrapper_s"] == {"flip_apply": pytest.approx(30e-6),
@@ -88,5 +89,9 @@ def test_trace_reading_of_a_synthetic_region():
   assert r["device_ops"][0] == ["flip_apply_kernel<2>", pytest.approx(30e-6)]
   gaps = dict(r["idle_gaps"])
   assert gaps["between steps / aten::copy_"] == pytest.approx(40e-6)
-  assert gaps["vqt.loss / portbench.kernel.flip_apply"] == pytest.approx(
-      20e-6)
+  assert gaps[f"{loss}.loss / portbench.kernel.flip_apply"] == (
+      pytest.approx(20e-6))
+  # Without the cell's loss no range is a part of the step.
+  gaps = dict(trace.read(ev, ["flip_apply"])["idle_gaps"])
+  assert gaps["between steps / portbench.kernel.flip_apply"] == (
+      pytest.approx(20e-6))

@@ -10,7 +10,8 @@ correlation id), with two additions:
     ("portbench.kernel.<name>") and its call's work is recorded from its
     arguments, so each wrapper's device time and least time are known;
   * the device's idle gaps are named by what the host was doing: the
-    step's part ("vqt.loss", ...) and the innermost host operation
+    step's part, a range the program of the cell's loss names
+    "<loss>.<part>" ("vqt.loss", ...), and the innermost host operation
     running at the gap's middle.
 """
 
@@ -118,10 +119,12 @@ def wrapped(kernels: List[Kernel], calls: list):
       setattr(k.module, k.attr, orig)
 
 
-def profile(step, steps: int, kernels: List[Kernel], device) -> dict:
+def profile(step, steps: int, kernels: List[Kernel], device,
+            loss: Optional[str] = None) -> dict:
   """Traces `steps` train steps (each ending when its loss reaches the
   host) in one region that ends in a synchronize; returns the trace's
-  reading (`read`) with each wrapper's calls and launches."""
+  reading (`read`, its idle gaps labelled by the parts of the step of
+  `loss`) with each wrapper's calls and launches."""
   calls: list = []
   before = launches(kernels)
   acts = [torch.profiler.ProfilerActivity.CPU]
@@ -147,7 +150,7 @@ def profile(step, steps: int, kernels: List[Kernel], device) -> dict:
       events = json.load(f)["traceEvents"]
   finally:
     os.remove(path)
-  out = read(events, [k.name for k in kernels])
+  out = read(events, [k.name for k in kernels], loss)
   out["steps"] = steps
   out["calls"] = calls
   out["launches"] = {k: after[k] - before[k] for k in after}
@@ -187,12 +190,14 @@ class _Threads:
     return max(found, key=lambda e: e["ts"]) if found else None
 
 
-def read(events, kernel_names) -> dict:
+def read(events, kernel_names, loss: Optional[str] = None) -> dict:
   """The region's reading: its wall and busy seconds, device seconds by
   kernel name, each wrapper's device seconds (the device work launched
   inside its ranges, on whatever thread: the backward runs on autograd's,
   matched by correlation id) and the idle gaps' seconds by what the host
-  was doing."""
+  was doing: the step's part (a range "<loss>.<part>"; "between steps"
+  outside them, and throughout without a `loss`) and the innermost other
+  host operation."""
   region = next(e for e in events if e.get("name") == REGION
                 and e.get("cat") == "user_annotation")
   t0, t1 = region["ts"], region["ts"] + region["dur"]
@@ -219,11 +224,12 @@ def read(events, kernel_names) -> dict:
     if r is not None:
       wrapper_us[r["name"][len(KERNEL_RANGE):]] += by_corr[corr]["dur"]
 
+  part_prefix = () if loss is None else (f"{loss}.",)
   parts = _Threads([e for e in host if e["cat"] == "user_annotation"
-                    and e["name"].startswith("vqt.")])
+                    and e["name"].startswith(part_prefix)])
   inner = _Threads([e for e in host if not (
-      e["cat"] == "user_annotation" and e["name"].startswith(("vqt.",
-                                                              REGION)))])
+      e["cat"] == "user_annotation" and e["name"].startswith(
+          part_prefix + (REGION,)))])
   gaps = collections.Counter()
   edges = [t0] + [x for iv in busy for x in iv] + [t1]
   for s, e in zip(edges[::2], edges[1::2]):

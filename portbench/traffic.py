@@ -1,21 +1,23 @@
-"""What a run feeds the program, all of it from `--seed`: the model's
-initial weights, and the generator the EBM draws its samples from.
+"""What a run feeds the program, all of it from `--seed`: the initial
+weights of every part the cell's loss draws, and the generator the EBM
+draws its samples from.
 
 A cell's traffic is data (`workloads/<cell>.json`, key "traffic"): the
 loss and its beta, draws a step and distinct rows kept, Adam's learning
-rate and the steps traced.  Every seed gives the same sizes; only
-the weights and the draws differ, so a step does the same work whatever
-the seed.
+rate and the steps traced.  The loss's reference lists the parts whose
+weights are drawn (`reference/<loss>.py`, `parts`): the model's energy
+and circuit, and any fixed part it has besides (a loss's data).  Every
+seed gives the same sizes; only the weights and the draws differ, so a
+step does the same work whatever the seed.
 """
 
 from __future__ import annotations
 
+import importlib
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
-
-from portbench.reference import vqt as reference_vqt
 
 
 def seeds(seed: int) -> Dict[str, int]:
@@ -36,19 +38,28 @@ def _draw(init, shape, gen: torch.Generator) -> torch.Tensor:
   raise ValueError(f"unknown initializer {law!r}")
 
 
-def make_weights(config, seed: int, device) -> List[Tuple[str, torch.Tensor]]:
-  """[(name, float32 tensor on `device`)] of every parameter in the
-  optimizer's order, drawn on the device by one generator seeded from
-  `seed`: the energy's leaves from config["energy"]["init"], the
-  circuit's from config["circuit"]["init"] ({"uniform": [lo, hi]} or
-  {"normal": [mean, stddev]})."""
+def _reference(name: str):
+  return importlib.import_module(f"portbench.reference.{name}")
+
+
+def make_weights(config, loss: str, seed: int,
+                 device) -> List[Tuple[str, torch.Tensor]]:
+  """[(name, float32 tensor on `device`)] of every leaf of every part that
+  the reference of `loss` lists (`parts(config)`: [(the part's own
+  configuration, its key there, the prefix of its leaf names)]), part by
+  part in that order, drawn on the device by one generator seeded from
+  `seed`.  A part's leaves are its kind's (`reference/<kind>.py`,
+  `leaf_shapes`), each drawn from the part's "init" ({"uniform": [lo,
+  hi]} or {"normal": [mean, stddev]})."""
   gen = torch.Generator(device=device)
   gen.manual_seed(seeds(seed)["weights"])
   out = []
-  for part in ("energy", "circuit"):
-    module = reference_vqt.kind(config[part]["kind"])
-    for name, shape in module.leaf_shapes(config):
-      out.append((name, _draw(config[part]["init"], shape, gen)))
+  for part_config, part, prefix in _reference(loss).parts(config):
+    spec = part_config[part]
+    for name, shape in _reference(spec["kind"]).leaf_shapes(part_config):
+      out.append((prefix + name, _draw(spec["init"], shape, gen)))
+  if len({name for name, _ in out}) != len(out):
+    raise ValueError(f"{loss}: two drawn leaves share a name")
   return out
 
 
