@@ -76,6 +76,7 @@ class EnergyInference(abc.ABC):
   def support_and_counts(self, generator: Optional[torch.Generator] = None):
     """([U, n] float support, [U] float counts), both without grad."""
 
+  @tracing.spanned("qhbm.ebm.log_partition")
   def log_partition_forward(self, generator=None) -> torch.Tensor:
     """log Z (value only): the uniform-sampling Monte Carlo estimate n log 2
     - log Ns + LSE(-E(x_i)) over Ns uniform bitstrings (reference
@@ -378,7 +379,8 @@ class GibbsWithGradientsInference(EnergyInference):
     state, samples = chain_state, []
     with torch.no_grad():
       for _ in range(num_steps):
-        state = self._step_fn(self._energy, state, generator)
+        with tracing.span("qhbm.ebm.gwg_step"):
+          state = self._step_fn(self._energy, state, generator)
         samples.append(state)
     if not samples:
       return chain_state.new_zeros((0,) + tuple(chain_state.shape)), state

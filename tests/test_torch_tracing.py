@@ -197,3 +197,55 @@ def test_span_names_keep_to_the_program_s_prefix():
         names.add(node.args[0].value)
   assert set(ONE_CHUNK) <= names
   assert all(n.startswith(tracing.PREFIX) for n in names), names
+
+
+def gwg_inference(chains=4, samples=12, burn_in=0):
+  """A KOBE-2 energy on N bits sampled by `chains` GWG chains."""
+  energy = models.KOBE(list(range(N)), 2,
+                       initializer=nn.RandomUniform(-0.5, 0.5, seed=3),
+                       device="cpu")
+  return ebm.GibbsWithGradientsInference(
+      energy, samples, num_burnin_samples=burn_in, num_chains=chains,
+      max_unique_samples=ROWS, initial_seed=3, device="cpu")
+
+
+def test_gwg_records_one_span_a_chain_step_under_a_profiler_only():
+  e_inf = gwg_inference(chains=4, samples=12)
+  tracing.reset()
+  e_inf.sample_with_state(None, 12)
+  assert tracing.totals() == {}
+  totals, events = profiled(lambda: e_inf.sample_with_state(None, 12),
+                            steps=2)
+  assert totals["qhbm.ebm.gwg_step"]["calls"] == 2 * 3  # ceil(12 / 4) a call
+  assert "qhbm.ebm.gwg_step" in events
+  # The threaded support of a train step: no burn-in, so one span a step.
+  totals, _ = profiled(lambda: e_inf.support_counts_state(None, None))
+  assert totals["qhbm.ebm.gwg_step"]["calls"] == 3
+  # The stateful API burns in first on a parameter change: its steps count
+  # too.
+  burning = gwg_inference(chains=4, samples=12, burn_in=5)
+  totals, _ = profiled(lambda: burning.support_and_counts())
+  assert totals["qhbm.ebm.gwg_step"]["calls"] == 5 + 3
+  inside = totals["qhbm.ebm.gwg_step"]["total_ms"]
+  assert inside <= totals["qhbm.ebm.sample"]["total_ms"]
+
+
+def test_log_partition_spans_the_monte_carlo_forward_only():
+  e_inf = gwg_inference()
+  totals, events = profiled(lambda: e_inf.log_partition_with_state(None,
+                                                                   None))
+  assert totals["qhbm.ebm.log_partition"]["calls"] == 1
+  assert "qhbm.ebm.log_partition" in events
+  kobe = models.KOBE(list(range(N)), 2, device="cpu")
+  bernoulli = models.BernoulliEnergy(list(range(N)), device="cpu")
+  exact = (ebm.AnalyticEnergyInference(kobe, 20, initial_seed=1,
+                                       device="cpu"),
+           ebm.BernoulliEnergyInference(bernoulli, 20, initial_seed=1,
+                                        device="cpu"))
+  for inference in exact:
+    totals, _ = profiled(lambda: (inference.log_partition(),
+                                  inference.log_partition_forward()))
+    assert "qhbm.ebm.log_partition" not in totals, type(inference)
+  # And no span of the VQT step's changes.
+  totals, _ = profiled(vqt_step())
+  assert not {"qhbm.ebm.log_partition", "qhbm.ebm.gwg_step"} & set(totals)
