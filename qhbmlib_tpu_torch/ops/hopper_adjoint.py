@@ -32,6 +32,10 @@ no symbol is one `hopper_sv.flip_apply` of both states.
 state of 8 to 20 qubits in one cooperative launch over a stage table; its
 1q reductions are the same per-qubit 2x2 transitions (kTrans records).
 
+A sweep that returns only the gradient stops at its last reduction: the
+stages past it and the last one's un-apply would write states that nothing
+reads (`trim_tail`).
+
 The per-gate algebra on the reductions (the suffix-conjugated dU
 contractions, coefficient groupings) runs on the host after the sweep, as
 `_assemble_grads` does outside the Pallas kernels.
@@ -345,9 +349,9 @@ def _backward_1q(seg_gates, seg_angles, nr: int, m: int):
 def backward_plan(circuit: ir.Circuit, symbol_values):
   """Host reverse stages, in sweep order, and the assembly plan:
   ("bwd1q", gradient qubits, inverse ops), ("bwddiag", (weights, row_masks,
-  col_masks)) with the FORWARD weights of the segment, or ("bwddense",
-  record of U^-1, record of dU/dangle or None for a gate with no
-  symbol)."""
+  col_masks)) with the FORWARD weights of the segment (None: no un-apply,
+  `trim_tail`), or ("bwddense", record of U^-1, record of dU/dangle or None
+  for a gate with no symbol)."""
   n = circuit.num_qubits
   m = sv.minor_bits(n)
   nr = n - m
@@ -381,23 +385,64 @@ def backward_plan(circuit: ir.Circuit, symbol_values):
   return stages, plan
 
 
+def _feeds(stage, entry) -> bool:
+  """Whether a host reverse stage gives a reduction that the gradient
+  reads: a 1q stage with gradient qubits, a diagonal stage with a gate of
+  a symbol, a flip gate with a symbol."""
+  if stage[0] == "bwd1q":
+    return bool(stage[1])
+  if stage[0] == "bwddiag":
+    return bool(entry[1]["grad_gates"])
+  return stage[2] is not None
+
+
+def trim_tail(host_stages, plan):
+  """The host reverse stages and assembly plan (`backward_plan`) of a
+  sweep whose caller reads only the gradient, not the final a and lambda:
+  every stage after the last one that feeds the gradient goes, with its
+  plan entry, and that stage keeps its reduction without the un-apply (a
+  1q stage its transitions, no passes; a diagonal stage its bilinears, no
+  rotation planes).  A flip gate with a symbol un-applies in its
+  reduction's own pass and stays whole.  Each reduction left is the same
+  on the same states, so the gradient is unchanged."""
+  last = max((i for i, (st, entry) in enumerate(zip(host_stages, plan))
+              if _feeds(st, entry)), default=-1)
+  # Nothing to drop: no stage at all, or a last stage whose un-apply rides
+  # in its reduction's pass.
+  if last == len(host_stages) - 1 and (
+      last < 0 or host_stages[last][0] == "bwddense"):
+    return host_stages, plan
+  with tracing.span("qhbm.adjoint.trim_tail"):
+    stages = list(host_stages[:last + 1])
+    if stages and stages[-1][0] == "bwd1q":
+      stages[-1] = ("bwd1q", stages[-1][1], [])
+    elif stages and stages[-1][0] == "bwddiag":
+      stages[-1] = ("bwddiag", (None,) + stages[-1][1][1:])
+    return stages, list(plan[:last + 1])
+
+
 @tracing.spanned("qhbm.adjoint.prepare_backward")
-def prepare_backward(circuit: ir.Circuit, symbol_values, device):
+def prepare_backward(circuit: ir.Circuit, symbol_values, device,
+                     keep_states: bool = True):
   """Reverse stages of the batched sweep and the assembly plan:
   ("bwd1q", gradient qubits, passes) with device operators (`plan_passes`),
-  ("bwddiag", row_masks, col_masks, (cos, sin)) with the segment's forward
-  rotation planes, or ("bwddense", inverse record, derivative record or
-  None) as `backward_plan` gives it.  Host operators and weights cross in
-  one copy."""
+  ("bwddiag", row_masks, col_masks, (cos, sin) or None) with the segment's
+  forward rotation planes, or ("bwddense", inverse record, derivative
+  record or None) as `backward_plan` gives it.  `keep_states=False`, for a
+  caller that reads only the gradient, drops the work past the last
+  reduction (`trim_tail`) before anything is folded into passes or copied.
+  Host operators and weights cross in one copy."""
   n = circuit.num_qubits
   shape_rc = sv.state_shape(n)
   nr = n - sv.minor_bits(n)
   host_stages, plan = backward_plan(circuit, symbol_values)
+  if not keep_states:
+    host_stages, plan = trim_tail(host_stages, plan)
   host = []
   for st in host_stages:
     if st[0] == "bwd1q":
       host.extend(t for _, op in st[2] for t in hopper_sv.split(op))
-    elif st[0] == "bwddiag":
+    elif st[0] == "bwddiag" and st[1][0] is not None:
       host.append(torch.from_numpy(st[1][0]))
   moved = iter(hopper_sv.to_device(host, device))
   out = []
@@ -406,9 +451,10 @@ def prepare_backward(circuit: ir.Circuit, symbol_values, device):
       ops = [(bits, (next(moved), next(moved))) for bits, _ in st[2]]
       out.append(("bwd1q", st[1], hopper_sv.plan_passes(ops, nr)))
     elif st[0] == "bwddiag":
-      _, rms, cms = st[1]
-      out.append(("bwddiag", rms, cms, hopper_sv.rotation_planes(
-          next(moved), rms, cms, shape_rc)))
+      weights, rms, cms = st[1]
+      planes = (None if weights is None else hopper_sv.rotation_planes(
+          next(moved), rms, cms, shape_rc))
+      out.append(("bwddiag", rms, cms, planes))
     else:
       out.append(st)
   return out, plan
@@ -509,9 +555,12 @@ def adjoint_sweep_batched(circuit: ir.Circuit, symbol_values, psi: Planes,
   are folded on the host from it.  `overwrite` = (psi's, lam's) says which
   input the sweep may un-apply in place (contiguous planes the caller no
   longer needs: no copy of them is made); the others are not modified.
-  `plain=True` runs the kernels' plain versions (reference only)."""
+  The sweep stops at its last reduction (`trim_tail`): what it leaves in
+  an overwritten input is not the initial state.  `plain=True` runs the
+  kernels' plain versions (reference only)."""
   device = psi[0].device
-  stages, plan = prepare_backward(circuit, symbol_values, device)
+  stages, plan = prepare_backward(circuit, symbol_values, device,
+                                  keep_states=False)
   # The diagonal and flip stages un-apply in place: copies of what must
   # survive.
   a, lm = [tuple(t if mine and t.is_contiguous() else

@@ -34,7 +34,8 @@ ONE_CHUNK = {
     "qhbm.sv.prepare_segments": 1, "qhbm.sv.stages": 1,
     "qhbm.sv.expectation_terms": 1, "qhbm.sv.apply_pauli_sum": 1,
     "qhbm.adjoint.prepare_backward": 1, "qhbm.adjoint.sweep_stages": 1,
-    "qhbm.adjoint.assemble": 1, "qhbm.sync.unique": 1,
+    "qhbm.adjoint.assemble": 1, "qhbm.adjoint.trim_tail": 1,
+    "qhbm.sync.unique": 1,
     "qhbm.sync.host_values": 1, "qhbm.sync.basis_planes": 1,
     "qhbm.sync.reductions": 1, "qhbm.sync.gradient": 1,
 }
@@ -50,6 +51,7 @@ CHILDREN = {
                               "qhbm.adjoint.prepare_backward",
                               "qhbm.adjoint.sweep_stages",
                               "qhbm.adjoint.assemble"),
+    "qhbm.adjoint.prepare_backward": ("qhbm.adjoint.trim_tail",),
     "qhbm.adjoint.assemble": ("qhbm.sync.reductions", "qhbm.sync.gradient"),
 }
 
